@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels with their plain PyTorch versions. The build
+module (``kernels/build.py``) is imported only when a kernel launches."""
+
+from fdtpu_torch.kernels.nms import (  # noqa: F401
+    decode_filter_nms_batch,
+    decode_filter_nms_reference,
+    grid_decode_tables,
+    grid_tables_on,
+    ssd_output_decode_tables,
+)

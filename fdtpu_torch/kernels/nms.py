@@ -1,0 +1,230 @@
+"""Fused decode + confidence filter + greedy NMS: the counterpart of
+``fdtpu/kernels/nms_pallas.py``.
+
+One semantics at every batch size, that of fdtpu's batched Pallas kernel
+(``_batched_nms_kernel``):
+
+* decode is linear, ``pixel = value * scale + offset`` with per-row tables
+  (:func:`grid_decode_tables`, :func:`ssd_output_decode_tables`), then xyxy
+  corners rounded half to even;
+* a candidate is alive iff ``conf > probability_threshold`` (strict);
+* ``capacity`` greedy rounds, each a masked argmax over all candidates (the
+  lowest index wins ties), one emitted row ``[score, x, y, w, h]`` and the
+  suppression of every candidate with IoU ``> iou_threshold`` against it.
+  Rows come out compacted in descending score order; rows after the last
+  valid one are zero. There is no top-``capacity`` pre-truncation.
+
+:func:`decode_filter_nms_batch` dispatches on where the tensor lies: a CPU
+tensor goes to the plain PyTorch version, :func:`decode_filter_nms_reference`;
+a CUDA tensor goes to the hand-written kernel
+(``csrc/decode_filter_nms.cu``) or the call raises. Thresholds are rounded to
+float32 once here, and those values go to either version, as JAX compares a
+float32 plane against a weakly typed Python float in float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+# -- decode tables --------------------------------------------------------------
+
+
+def grid_decode_tables(num_patches: int, image_size: tuple[int, int]):
+    """Per-candidate ``(scale_x, off_x, scale_y, off_y, scale_w, scale_h)`` for
+    a row-major-flattened ``(S, S, 5)`` grid map; numpy float32, as
+    ``nms_pallas.grid_decode_tables``."""
+    width, height = image_size
+    s = num_patches
+    xp, yp = width / s, height / s
+    cols = np.tile(np.arange(s, dtype=np.float32), s)  # x-cell per flat row
+    rows = np.repeat(np.arange(s, dtype=np.float32), s)
+    n = s * s
+    return (
+        np.full(n, xp, np.float32), cols * xp,
+        np.full(n, yp, np.float32), rows * yp,
+        float(width), float(height),
+    )
+
+
+def ssd_output_decode_tables(num_priors: int, image_size: tuple[int, int]):
+    """Tables for SSD model output (priors applied in the graph): pixel
+    scaling only, as ``nms_pallas.ssd_output_decode_tables``."""
+    width, height = image_size
+    n = num_priors
+    return (
+        np.full(n, width, np.float32), np.zeros(n, np.float32),
+        np.full(n, height, np.float32), np.zeros(n, np.float32),
+        float(width), float(height),
+    )
+
+
+@functools.lru_cache(maxsize=32)
+def grid_tables_on(num_patches: int, image_size: tuple[int, int], device: torch.device):
+    """:func:`grid_decode_tables` as float32 tensors on ``device``, made once
+    per ``(num_patches, image_size, device)``. The tensors are shared by
+    every caller and never written."""
+    *cols, w_scale, h_scale = grid_decode_tables(num_patches, image_size)
+    return (*(torch.from_numpy(c).to(device) for c in cols), w_scale, h_scale)
+
+
+def _f32(v: float) -> float:
+    """A Python float rounded to the nearest float32 value."""
+    return float(np.float32(v))
+
+
+# -- the plain version ------------------------------------------------------------
+
+
+def decode_filter_nms_reference(
+    values: torch.Tensor,
+    tables,
+    probability_threshold: float,
+    iou_threshold: float,
+    capacity: int = 128,
+):
+    """Plain batched PyTorch decode+filter+NMS with the kernel's semantics.
+
+    ``values``: ``(B, N, 5)`` float32 rows ``[conf, x, y, w, h]`` as the model
+    emits them; ``tables``: ``(sx, ox, sy, oy)`` float32 ``(N,)`` tensors on
+    ``values``' device, then ``w_scale, h_scale`` floats. Returns ``boxes``
+    ``(B, capacity, 5)`` float32 and ``mask`` ``(B, capacity)`` bool. The
+    scalars are rounded to float32 first, as the kernel receives them.
+
+    Every step is its own elementwise op (no fused multiply-add), so the
+    results are bit-equal to the CUDA kernel's and to fdtpu's kernel in
+    interpret mode. It checks for survivors every 8 rounds, like fdtpu's
+    ``_greedy_loop``; skipped rounds would only write zero rows.
+    """
+    sx, ox, sy, oy, w_scale, h_scale = tables
+    w_scale, h_scale = _f32(w_scale), _f32(h_scale)
+    probability_threshold, iou_threshold = _f32(probability_threshold), _f32(iou_threshold)
+    conf = values[..., 0]
+    x = values[..., 1] * sx + ox
+    y = values[..., 2] * sy + oy
+    w = values[..., 3] * w_scale
+    h = values[..., 4] * h_scale
+    x0, y0, x1, y1 = (torch.round(v) for v in (x, y, x + w, y + h))
+    area = (x1 - x0).clamp_min(0.0) * (y1 - y0).clamp_min(0.0)
+
+    b, n = conf.shape
+    dev = values.device
+    cand = torch.arange(n, device=dev).expand(b, n)
+    rows = torch.arange(b, device=dev)
+    boxes = torch.zeros((b, capacity, 5), dtype=torch.float32, device=dev)
+    mask = torch.zeros((b, capacity), dtype=torch.bool, device=dev)
+    alive = conf > probability_threshold
+    for k in range(capacity):
+        if k % 8 == 0 and not bool(alive.any()):
+            break
+        sc = torch.where(alive, conf, -1.0)
+        best = sc.amax(dim=1)
+        valid = best > -0.5
+        idx = torch.where(sc == best[:, None], cand, n).amin(dim=1)
+        bx0, by0, bx1, by1, barea = (v[rows, idx] for v in (x0, y0, x1, y1, area))
+        row = torch.stack([best, bx0, by0, bx1 - bx0, by1 - by0], dim=1)
+        boxes[:, k] = torch.where(valid[:, None], row, 0.0)
+        mask[:, k] = valid
+
+        ix0 = torch.maximum(x0, bx0[:, None])
+        iy0 = torch.maximum(y0, by0[:, None])
+        ix1 = torch.minimum(x1, bx1[:, None])
+        iy1 = torch.minimum(y1, by1[:, None])
+        inter = (ix1 - ix0).clamp_min(0.0) * (iy1 - iy0).clamp_min(0.0)
+        union = area + barea[:, None] - inter
+        iou = torch.where(union > 0, inter / union, 0.0)
+        alive = alive & (iou <= iou_threshold) & (cand != idx[:, None]) & valid[:, None]
+    return boxes, mask
+
+
+# -- the dispatching wrapper --------------------------------------------------------
+
+
+def decode_filter_nms_batch(
+    values: torch.Tensor,
+    tables,
+    probability_threshold: float,
+    iou_threshold: float,
+    capacity: int = 128,
+):
+    """Batched fused decode+filter+NMS; the counterpart of
+    ``pallas_decode_filter_nms_batch`` (and, at ``B = 1``, of
+    ``pallas_decode_filter_nms``).
+
+    ``values``: ``(B, N, 5)`` float32; ``tables``: from one of the
+    ``*_decode_tables`` functions (numpy) or :func:`grid_tables_on` (tensors).
+    Returns ``(boxes (B, capacity, 5) [score, x, y, w, h] pixels, mask)``.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel,
+    and :attr:`decode_filter_nms_batch.launches` counts each launch; anything
+    the kernel does not take raises.
+    """
+    if values.dim() != 3 or values.shape[-1] != 5:
+        raise ValueError(f"values must be (B, N, 5), got {tuple(values.shape)}")
+    if values.dtype != torch.float32:
+        raise TypeError(f"values must be float32, got {values.dtype}")
+    b, n, _ = values.shape
+    if b < 1 or n < 1 or capacity < 1:
+        raise ValueError(f"empty problem: B={b}, N={n}, capacity={capacity}")
+    sx, ox, sy, oy, w_scale, h_scale = tables
+    cols = tuple(
+        torch.as_tensor(t, dtype=torch.float32, device=values.device)
+        for t in (sx, ox, sy, oy)
+    )
+    if any(c.shape != (n,) for c in cols):
+        raise ValueError(f"decode tables must each be ({n},)")
+    scalars = tuple(_f32(v) for v in (w_scale, h_scale, probability_threshold, iou_threshold))
+    w_scale, h_scale, prob, iou = scalars
+
+    if values.device.type == "cpu":
+        return decode_filter_nms_reference(
+            values, (*cols, w_scale, h_scale), prob, iou, capacity
+        )
+    if values.device.type != "cuda":
+        raise ValueError(f"no kernel for device {values.device}")
+    if not values.is_contiguous() or not all(c.is_contiguous() for c in cols):
+        raise ValueError("values and decode tables must be contiguous")
+
+    from fdtpu_torch.kernels import build
+
+    lib = build.load_library()
+    dev = values.device.index if values.device.index is not None else torch.cuda.current_device()
+    max_n = max_candidates(dev)
+    if n > max_n:
+        raise ValueError(f"N={n} candidates exceed the kernel's limit of {max_n} on this card")
+    boxes = torch.zeros((b, capacity, 5), dtype=torch.float32, device=values.device)
+    mask = torch.zeros((b, capacity), dtype=torch.bool, device=values.device)
+    with torch.cuda.device(dev):
+        err = lib.fdtpu_decode_filter_nms(
+            values.data_ptr(), *(c.data_ptr() for c in cols),
+            w_scale, h_scale, prob, iou, b, n, capacity,
+            boxes.data_ptr(), mask.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"decode_filter_nms kernel launch failed: {build.cuda_error_string(err)}"
+        )
+    decode_filter_nms_batch.launches += 1
+    return boxes, mask
+
+
+decode_filter_nms_batch.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def max_candidates(device_index: int) -> int:
+    """The kernel's largest N: the most candidates whose planes fit one
+    CTA's shared memory on the card ``device_index``."""
+    from fdtpu_torch.kernels import build
+
+    out = ctypes.c_int(0)
+    err = build.load_library().fdtpu_decode_filter_nms_max_candidates(
+        device_index, ctypes.byref(out)
+    )
+    if err != 0:
+        raise RuntimeError(f"querying the card failed: {build.cuda_error_string(err)}")
+    return out.value

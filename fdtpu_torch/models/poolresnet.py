@@ -1,0 +1,80 @@
+"""PoolResnet grid detector (``fdtpu/models/poolresnet.py``).
+
+Stem conv k=10 stride=8 (480 -> 60), residual blocks that max-pool while
+the spatial size exceeds twice the grid, then a valid head conv (k=6 by
+default, 15 -> 10 at 480 px / grid 10) and a float32 sigmoid.
+
+The stem is the plain convolution; fdtpu's two-stage stem lowering has the
+same math and the same params, so its weights load here unchanged.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from fdtpu_torch.models.layers import Dropout2d, ResidualBlock, lecun_normal_
+
+
+class PoolResnet(nn.Module):
+    """Args mirror fdtpu's ``PoolResnet``. Submodules are named after the
+    reference torch model: ``conv1``, ``residual_blocks.{i}.conv1/.conv2``,
+    ``out``.
+
+    ``forward`` takes ``(B, H, W, 3)`` images and returns the ``(B, S, S, 5)``
+    float32 grid map. It computes in the dtype of the module's weights: a
+    bfloat16 copy of the module runs in bfloat16 with float32 output.
+    """
+
+    def __init__(
+        self,
+        filters: int,
+        input_shape: tuple[int, int],  # (height, width)
+        num_patches: int,
+        num_residual_blocks: int = 10,
+        input_kernel_size: int = 10,
+        input_stride: int = 8,
+        output_kernel_size: int = 6,
+        output_padding: int = 0,
+        dropout: float = 0.25,
+        head_dropout: float = 0.5,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.input_shape = tuple(input_shape)
+        self.num_patches = num_patches
+        self.num_residual_blocks = num_residual_blocks
+        self.input_kernel_size = input_kernel_size
+        self.input_stride = input_stride
+        self.output_kernel_size = output_kernel_size
+        self.output_padding = output_padding
+
+        pad = input_kernel_size - input_stride
+        self.conv1 = nn.Conv2d(3, filters, input_kernel_size, stride=input_stride, padding=pad)
+        self.residual_blocks = nn.ModuleList(
+            ResidualBlock(filters, pool_until=2 * num_patches, dropout=dropout)
+            for _ in range(num_residual_blocks)
+        )
+        self.head_dropout = Dropout2d(head_dropout)
+        self.out = nn.Conv2d(filters, 5, output_kernel_size, padding=output_padding)
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                lecun_normal_(m, generator)
+
+    def grid_size(self) -> int:
+        """Static output grid arithmetic (conv/pool floor semantics)."""
+        pad = self.input_kernel_size - self.input_stride
+        dim = (self.input_shape[0] + 2 * pad - self.input_kernel_size) // self.input_stride + 1
+        for _ in range(self.num_residual_blocks):
+            if dim > 2 * self.num_patches:
+                dim //= 2
+        return dim + 2 * self.output_padding - self.output_kernel_size + 1
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        # an NHWC tensor seen as NCHW is in channels_last memory format
+        x = images.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
+        x = self.conv1(x)
+        for block in self.residual_blocks:
+            x = block(x)
+        x = self.out(self.head_dropout(x))
+        return torch.sigmoid(x.float()).permute(0, 2, 3, 1).contiguous()
