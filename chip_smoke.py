@@ -21,11 +21,38 @@ non-zero; without a CUDA card it fails at once and prints no result):
    kernel's launch count must rise once per call, and the batch path's boxes
    must equal the plain version's on the same forward output;
 6. timings with CUDA events after warmup: kernel against plain version at
-   three shapes, the b128 forward + decode, the b1 predict latency.
+   three shapes, the b128 forward + decode, the b1 predict latency;
+7. the rotation kernels (shear_rows, shear_cols) against their plain
+   versions on the card, every pass and the whole rotate_batch, float32 and
+   bfloat16, B in {1, 8, 26}, S in {200, 320, 480} (200 = 8 mod 16), angles
+   0, +-ROTATE_LIMIT_RAD and random; and K4's rotate_batch_transposed.
+   Bit-equal;
+8. one float32 SAM + SGD train step at DetectorConfig() (480 px, grid 10,
+   B=2, augmentation and dropout off, TF32 off) on the card against the
+   same step on the CPU: loss rtol 1e-4, grad norm rtol 1e-3, and the
+   update (params after minus before) in relative L2 norm, 1e-2 over all
+   params and 5e-2 for each tensor. The update is held in norm, not
+   element by element: a pre-activation or max-pool pair that rounds to the
+   other side of a leaky-ReLU or max-pool kink moves a few elements far,
+   and which ones flip depends on the CPU's oneDNN kernels as much as on
+   the card (oneDNN limited to AVX2 moves the update by 1.6e-3 in norm,
+   1.2e-2 in one tensor, and 5.3e-5 in one element, against the same
+   CPU with AVX-512). A wrong gradient in any tensor is off by order 1;
+9. the training path: bf16 compute, float32 params, SAM + Adam, device
+   augmentation with rotation, dropout on; five steps at the bench shape
+   (PoolResnet-128, 10 blocks, 320 px, grid 15, B=128, positional crop) and
+   five at DetectorConfig() with B=8, the last of each with train metrics.
+   Losses finite, params moving; the shear launch counts rise by 3 per
+   rotate_batch (one per step) and the NMS kernel launches once per metrics
+   step;
+10. timings with CUDA events after warmup: train img/s at b128/320 with
+    rotation on and off, the b8/480 step, each shear kernel against its
+    plain version at the shapes the training path gives it (and shear_rows
+    on K4's channel-stacked planes of the same images).
 
-The line before the last is a JSON object with the kernel's launches, error
-and times; the last is ``{"ok": true, "device": {...}}``. Weights are random,
-drawn from a fixed seed.
+The line before the last is a JSON object with each kernel's launches (from
+the serving and training paths), error and times; the last is ``{"ok":
+true, "device": {...}}``. Weights are random, drawn from a fixed seed.
 """
 
 from __future__ import annotations
@@ -40,8 +67,11 @@ import torch
 
 from fdtpu_torch.kernels import build
 from fdtpu_torch.kernels import nms as knms
-from fdtpu_torch.models import Detector, build_model
-from fdtpu_torch.utils.config import DetectorConfig
+from fdtpu_torch.kernels import rotate as krot
+from fdtpu_torch.models import Detector, PoolResnet, build_model
+from fdtpu_torch.train import create_train_state, make_train_step
+from fdtpu_torch.train.sam import global_norm
+from fdtpu_torch.utils.config import DetectorConfig, TrainConfig
 
 SEED = 0
 FORWARD_ATOL = 1e-4  # float32 card vs CPU: summation order only, TF32 off
@@ -52,6 +82,15 @@ KERNEL = {
     "source": "fdtpu_torch/kernels/csrc/decode_filter_nms.cu",
     "replaces": "fdtpu/kernels/nms_pallas.py:197",
 }
+SHEARS = {
+    "shear_rows": {"route": "cuda", "source": "fdtpu_torch/kernels/csrc/rotate_shear.cu",
+                   "replaces": "fdtpu/kernels/rotate_pallas.py:197"},
+    "shear_cols": {"route": "cuda", "source": "fdtpu_torch/kernels/csrc/rotate_shear.cu",
+                   "replaces": "fdtpu/kernels/rotate_pallas.py:232"},
+}
+TRAIN_RTOL_LOSS, TRAIN_RTOL_GRAD_NORM = 1e-4, 1e-3
+TRAIN_RTOL_UPDATE, TRAIN_RTOL_UPDATE_TENSOR = 1e-2, 5e-2  # relative L2, phase 8
+TRAIN_STEPS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -261,6 +300,201 @@ def phase_timings(card, det480, det320, batch):
     return times[(128, 225, 64)]
 
 
+# -- training -------------------------------------------------------------------
+
+
+def shear_inputs(x, angles):
+    """rotate_batch's first-pass planes ``(K, Hp, Hp * 3)``, its
+    coefficients and its center (exact in float32)."""
+    padded, _, center, k1, k2 = krot._prepare(x, angles)
+    return padded.reshape(*padded.shape[:2], -1), k1, k2, center
+
+
+def phase_rotate_vs_plain() -> float:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lim = krot.ROTATE_LIMIT_RAD
+    worst, runs = 0.0, 0
+
+    def same(got, want, what):
+        nonlocal worst, runs
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        runs += 1
+        check(got.dtype == want.dtype and torch.equal(got, want), f"{what} differs (max {err})")
+
+    for s in (200, 320, 480):
+        for dtype in (torch.float32, torch.bfloat16):
+            for b in (1, 8, 26):
+                x = (torch.rand((b, s, s, 3), generator=gen, device="cuda") * 255).to(dtype)
+                rand = (torch.rand((max(b, 4),), generator=gen, device="cuda") * 2 - 1) * lim
+                pattern = torch.cat([torch.tensor([0.0, lim, -lim], device="cuda"), rand[3:]])
+                cases = [pattern[i : i + 1] for i in range(4)] if b == 1 else [pattern[:b]]
+                for ang in cases:
+                    where = f"B={b} S={s} {dtype} angles {[round(a, 4) for a in ang.tolist()[:4]]}"
+                    same(krot.rotate_batch(x, ang), krot.rotate_batch_reference(x, ang),
+                         f"rotate_batch at {where}")
+                    same(krot.rotate_batch_transposed(x, ang),
+                         krot.rotate_batch_transposed_reference(x, ang),
+                         f"rotate_batch_transposed (K4) at {where}")
+                # every pass on its own, each fed the kernel's previous output
+                planes, k1, k2, center = shear_inputs(x, pattern[:b])
+                p1 = krot.shear_rows(planes, k1, 3, 0, center)
+                same(p1, krot.shear_rows_reference(planes, k1, 3, 0, center),
+                     f"shear_rows pass 1 at B={b} S={s} {dtype}")
+                p2 = krot.shear_cols(p1, k2, 3, center)
+                same(p2, krot.shear_cols_reference(p1, k2, 3, center),
+                     f"shear_cols pass 2 at B={b} S={s} {dtype}")
+    torch.cuda.synchronize()
+    print(f"[7 rotate=plain] {runs} comparisons bit-equal (rotate_batch, K4's "
+          f"rotate_batch_transposed, and the passes alone); max |kernel - plain| = {worst}")
+    return worst
+
+
+def bench_like_batch(b, size, device):
+    """``bench.py``'s train batch: random u8 frames, one face per image."""
+    rng = np.random.default_rng(SEED + 6)
+    images = rng.integers(0, 255, size=(b, size, size, 3), dtype=np.uint8)
+    boxes = np.zeros((b, 4, 5), dtype=np.float32)
+    boxes[:, 0] = [1.0, 40, 60, 120, 100]
+    masks = np.tile([True, False, False, False], (b, 1))
+    return tuple(torch.from_numpy(a).to(device) for a in (images, boxes, masks))
+
+
+def phase_train_f32() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DetectorConfig()
+    tcfg = TrainConfig(optimizer="sgd", learning_rate=1e-2)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        module = PoolResnet(cfg.filters, cfg.input_shape, cfg.num_patches,
+                            cfg.num_residual_blocks, dropout=0.0, head_dropout=0.0,
+                            generator=torch.Generator().manual_seed(SEED + 5)).to(dev)
+        before = [p.detach().cpu().clone() for p in module.parameters()]
+        state = create_train_state(module, tcfg, 100)
+        step = make_train_step(module, tcfg, augment=False)
+        state, sc = step(state, *bench_like_batch(2, 480, dev))
+        got[dev] = (sc["loss"].item(), sc["grad_norm"].item(),
+                    [p.detach().cpu() - q for p, q in zip(module.parameters(), before)])
+    (l_c, g_c, u_c), (l_g, g_g, u_g) = got["cpu"], got["cuda"]
+    loss_err, gn_err = abs(l_g / l_c - 1), abs(g_g / g_c - 1)
+    diff = [a - b for a, b in zip(u_g, u_c)]
+    upd_err = global_norm(diff).item() / global_norm(u_c).item()
+    tensor_err = max((d.norm() / u.norm()).item() for d, u in zip(diff, u_c))
+    p_err = max(d.abs().max().item() for d in diff)
+    check(np.isfinite([l_g, g_g]).all(), "non-finite f32 train step on the card")
+    check(loss_err <= TRAIN_RTOL_LOSS, f"loss card {l_g} vs CPU {l_c}")
+    check(gn_err <= TRAIN_RTOL_GRAD_NORM, f"grad norm card {g_g} vs CPU {g_c}")
+    check(upd_err <= TRAIN_RTOL_UPDATE, f"update differs by {upd_err} in relative L2")
+    check(tensor_err <= TRAIN_RTOL_UPDATE_TENSOR,
+          f"a tensor's update differs by {tensor_err} in relative L2")
+    print(f"[8 train f32] SAM + SGD step, PoolResnet-128x10 480px B=2, card vs CPU: loss "
+          f"{l_g:.6f} vs {l_c:.6f} (rel {loss_err:.3g}, rtol {TRAIN_RTOL_LOSS}); grad norm "
+          f"rel {gn_err:.3g} (rtol {TRAIN_RTOL_GRAD_NORM}); update rel L2 {upd_err:.3g} (rtol "
+          f"{TRAIN_RTOL_UPDATE}), worst tensor {tensor_err:.3g} (rtol {TRAIN_RTOL_UPDATE_TENSOR}); "
+          f"params max abs err {p_err:.3g}")
+
+
+def train_setup(cfg: DetectorConfig, b: int):
+    module = build_model("poolresnet", cfg, "cuda", torch.Generator().manual_seed(SEED),
+                         compute_dtype=torch.bfloat16)
+    tcfg = TrainConfig(rotate_device=True, positional_crop=True, seed=SEED)
+    state = create_train_state(module, tcfg, 100)
+    steps = (make_train_step(module, tcfg), make_train_step(module, tcfg, compute_metrics=True))
+    return state, steps, bench_like_batch(b, cfg.input_shape[0], "cuda")
+
+
+def phase_train_path():
+    runs = {"b128-320": train_setup(BENCH_CFG, 128), "b8-480": train_setup(DetectorConfig(), 8)}
+    before = {k: [p.detach().clone() for p in st.module.parameters()]
+              for k, (st, _, _) in runs.items()}
+
+    krot.shear_rows.launches = krot.shear_cols.launches = 0
+    knms.decode_filter_nms_batch.launches = 0
+    scalars = {}
+    for key, (state, (step, metrics_step), batch) in runs.items():
+        for i in range(TRAIN_STEPS):
+            state, sc = (metrics_step if i == TRAIN_STEPS - 1 else step)(state, *batch)
+            scalars.setdefault(key, []).append(sc)
+    torch.cuda.synchronize()
+    launches = {"shear_rows": krot.shear_rows.launches, "shear_cols": krot.shear_cols.launches,
+                "decode_filter_nms": knms.decode_filter_nms_batch.launches}
+
+    calls = TRAIN_STEPS * len(runs)  # one rotate_batch per step
+    check(launches["shear_rows"] == 2 * calls and launches["shear_cols"] == calls,
+          f"shear launches {launches}, want {2 * calls} and {calls}")
+    check(launches["decode_filter_nms"] == len(runs), f"NMS launches {launches}, want {len(runs)}")
+    for key, (state, _, _) in runs.items():
+        check(state.step == TRAIN_STEPS, f"{key} stepped {state.step} times")
+        losses = [sc["loss"].item() for sc in scalars[key]]
+        check(all(np.isfinite(v) for sc in scalars[key] for v in
+                  (t.item() for t in sc.values())), f"{key} non-finite scalars")
+        moved = max((p - q).abs().max().item()
+                    for p, q in zip(state.module.parameters(), before[key]))
+        check(moved > 0, f"{key} params did not move")
+        check(all(p.dtype == torch.float32 for p in state.module.parameters()),
+              f"{key} params left float32")
+        last = scalars[key][-1]
+        print(f"[9 train path] {key}: losses {[round(v, 3) for v in losses]}, grad norm "
+              f"{last['grad_norm'].item():.4f}, metrics iou {last['iou'].item():.4f} recall "
+              f"{last['recall'].item():.4f} precision {last['precision'].item():.4f}; params "
+              f"moved up to {moved:.3g}")
+    print(f"[9 train path] launches: shear_rows {launches['shear_rows']}, shear_cols "
+          f"{launches['shear_cols']} ({calls} rotate_batch calls), decode_filter_nms "
+          f"{launches['decode_filter_nms']} ({len(runs)} metrics steps)")
+    return launches, runs
+
+
+def step_ms(state, step, batch, iters: int) -> float:
+    def once():
+        step(state, *batch)
+    return event_ms(once, iters, warmup=5)
+
+
+def phase_train_timings(card, runs):
+    state, (step, _), batch = runs["b128-320"]
+    step_off = make_train_step(state.module, TrainConfig(positional_crop=True, seed=SEED))
+    # on, off, off, on: drift on the card hits both alike
+    on1, off1, off2, on2 = (step_ms(state, f, batch, 30) for f in (step, step_off, step_off, step))
+    on, off = (on1 + on2) / 2, (off1 + off2) / 2
+    print(f"[10 time] train b128 320px bf16 SAM+Adam rotation on: {on:.3f} ms/step "
+          f"({128e3 / on:.1f} img/s; runs {on1:.3f}/{on2:.3f}); rotation off: {off:.3f} ms/step "
+          f"({128e3 / off:.1f} img/s; runs {off1:.3f}/{off2:.3f}) [{card}]")
+    state8, (step8, _), batch8 = runs["b8-480"]
+    ms8 = step_ms(state8, step8, batch8, 30)
+    print(f"[10 time] train b8 480px bf16 SAM+Adam rotation on: {ms8:.3f} ms/step "
+          f"({8e3 / ms8:.1f} img/s) [{card}]")
+
+    times = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    # the planes the training path gives the kernels: the 26-image exact-k
+    # subset at b128/320 in bf16, all 8 images at b8/480 in float32
+    for b, s, dtype in ((26, 320, torch.bfloat16), (8, 480, torch.float32)):
+        x = (torch.rand((b, s, s, 3), generator=gen, device="cuda") * 255).to(dtype)
+        ang = (torch.rand((b,), generator=gen, device="cuda") * 2 - 1) * krot.ROTATE_LIMIT_RAD
+        planes, k1, k2, ctr = shear_inputs(x, ang)
+        hp = planes.shape[1]
+        # K4's layout: channels stacked on rows, a row shear with c = 1
+        stacked = planes.reshape(b, hp, hp, 3).permute(0, 3, 1, 2).reshape(b, 3 * hp, hp)
+        pairs = {
+            "shear_rows": (lambda: krot.shear_rows(planes, k1, 3, 0, ctr),
+                           lambda: krot.shear_rows_reference(planes, k1, 3, 0, ctr)),
+            "shear_cols": (lambda: krot.shear_cols(planes, k2, 3, ctr),
+                           lambda: krot.shear_cols_reference(planes, k2, 3, ctr)),
+            "shear_rows, K4 layout": (
+                lambda: krot.shear_rows(stacked, k1, 1, hp, ctr),
+                lambda: krot.shear_rows_reference(stacked, k1, 1, hp, ctr)),
+        }
+        for name, (kern, plain) in pairs.items():
+            shape = tuple((stacked if "K4" in name else planes).shape)
+            p1, k_1, k_2, p2 = (event_ms(f, 20) for f in (plain, kern, kern, plain))
+            times.setdefault(name, ((k_1 + k_2) / 2, (p1 + p2) / 2))
+            print(f"[10 time] {name} {shape} {dtype}: kernel {(k_1 + k_2) / 2:.4f} ms, "
+                  f"plain {(p1 + p2) / 2:.4f} ms (runs {k_1:.4f}/{k_2:.4f} vs {p1:.4f}/{p2:.4f}) "
+                  f"[{card}]")
+    return times
+
+
 def main() -> None:
     card, name = phase_card()
     phase_build()
@@ -268,10 +502,19 @@ def main() -> None:
     phase_forward_f32()
     launches, det480, det320, batch = phase_main_path()
     kernel_ms, plain_ms = phase_timings(card, det480, det320, batch)
-    print(json.dumps({"kernels": [{
-        **KERNEL, "launches": launches, "max_abs_err": worst,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+    rot_worst = phase_rotate_vs_plain()
+    phase_train_f32()
+    train_launches, runs = phase_train_path()
+    shear_times = phase_train_timings(card, runs)
+    kernels = [{
+        **KERNEL, "launches": launches + train_launches["decode_filter_nms"],
+        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+    }]
+    for kname, meta in SHEARS.items():
+        kernels.append({"name": kname, **meta, "launches": train_launches[kname],
+                        "max_abs_err": rot_worst, "ms": shear_times[kname][0],
+                        "plain_ms": shear_times[kname][1]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

@@ -1,3 +1,3 @@
-"""Interop with fdtpu: its Flax params carried across as torch state dicts."""
+"""Interop with fdtpu: its Flax params and train state carried across."""
 
-from fdtpu_torch.compat.from_fdtpu import poolresnet_state_dict  # noqa: F401
+from fdtpu_torch.compat.from_fdtpu import poolresnet_state_dict, train_state_from_fdtpu  # noqa: F401

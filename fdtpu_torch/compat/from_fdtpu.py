@@ -1,8 +1,9 @@
-"""Carry fdtpu's Flax params across to the port's modules.
+"""Carry fdtpu's Flax params, and its train state, across to the port.
 
 fdtpu keeps conv kernels in HWIO; torch keeps them in OIHW. The names follow
 the reference torch model, the same mapping ``fdtpu/compat/torch_import.py``
-applies in the other direction.
+applies in the other direction. Nothing here imports JAX: the leaves are
+read with ``numpy.asarray``.
 """
 
 from __future__ import annotations
@@ -42,3 +43,40 @@ def poolresnet_state_dict(params) -> dict[str, torch.Tensor]:
         sd.update(_conv(params[name]["Conv_1"], f"residual_blocks.{i}.conv2"))
     sd.update(_conv(params["Conv_1"], "out"))
     return sd
+
+
+def train_state_from_fdtpu(state, module, config, steps_per_epoch: int = 1000):
+    """An fdtpu ``TrainState`` (PoolResnet params, optax Adam or SGD) as the
+    port's train state around ``module``: the step, the params through
+    :func:`poolresnet_state_dict`, and optax Adam's ``count``, ``mu`` and
+    ``nu`` as ``torch.optim.Adam``'s ``step``, ``exp_avg`` and
+    ``exp_avg_sq``. A step from the result can then be held against a step
+    of fdtpu's state."""
+    from fdtpu_torch.train.state import create_train_state
+
+    module.load_state_dict(poolresnet_state_dict(state.params))
+    ts = create_train_state(module, config, steps_per_epoch)
+    ts.step = int(np.asarray(state.step))
+    if config.optimizer == "sgd":
+        return ts
+    adam = [s for s in _walk(state.opt_state) if hasattr(s, "mu") and hasattr(s, "nu")]
+    if len(adam) != 1:
+        raise ValueError("expected one optax Adam state in the fdtpu opt_state")
+    mu, nu = poolresnet_state_dict(adam[0].mu), poolresnet_state_dict(adam[0].nu)
+    count = float(np.asarray(adam[0].count))
+    for name, p in module.named_parameters():
+        ts.optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": torch.empty_like(p).copy_(mu[name]),
+            "exp_avg_sq": torch.empty_like(p).copy_(nu[name]),
+        }
+    return ts
+
+
+def _walk(opt_state):
+    """The states inside an optax chain's nested tuples."""
+    if isinstance(opt_state, tuple) and not hasattr(opt_state, "_fields"):
+        for s in opt_state:
+            yield from _walk(s)
+    else:
+        yield opt_state

@@ -8,3 +8,15 @@ from fdtpu_torch.kernels.nms import (  # noqa: F401
     grid_tables_on,
     ssd_output_decode_tables,
 )
+from fdtpu_torch.kernels.rotate import (  # noqa: F401
+    ROTATE_LIMIT_RAD,
+    rotate_batch,
+    rotate_batch_reference,
+    rotate_batch_transposed,
+    rotate_batch_transposed_reference,
+    rotate_boxes,
+    shear_cols,
+    shear_cols_reference,
+    shear_rows,
+    shear_rows_reference,
+)

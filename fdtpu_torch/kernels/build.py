@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``. The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``build/fdtpu_torch/`` at the root of the checkout, named by
 a hash of the sources and flags, so the first use after a change builds it
 and every later process loads it. Nothing outside the package's own sources
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fdtpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -63,22 +64,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    # compile to a private name, then rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
+    nvcc = find_nvcc()
+    # one nvcc per source, all started together, then one link; everything
+    # goes to a private directory and the library is renamed into place, so
+    # a concurrent build never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [(p.args[-3], p.communicate()[0], p.returncode) for p in procs]
+        failed = [f"{src}:\n{log}" for src, log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = os.path.join(tmp, out.name)
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 
@@ -93,6 +103,10 @@ def load_library() -> ctypes.CDLL:
     lib.fdtpu_decode_filter_nms.restype = _I
     lib.fdtpu_decode_filter_nms_max_candidates.argtypes = [_I, ctypes.POINTER(_I)]
     lib.fdtpu_decode_filter_nms_max_candidates.restype = _I
+    lib.fdtpu_shear_rows.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+    lib.fdtpu_shear_rows.restype = _I
+    lib.fdtpu_shear_cols.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+    lib.fdtpu_shear_cols.restype = _I
     lib.fdtpu_cuda_error_string.argtypes = [_I]
     lib.fdtpu_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -50,6 +50,7 @@ class Detector:
         self.nms_capacity = nms_capacity
         self.dtype = dtype
         net = copy.deepcopy(module).eval().requires_grad_(False)
+        net.compute_dtype = None  # the copy computes in its own dtype
         self.net = net.to(dtype=dtype, memory_format=torch.channels_last)
 
     @property
@@ -119,10 +120,13 @@ def build_model(
     config,
     device: torch.device | str | None = None,
     generator: torch.Generator | None = None,
+    compute_dtype: torch.dtype | None = None,
 ) -> PoolResnet:
     """Construct a float32 detector module by family name, its weights drawn
-    from ``generator``. Only ``"poolresnet"`` is ported; the compute dtype
-    (``config.dtype``) is the :class:`Detector`'s, see :data:`DTYPES`."""
+    from ``generator``. Only ``"poolresnet"`` is ported. For serving, the
+    compute dtype (``config.dtype``) is the :class:`Detector`'s, see
+    :data:`DTYPES`; a module to train takes ``compute_dtype`` and keeps its
+    params float32."""
     if name == "poolresnet":
         module = PoolResnet(
             filters=config.filters,
@@ -134,6 +138,7 @@ def build_model(
             output_kernel_size=config.output_kernel_size,
             output_padding=config.output_padding,
             generator=generator,
+            compute_dtype=compute_dtype,
         )
         return module.to(device)
     if name in _NOT_PORTED:

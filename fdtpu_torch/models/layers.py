@@ -3,7 +3,8 @@
 Convolutions and pooling go to cuDNN (or oneDNN on the CPU) through
 ``torch.nn.functional``, as XLA handled them in fdtpu. Weights start from
 fdtpu's Flax defaults (LeCun-normal kernels, zero biases), drawn from an
-explicit ``torch.Generator``.
+explicit ``torch.Generator``. A convolution computes in its input's dtype,
+casting its weights to it (Flax's ``dtype=`` with float32 params).
 """
 
 from __future__ import annotations
@@ -14,9 +15,60 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# torch's nn.Dropout2d has fdtpu's Dropout2d semantics: it zeroes whole
-# channels per sample and rescales survivors by 1/(1 - rate); identity in eval.
-Dropout2d = nn.Dropout2d
+class DropoutMasks:
+    """The channel masks of one forward's dropout layers, drawn from an
+    explicit ``torch.Generator`` (on the activations' device) in call order.
+
+    fdtpu evaluates both SAM points with one dropout key, so both see the
+    same masks: :meth:`rewind` before the second forward replays the masks
+    the first one drew instead of drawing new ones.
+    """
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self._masks: list[torch.Tensor] = []
+        self._next = 0
+
+    def rewind(self) -> None:
+        self._next = 0
+
+    def keep(self, shape: tuple[int, ...], rate: float, device: torch.device) -> torch.Tensor:
+        """The next bool keep-mask of ``shape``, each entry kept with
+        probability ``1 - rate``: drawn the first time, replayed after
+        :meth:`rewind`."""
+        if self._next == len(self._masks):
+            u = torch.rand(shape, generator=self.generator, device=device)
+            self._masks.append(u < 1.0 - rate)
+        mask = self._masks[self._next]
+        if mask.shape != shape:
+            raise ValueError(f"replayed mask {tuple(mask.shape)} does not fit {shape}")
+        self._next += 1
+        return mask
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout with fdtpu's semantics (``nn.Dropout`` with
+    ``broadcast_dims=(1, 2)``): whole channels of each sample are zeroed and
+    survivors divided by ``1 - rate``. It applies only when the forward is
+    given :class:`DropoutMasks`; without them it is the identity, as fdtpu's
+    ``train=False``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, masks: DropoutMasks | None = None) -> torch.Tensor:
+        if masks is None or self.rate == 0.0:
+            return x
+        keep = masks.keep((x.shape[0], x.shape[1], 1, 1), self.rate, x.device)
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` applied in ``x``'s dtype: the weights are cast to it (a
+    no-op when they already have it), the params stay as they are."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, layer.padding)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -58,11 +110,11 @@ class ResidualBlock(nn.Module):
         self.conv2 = nn.Conv2d(filters, filters, 3, padding=1)
         self.dropout = Dropout2d(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, masks: DropoutMasks | None = None) -> torch.Tensor:
         skip = x
-        x = leaky_relu(self.conv1(x))
-        x = leaky_relu(self.conv2(x))
-        x = self.dropout(x) + skip
+        x = leaky_relu(conv(self.conv1, x))
+        x = leaky_relu(conv(self.conv2, x))
+        x = self.dropout(x, masks) + skip
         if x.shape[2] > self.pool_until:  # NCHW: dim 2 is the height
             x = max_pool_2x2(x)
         return x

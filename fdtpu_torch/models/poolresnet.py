@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fdtpu_torch.models.layers import Dropout2d, ResidualBlock, lecun_normal_
+from fdtpu_torch.models.layers import Dropout2d, DropoutMasks, ResidualBlock, conv, lecun_normal_
 
 
 class PoolResnet(nn.Module):
@@ -22,8 +22,13 @@ class PoolResnet(nn.Module):
     ``out``.
 
     ``forward`` takes ``(B, H, W, 3)`` images and returns the ``(B, S, S, 5)``
-    float32 grid map. It computes in the dtype of the module's weights: a
-    bfloat16 copy of the module runs in bfloat16 with float32 output.
+    float32 grid map. It computes in ``compute_dtype``, or in the dtype of
+    the module's weights when that is None: a bfloat16 copy of the module
+    runs in bfloat16, and so does a float32 module with ``compute_dtype =
+    torch.bfloat16`` (float32 params, as Flax's ``dtype=bfloat16``; what a
+    train step needs). The head's output is cast to float32 before its
+    sigmoid. Dropout applies only when ``forward`` is given
+    :class:`~fdtpu_torch.models.layers.DropoutMasks` (fdtpu's ``train=True``).
     """
 
     def __init__(
@@ -39,8 +44,10 @@ class PoolResnet(nn.Module):
         dropout: float = 0.25,
         head_dropout: float = 0.5,
         generator: torch.Generator | None = None,
+        compute_dtype: torch.dtype | None = None,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.input_shape = tuple(input_shape)
         self.num_patches = num_patches
         self.num_residual_blocks = num_residual_blocks
@@ -70,11 +77,11 @@ class PoolResnet(nn.Module):
                 dim //= 2
         return dim + 2 * self.output_padding - self.output_kernel_size + 1
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, masks: DropoutMasks | None = None) -> torch.Tensor:
         # an NHWC tensor seen as NCHW is in channels_last memory format
-        x = images.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
-        x = self.conv1(x)
+        x = images.permute(0, 3, 1, 2).to(self.compute_dtype or self.conv1.weight.dtype)
+        x = conv(self.conv1, x)
         for block in self.residual_blocks:
-            x = block(x)
-        x = self.out(self.head_dropout(x))
+            x = block(x, masks)
+        x = conv(self.out, self.head_dropout(x, masks))
         return torch.sigmoid(x.float()).permute(0, 2, 3, 1).contiguous()

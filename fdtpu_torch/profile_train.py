@@ -1,0 +1,167 @@
+"""Profile the port's train step on one CUDA card.
+
+    python -m fdtpu_torch.profile_train [--batch 128] [--size 320] [--grid 15]
+                                        [--no-rotate] [--steps 10]
+
+Drives ``make_train_step`` at ``bench.py``'s train shape by default
+(PoolResnet-128, 10 blocks, bf16 compute with float32 params, SAM + Adam,
+device augmentation with positional crop and rotation), random weights and
+u8 frames from seed 0, one face per image. Prints, beside the card's
+nvidia-smi name and power limit:
+
+* ms per step by CUDA events over ``--steps`` steps after warmup, with no
+  profiler attached;
+* under ``torch.profiler`` over ``--steps`` more steps: device busy time per
+  step (the union of kernel intervals), the idle share against the
+  unprofiled step time, kernels per step, host and device time of each
+  phase of the step (the ``train/*`` spans of ``fdtpu_torch/train/step.py``;
+  device time is the sum of the kernels launched inside the phase, those of
+  the backward passes included), device time by kernel class, and the top
+  kernels.
+
+Fails without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from fdtpu_torch.models import build_model
+from fdtpu_torch.train import create_train_state, make_train_step
+from fdtpu_torch.utils.config import DetectorConfig, TrainConfig
+
+# kernel classes, the first match on the lower-cased kernel name wins
+CLASSES = (
+    ("rotation (shear kernels)", ("shear_",)),
+    ("decode+NMS kernel", ("decode_filter_nms",)),
+    ("convolution (cuDNN, CUTLASS, depthwise)", ("conv", "gemm", "xmma", "cutlass", "cudnn")),
+    ("optimizer (multi-tensor)", ("multi_tensor",)),
+    ("reduction", ("reduce",)),
+    ("copy, cast, fill", ("copy", "memcpy", "memset", "fill")),
+    ("gather, scatter, index", ("index", "gather", "scatter")),
+)
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for label, keys in CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other elementwise"
+
+
+def busy_us(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, cur = 0.0, None
+    for s, e in sorted(spans):
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    return total + (cur[1] - cur[0] if cur is not None else 0.0)
+
+
+def setup(batch: int, size: int, grid: int, rotate: bool):
+    cfg = DetectorConfig(input_shape=(size, size), num_patches=grid)
+    module = build_model("poolresnet", cfg, "cuda", torch.Generator().manual_seed(0),
+                         compute_dtype=torch.bfloat16)
+    tcfg = TrainConfig(rotate_device=rotate, positional_crop=True)
+    state = create_train_state(module, tcfg, 100)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 255, size=(batch, size, size, 3), dtype=np.uint8)
+    boxes = np.zeros((batch, 4, 5), dtype=np.float32)
+    boxes[:, 0] = [1.0, 40, 60, 120, 100]
+    masks = np.tile([True, False, False, False], (batch, 1))
+    data = tuple(torch.from_numpy(a).cuda() for a in (images, boxes, masks))
+    return state, make_train_step(module, tcfg), data
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--size", type=int, default=320)
+    ap.add_argument("--grid", type=int, default=15)
+    ap.add_argument("--no-rotate", action="store_true")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    state, step, data = setup(args.batch, args.size, args.grid, not args.no_rotate)
+    n = args.steps
+
+    for _ in range(5):
+        step(state, *data)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        step(state, *data)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, *data)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.name.startswith("train/")]
+    spans = [e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("train/")]
+    phases = defaultdict(lambda: [0.0, 0.0])
+    for e in spans:
+        phases[e.name][0] += e.cpu_time_total / 1e3 / n
+        phases[e.name][1] += e.device_time_total / 1e3 / n
+    # the backward passes run on autograd's own thread, under no span: each
+    # top-level op there is charged to the span whose host window holds its
+    # start
+    for e in events:
+        if (e.device_type == DeviceType.CPU and e.cpu_parent is None
+                and not e.name.startswith("train/")):
+            for s in spans:
+                if s.time_range.start <= e.time_range.start <= s.time_range.end:
+                    phases[s.name][1] += e.device_time_total / 1e3 / n
+                    break
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3 / n
+    kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+
+    shape = (f"train b{args.batch} {args.size}px grid {args.grid} bf16 SAM+Adam, rotation "
+             f"{'off' if args.no_rotate else 'on'}")
+    print(f"== {shape} [{card}]")
+    print(f"step {step_ms:.3f} ms by CUDA events, unprofiled ({args.batch * 1e3 / step_ms:.1f} "
+          f"img/s); under the profiler {host_ms:.3f} ms by host clock")
+    print(f"device busy {busy:.3f} ms/step (kernels summed {kernel_ms:.3f} ms), idle share "
+          f"{1 - busy / step_ms:.3f} of the unprofiled step; {len(kernels) / n:.0f} kernels/step")
+    for name, (host, dev) in sorted(phases.items(), key=lambda kv: -kv[1][1]):
+        print(f"  phase {name}: host {host:.3f} ms, device {dev:.3f} ms")
+    print(f"  outside every phase: device {kernel_ms - sum(d for _, d in phases.values()):.3f} ms")
+    by_class, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_class[kernel_class(e.name)] += us
+        by_name[e.name][0] += us
+        by_name[e.name][1] += 1
+    for label, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  class {label}: {us / 1e3 / n:.3f} ms/step ({us / 1e3 / n / kernel_ms:.1%})")
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
+        print(f"  kernel {us / 1e3 / n:7.3f} ms/step x {count / n:5.1f}  {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()

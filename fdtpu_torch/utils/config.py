@@ -1,6 +1,5 @@
-"""Detector config: the same fields and defaults as
-``fdtpu/utils/config.py:DetectorConfig``, duplicated so the port never
-imports fdtpu."""
+"""Detector and train configs: the same fields and defaults as
+``fdtpu/utils/config.py``, duplicated so the port never imports fdtpu."""
 
 from __future__ import annotations
 
@@ -38,3 +37,26 @@ class DetectorConfig:
     def image_size(self) -> Tuple[int, int]:
         """(width, height) as used by box encode/decode."""
         return (self.input_shape[1], self.input_shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The fields of ``fdtpu/utils/config.py:TrainConfig`` that the train
+    step reads, with the same defaults (the reference's config of record).
+    The loop's fields (epochs, logging, checkpoints, data parallelism) come
+    with the Trainer (ROADMAP.md queue 1, item 8)."""
+
+    learning_rate: float = 1e-4
+    optimizer: str = "adam"  # "adam" (reference SAMSGD base) or "sgd"
+    batch_size: int = 8
+    box_capacity: int = 8  # max gt boxes per image
+    sam_rho: float = 0.05
+    use_sam: bool = True
+    lr_milestones: Tuple[int, ...] = (40,)  # MultiStepLR, in epochs
+    lr_gamma: float = 0.1
+    seed: int = 0
+    # rotate on the card through the three-shear kernels (kernels/rotate.py)
+    rotate_device: bool = False
+    # crop the first k batch rows instead of a sampled subset; valid for
+    # shuffled feeds only (see data/augment.py:augment_batch_fast)
+    positional_crop: bool | None = None
