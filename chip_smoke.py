@@ -48,11 +48,35 @@ non-zero; without a CUDA card it fails at once and prints no result):
 10. timings with CUDA events after warmup: train img/s at b128/320 with
     rotation on and off, the b8/480 step, each shear kernel against its
     plain version at the shapes the training path gives it (and shear_rows
-    on K4's channel-stacked planes of the same images).
+    on K4's channel-stacked planes of the same images);
+11. the fused photometric kernel (K5) against its plain version on the
+    card: identity, brightness/contrast, noise (seeds 0, 2^31 - 2 and
+    random), glass, motion, all gates at once, at B in {1, 26, 128} and S in
+    {64, 320, 480}, and each of the 16 motion bins. Bit-equal with noise
+    off; with noise on, bit-equal or within atol 1e-6 (the line says
+    which). Then the whole fused exact-k augmentation at b128/320 with
+    rotation, kernel against plain version on the same draws;
+12. the fused residual-tail kernel (K6) against its plain version, float32
+    and bfloat16, pooled and unpooled, channels_last and contiguous, at
+    (128, 128, 40, 40), (128, 128, 20, 20), (1, 128, 60, 60) and
+    (1, 128, 30, 30). Bit-equal. Then the K6 path: ``Detector.apply`` with
+    ``fused_tail`` at b128/320 and b1/480, bit-equal to the eager forward,
+    the tail kernel launched once a block;
+13. the K5 path: three bf16 train steps at b128/320 with rotation and
+    ``fused_photometric``, losses finite, the photometric kernel launched
+    once a step; then timings with CUDA events after warmup: K5 and K6
+    against their plain versions at the main paths' shapes, the train step
+    with ``fused_photometric`` against the default chain, and the three
+    arms of ``fdtpu_torch.bench_pool_fusion`` at b128/320 and b1/480.
 
 The line before the last is a JSON object with each kernel's launches (from
-the serving and training paths), error and times; the last is ``{"ok":
-true, "device": {...}}``. Weights are random, drawn from a fixed seed.
+the serving, training and fused paths), error, times, and its bound: the
+larger of the bytes it must move over the card's 3.35 TB/s and the
+operations it does on this run's inputs over the 67 TFLOP/s of float32
+outside the tensor cores (H100 SXM data sheet). ``library_ms`` is null for
+every kernel: no single PyTorch call computes any of the five functions.
+The last line is ``{"ok": true, "device": {...}}``. Weights are random,
+drawn from a fixed seed.
 """
 
 from __future__ import annotations
@@ -65,8 +89,12 @@ import time
 import numpy as np
 import torch
 
+from fdtpu_torch import bench_pool_fusion as bpf
+from fdtpu_torch.data import augment as aug
 from fdtpu_torch.kernels import build
+from fdtpu_torch.kernels import epilogue as kep
 from fdtpu_torch.kernels import nms as knms
+from fdtpu_torch.kernels import photometric as kphoto
 from fdtpu_torch.kernels import rotate as krot
 from fdtpu_torch.models import Detector, PoolResnet, build_model
 from fdtpu_torch.train import create_train_state, make_train_step
@@ -88,14 +116,45 @@ SHEARS = {
     "shear_cols": {"route": "cuda", "source": "fdtpu_torch/kernels/csrc/rotate_shear.cu",
                    "replaces": "fdtpu/kernels/rotate_pallas.py:232"},
 }
+PHOTOMETRIC = {"name": "photometric", "route": "cuda",
+               "source": "fdtpu_torch/kernels/csrc/photometric.cu",
+               "replaces": "fdtpu/kernels/augment_pallas.py:108"}
+RESIDUAL_TAIL = {"name": "residual_tail", "route": "cuda",
+                 "source": "fdtpu_torch/kernels/csrc/residual_tail.cu",
+                 "replaces": "fdtpu/kernels/epilogue_pallas.py:49"}
 TRAIN_RTOL_LOSS, TRAIN_RTOL_GRAD_NORM = 1e-4, 1e-3
 TRAIN_RTOL_UPDATE, TRAIN_RTOL_UPDATE_TENSOR = 1e-2, 5e-2  # relative L2, phase 8
 TRAIN_STEPS = 5
+FUSED_STEPS = 3
+NOISE_ATOL = 1e-6  # K5 with noise on: logf/cosf against PyTorch's log/cos
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
+F32_OPS_PER_MS = 67e9  # H100 SXM: 67 TFLOP/s float32 outside the tensor cores
+# operations counted per element (each multiply, add, compare, integer op,
+# conversion and transcendental is one)
+NMS_DECODE_OPS, NMS_ROUND_OPS = 17, 14  # per candidate; per candidate and round
+SHEAR_OPS = 4  # (1 - f) a + f b
+# K5, per pixel and channel: brightness/contrast, clip and /255 on every
+# plane; the noise (two murmur3 mixes, Box-Muller) and the two 5-tap passes
+# on their planes; 2 a motion tap on the motion planes
+PHOTO_BASE_OPS, PHOTO_NOISE_OPS, PHOTO_GLASS_OPS = 5, 30, 18
+TAIL_OPS = 3  # leaky, add, max, per input element
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the float32 rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line() -> str:
@@ -275,10 +334,19 @@ def phase_timings(card, det480, det320, batch):
         plain = lambda: knms.decode_filter_nms_reference(vals, tables, 0.5, 0.5, cap)  # noqa: E731
         # plain, kernel, kernel, plain: drift on the card hits both alike
         p1, k1, k2, p2 = (event_ms(f, 20) for f in (plain, kern, kern, plain))
-        times[(b, n, cap)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        # the bound of this data: the decode of every candidate, and one scan
+        # of all N a greedy round (kept rows, plus the round that finds none
+        # alive when fewer than `cap` survive)
+        boxes, mask = kern()
+        kept = mask.sum(-1)
+        rounds = int((kept + (kept < cap).long()).sum())
+        bnd = bound(nbytes(vals, *tables[:4], boxes, mask),
+                    b * n * NMS_DECODE_OPS + rounds * n * NMS_ROUND_OPS)
+        times[(b, n, cap)] = ((k1 + k2) / 2, (p1 + p2) / 2, bnd)
         print(f"[6 time] decode_filter_nms B={b} N={n} cap={cap} random maps: kernel "
               f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms "
-              f"(runs {k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}) [{card}]")
+              f"(runs {k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}); bound {bnd['bound_ms']:.5f} ms "
+              f"by {bnd['bound_by']} ({rounds} rounds) [{card}]")
 
     def infer():
         return det320.non_max_suppression(det320.apply(batch.float() / 255.0))
@@ -488,10 +556,271 @@ def phase_train_timings(card, runs):
         for name, (kern, plain) in pairs.items():
             shape = tuple((stacked if "K4" in name else planes).shape)
             p1, k_1, k_2, p2 = (event_ms(f, 20) for f in (plain, kern, kern, plain))
-            times.setdefault(name, ((k_1 + k_2) / 2, (p1 + p2) / 2))
+            # each pass reads its planes once and writes them once
+            times.setdefault(name, ((k_1 + k_2) / 2, (p1 + p2) / 2,
+                                    bound(2 * nbytes(planes), SHEAR_OPS * planes.numel())))
             print(f"[10 time] {name} {shape} {dtype}: kernel {(k_1 + k_2) / 2:.4f} ms, "
                   f"plain {(p1 + p2) / 2:.4f} ms (runs {k_1:.4f}/{k_2:.4f} vs {p1:.4f}/{p2:.4f}) "
                   f"[{card}]")
+    return times
+
+
+# -- the fused kernels: K5 and K6 ----------------------------------------------------
+
+
+def photometric_table(gen, b, noise, glass, motion, bins=None, bc=True):
+    """A ``(B, 8)`` scalar table on the card: brightness/contrast drawn for
+    every row (with ``bc``), and each gate on for a random half of the rows
+    where its argument is True (all rows for "all")."""
+    def gate(on):
+        if on == "all":
+            return torch.ones((b,), device="cuda")
+        return (torch.rand((b,), generator=gen, device="cuda") < 0.5).float() if on else \
+            torch.zeros((b,), device="cuda")
+
+    u = lambda: torch.rand((b,), generator=gen, device="cuda")  # noqa: E731
+    sc = torch.zeros((b, 8), device="cuda")
+    sc[:, kphoto.ALPHA] = 1.0 + (u() * 0.4 - 0.2 if bc else 0.0)
+    sc[:, kphoto.BETA] = (u() * 0.4 - 0.2) * 255.0 if bc else 0.0
+    sc[:, kphoto.NOISE_SIGMA] = gate(noise) * torch.sqrt(10.0 + u() * 390.0)
+    sc[:, kphoto.GLASS] = gate(glass)
+    sc[:, kphoto.MOTION] = gate(motion)
+    sc[:, kphoto.MDX] = (torch.randint(0, 16, (b,), generator=gen, device="cuda").float()
+                         if bins is None else bins)
+    return sc
+
+
+def photometric_seeds(gen, b, fixed=None):
+    seeds = torch.randint(0, 2**31 - 1, (3 * b,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    if fixed is not None:
+        seeds[: min(3, 3 * b)] = fixed
+    return seeds
+
+
+def phase_photometric_vs_plain() -> float:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    worst, runs, noise_exact = 0.0, 0, True
+    cases = {
+        "identity": dict(noise=False, glass=False, motion=False, bc=False),
+        "brightness/contrast": dict(noise=False, glass=False, motion=False),
+        "noise, seed 0": dict(noise="all", glass=False, motion=False, fixed=0),
+        "noise, seed 2^31-2": dict(noise="all", glass=False, motion=False, fixed=2**31 - 2),
+        "noise, random seeds": dict(noise=True, glass=False, motion=False),
+        "glass": dict(noise=False, glass="all", motion=False),
+        "motion": dict(noise=False, glass=False, motion="all"),
+        "gates mixed": dict(noise=True, glass=True, motion=True),
+        "all gates": dict(noise="all", glass="all", motion="all"),
+    }
+
+    def compare(imgs, sc, seeds, noised, where):
+        nonlocal worst, runs, noise_exact
+        got = kphoto.photometric_batch(imgs, sc, seeds)
+        want = kphoto.photometric_reference(imgs, sc, seeds)
+        err = (got - want).abs().max().item()
+        runs += 1
+        check(got.shape == imgs.shape and got.dtype == torch.float32, f"K5 output at {where}")
+        if noised:
+            worst = max(worst, err)
+            noise_exact = noise_exact and torch.equal(got, want)
+            check(err <= NOISE_ATOL, f"K5 differs by {err} > {NOISE_ATOL} at {where}")
+        else:
+            check(torch.equal(got, want), f"K5 differs by {err} at {where} (noise off)")
+
+    for b in (1, 26, 128):
+        for s in (64, 320, 480):
+            imgs = torch.rand((b, s, s, 3), generator=gen, device="cuda") * 255.0
+            for case, kw in cases.items():
+                kw = dict(kw)
+                seeds = photometric_seeds(gen, b, kw.pop("fixed", None))
+                sc = photometric_table(gen, b, **kw)
+                compare(imgs, sc, seeds, bool(sc[:, kphoto.NOISE_SIGMA].any()),
+                        f"B={b} S={s} {case}")
+    imgs = torch.rand((16, 64, 64, 3), generator=gen, device="cuda") * 255.0
+    bins = torch.arange(16, device="cuda").float()
+    compare(imgs, photometric_table(gen, 16, False, False, "all", bins=bins),
+            photometric_seeds(gen, 16), False, "B=16 S=64, motion bins 0..15")
+    compare(imgs[:1].expand(16, -1, -1, -1).contiguous(),
+            photometric_table(gen, 16, "all", "all", "all", bins=bins),
+            photometric_seeds(gen, 16), True, "B=16 S=64 one image, all gates, bins 0..15")
+
+    # the whole fused exact-k augmentation at the train shape, the kernel's
+    # route against the same route with the plain version in its place
+    x, bx, m = bench_like_batch(128, 320, "cuda")
+    d = aug.sample_exact_k(torch.Generator(device="cuda").manual_seed(SEED), 128, 320, 320,
+                           "cuda", rotate=True, positional_crop=True, fused_photometric=True)
+    got = aug.apply_exact_k(x, bx, m, d, fused_photometric=True)
+    aug.photometric_batch = kphoto.photometric_reference
+    try:
+        want = aug.apply_exact_k(x, bx, m, d, fused_photometric=True)
+    finally:
+        aug.photometric_batch = kphoto.photometric_batch
+    err = (got[0] - want[0]).abs().max().item()
+    worst = max(worst, err)
+    noise_exact = noise_exact and torch.equal(got[0], want[0])
+    check(err <= NOISE_ATOL, f"fused exact-k augmentation differs by {err}")
+    check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+          "fused exact-k augmentation boxes or masks differ")
+    check(got[0].dtype == torch.float32 and 0 <= got[0].min() and got[0].max() <= 1,
+          "fused exact-k augmentation output range")
+    torch.cuda.synchronize()
+    print(f"[11 photometric=plain] {runs} cases and the fused exact-k augmentation at b128/320 "
+          f"(rotation, {int((d.scalars[:, kphoto.NOISE_SIGMA] > 0).sum())} noised images): "
+          f"noise off bit-equal; noise on "
+          f"{'bit-equal' if noise_exact else f'within {NOISE_ATOL}'}, max |kernel - plain| = "
+          f"{worst}")
+    return worst
+
+
+def phase_tail_vs_plain() -> None:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    runs = 0
+    for shape in ((128, 128, 40, 40), (128, 128, 20, 20), (1, 128, 60, 60), (1, 128, 30, 30)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for fmt in (torch.channels_last, torch.contiguous_format):
+                c2, skip = ((torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
+                            .contiguous(memory_format=fmt) for _ in range(2))
+                for pool in (True, False):
+                    got = kep.fused_residual_tail(c2, skip, pool=pool)
+                    want = kep.reference_tail(c2, skip, pool)
+                    runs += 1
+                    where = f"{shape} {dtype} {fmt} pool={pool}"
+                    check(got.dtype == want.dtype and torch.equal(got, want),
+                          f"K6 differs at {where}")
+                    check(got.is_contiguous(memory_format=fmt), f"K6 output layout at {where}")
+    torch.cuda.synchronize()
+    print(f"[12 tail=plain] {runs} cases bit-equal (float32 and bfloat16, pooled and "
+          f"unpooled, channels_last and contiguous)")
+
+
+def phase_tail_path():
+    """The K6 path: ``Detector.apply`` with every block's tail fused, against
+    the eager forward of the same Detector."""
+    shapes = {"b128-320": (128, BENCH_CFG), "b1-480": (1, DetectorConfig())}
+    dets = {key: Detector(build_model("poolresnet", cfg, "cuda",
+                                      torch.Generator().manual_seed(SEED)))
+            for key, (_, cfg) in shapes.items()}
+    images = {key: bpf.frames(b, cfg.input_shape[0], SEED + 10) for key, (b, cfg) in shapes.items()}
+    eager = {key: dets[key].apply(images[key]) for key in shapes}
+
+    kep.fused_residual_tail.launches = 0
+    for det in dets.values():
+        bpf.set_fused_tail(det.net, True)
+    fused = {key: dets[key].apply(images[key]) for key in shapes}
+    torch.cuda.synchronize()
+    launches = kep.fused_residual_tail.launches
+    for det in dets.values():
+        bpf.set_fused_tail(det.net, False)
+
+    blocks = sum(len(det.net.residual_blocks) for det in dets.values())
+    check(launches == blocks, f"tail kernel launched {launches} times, want {blocks}")
+    for key in shapes:
+        check(bool(torch.isfinite(fused[key]).all()), f"{key} non-finite fused forward")
+        check(torch.equal(fused[key], eager[key]), f"{key} fused forward differs from eager")
+    print(f"[12 tail path] Detector.apply with fused_tail at b128/320 and b1/480 bit-equal to "
+          f"the eager forward; tail kernel launches {launches} ({blocks} blocks)")
+    return launches
+
+
+def phase_photometric_path():
+    """The K5 path: bf16 train steps at b128/320 with rotation through the
+    fused photometric kernel."""
+    module = build_model("poolresnet", BENCH_CFG, "cuda", torch.Generator().manual_seed(SEED),
+                         compute_dtype=torch.bfloat16)
+    tcfg = TrainConfig(rotate_device=True, positional_crop=True, seed=SEED,
+                       fused_photometric=True)
+    state = create_train_state(module, tcfg, 100)
+    step = make_train_step(module, tcfg)
+    batch = bench_like_batch(128, 320, "cuda")
+
+    kphoto.photometric_batch.launches = 0
+    krot.shear_rows.launches = krot.shear_cols.launches = 0
+    losses, counts = [], []
+    for _ in range(FUSED_STEPS):
+        state, sc = step(state, *batch)
+        losses.append(sc["loss"].item())
+        counts.append(kphoto.photometric_batch.launches)
+    torch.cuda.synchronize()
+    launches = {"photometric": kphoto.photometric_batch.launches,
+                "shear_rows": krot.shear_rows.launches, "shear_cols": krot.shear_cols.launches}
+
+    check(counts == list(range(1, FUSED_STEPS + 1)), f"photometric launches by step {counts}")
+    check(launches["shear_rows"] == 2 * FUSED_STEPS and launches["shear_cols"] == FUSED_STEPS,
+          f"shear launches {launches}")
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    print(f"[13 photometric path] {FUSED_STEPS} bf16 SAM+Adam steps at b128/320 with rotation and "
+          f"fused_photometric: losses {[round(v, 3) for v in losses]}; photometric launches by "
+          f"step {counts}, shear_rows {launches['shear_rows']}, shear_cols "
+          f"{launches['shear_cols']}")
+    return launches, (state, step, batch)
+
+
+def photometric_bound(imgs, sc, seeds) -> dict:
+    """K5's bound on these inputs: every pixel read and written once; the
+    noise, the Gaussian and the motion taps counted only on their planes."""
+    plane = imgs[0].numel()
+    taps = torch.tensor([len(t) for t in kphoto.MOTION_TAPS], device=sc.device)
+    bins = sc[:, kphoto.MDX].long().clamp(0, kphoto.N_DIRS - 1)
+    moving = sc[:, kphoto.MOTION] > 0.5
+    ops = plane * (PHOTO_BASE_OPS * imgs.shape[0]
+                   + PHOTO_NOISE_OPS * int((sc[:, kphoto.NOISE_SIGMA] != 0).sum())
+                   + PHOTO_GLASS_OPS * int((sc[:, kphoto.GLASS] > 0.5).sum())
+                   + 2 * int(taps[bins][moving].sum()))
+    return bound(2 * nbytes(imgs) + nbytes(sc, seeds), ops)
+
+
+def tail_bound(c2, skip, pool: bool) -> dict:
+    out = c2.numel() // 4 if pool else c2.numel()
+    return bound(nbytes(c2, skip) + out * c2.element_size(), TAIL_OPS * c2.numel())
+
+
+def phase_fused_timings(card, train):
+    times = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    # K5 at the train shape: b128/320 float32, the exact-k table of the
+    # fused route (26 rows each noised, glass-blurred and motion-blurred)
+    d = aug.sample_exact_k(gen, 128, 320, 320, "cuda", rotate=True, positional_crop=True,
+                           fused_photometric=True)
+    imgs = torch.rand((128, 320, 320, 3), generator=gen, device="cuda") * 255.0
+    kern = lambda: kphoto.photometric_batch(imgs, d.scalars, d.seeds)  # noqa: E731
+    plain = lambda: kphoto.photometric_reference(imgs, d.scalars, d.seeds)  # noqa: E731
+    p1, k1, k2, p2 = (event_ms(f, n) for f, n in ((plain, 5), (kern, 20), (kern, 20), (plain, 5)))
+    bnd = photometric_bound(imgs, d.scalars, d.seeds)
+    times["photometric"] = ((k1 + k2) / 2, (p1 + p2) / 2, bnd)
+    print(f"[13 time] photometric (128, 320, 320, 3) float32, the fused route's table: kernel "
+          f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms (runs {k1:.4f}/{k2:.4f} vs "
+          f"{p1:.4f}/{p2:.4f}); bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
+
+    # K6 at the eval forward's shapes: at b128/320 block 0 pools and blocks
+    # 1-9 do not; at b1/480 blocks 0 and 1 pool and blocks 2-9 do not
+    for shape, pool in (((128, 128, 40, 40), True), ((128, 128, 20, 20), False),
+                        ((1, 128, 60, 60), True), ((1, 128, 30, 30), True),
+                        ((1, 128, 15, 15), False)):
+        c2, skip = ((torch.randn(shape, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+                    .contiguous(memory_format=torch.channels_last) for _ in range(2))
+        kern = lambda: kep.fused_residual_tail(c2, skip, pool=pool)  # noqa: E731
+        plain = lambda: kep.reference_tail(c2, skip, pool)  # noqa: E731
+        p1, k1, k2, p2 = (event_ms(f, 50) for f in (plain, kern, kern, plain))
+        bnd = tail_bound(c2, skip, pool)
+        times.setdefault("residual_tail", ((k1 + k2) / 2, (p1 + p2) / 2, bnd))
+        print(f"[13 time] residual_tail {shape} bf16 channels_last pool={pool}: kernel "
+              f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms (runs {k1:.4f}/{k2:.4f} vs "
+              f"{p1:.4f}/{p2:.4f}); bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
+
+    state, fused_step, batch = train
+    default_step = make_train_step(state.module, TrainConfig(rotate_device=True,
+                                                             positional_crop=True, seed=SEED))
+    # fused, default, default, fused: drift on the card hits both alike
+    f1, d1, d2, f2 = (step_ms(state, f, batch, 20)
+                      for f in (fused_step, default_step, default_step, fused_step))
+    print(f"[13 time] train b128 320px bf16 SAM+Adam rotation on, fused_photometric: "
+          f"{(f1 + f2) / 2:.3f} ms/step (runs {f1:.3f}/{f2:.3f}); default chain: "
+          f"{(d1 + d2) / 2:.3f} ms/step (runs {d1:.3f}/{d2:.3f}) [{card}]")
+    for b, size, grid in ((128, 320, 15), (1, 480, 10)):
+        r = bpf.measure(b, size, grid, iters=20)
+        print(f"[13 time] bench_pool_fusion b{b} {size}px: prod {r['fwd_prod_ms']:.4f} ms, "
+              f"slicemax {r['fwd_slicemax_ms']:.4f} ms, fused {r['fwd_fused_ms']:.4f} ms a forward "
+              f"(all bit-equal to prod) [{card}]")
     return times
 
 
@@ -501,19 +830,31 @@ def main() -> None:
     worst = phase_kernel_vs_plain()
     phase_forward_f32()
     launches, det480, det320, batch = phase_main_path()
-    kernel_ms, plain_ms = phase_timings(card, det480, det320, batch)
+    nms_times = phase_timings(card, det480, det320, batch)
     rot_worst = phase_rotate_vs_plain()
     phase_train_f32()
     train_launches, runs = phase_train_path()
     shear_times = phase_train_timings(card, runs)
-    kernels = [{
-        **KERNEL, "launches": launches + train_launches["decode_filter_nms"],
-        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
-    }]
+    del runs
+    photo_worst = phase_photometric_vs_plain()
+    phase_tail_vs_plain()
+    tail_launches = phase_tail_path()
+    photo_launches, train = phase_photometric_path()
+    fused_times = phase_fused_timings(card, train)
+
+    def entry(meta, launches, err, times):
+        ms, plain, bnd = times
+        return {**meta, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                **bnd, "library_ms": None}
+
+    kernels = [entry(KERNEL, launches + train_launches["decode_filter_nms"], worst, nms_times)]
     for kname, meta in SHEARS.items():
-        kernels.append({"name": kname, **meta, "launches": train_launches[kname],
-                        "max_abs_err": rot_worst, "ms": shear_times[kname][0],
-                        "plain_ms": shear_times[kname][1]})
+        kernels.append(entry({"name": kname, **meta},
+                             train_launches[kname] + photo_launches[kname], rot_worst,
+                             shear_times[kname]))
+    kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"], photo_worst,
+                         fused_times["photometric"]))
+    kernels.append(entry(RESIDUAL_TAIL, tail_launches, 0.0, fused_times["residual_tail"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

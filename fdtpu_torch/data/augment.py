@@ -30,14 +30,18 @@ Boxes are clipped, filtered by ``min_area=10`` and rounded; images end in
   rotated, noised, glass-blurred and motion-blurred; the three photometric
   subsets are disjoint, and with ``positional_crop`` they are contiguous row
   ranges (valid for shuffled feeds) and odd rows flip (fdtpu's
-  ``positional_flip``). The batch stays bfloat16 end to end.
+  ``positional_flip``). The batch stays bfloat16 end to end. With
+  ``fused_photometric`` it is fdtpu's ``FDTPU_PALLAS_AUGMENT=1`` route
+  instead: float32 end to end, the flip a Bernoulli draw applied first, then
+  the whole photometric chain on every image in one launch of the K5 kernel
+  (``kernels/photometric.py``), its noise from per-plane seeds.
 
 Sampling is split from applying: ``sample_*`` draws every random choice
 from one ``torch.Generator`` on the batch's device into a draws object, and
 ``apply_*`` takes the draws as arguments, so tests can hand it fdtpu's
-draws. The noise field is one of the draws: its bits cannot match JAX's
-generators. fdtpu's opt-in fused photometric kernel
-(``FDTPU_PALLAS_AUGMENT=1``) is not ported yet (ROADMAP.md queue 2, K5).
+draws. On the default routes the noise field is one of the draws: its
+bits cannot match JAX's generators. On the fused route the draws are the
+per-plane seeds, and the field they set matches fdtpu's bit for bit.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from fdtpu_torch.kernels.photometric import photometric_batch
 from fdtpu_torch.kernels.rotate import rotate_batch, rotate_boxes
 
 MIN_AREA = 10.0  # datamodule.py:121
@@ -284,25 +289,31 @@ class ExactKDraws:
     noise, glass and motion rows, disjoint. ``photo_start``: the first row
     of the contiguous photometric block (positional subsets), or None.
     ``positional_flip``: odd rows flip. ``noise``: ``(n_noise, H, W, 3)``
-    bfloat16 standard normal for the noise rows. ``rotate_rows`` ``(rk,)``
-    and ``angles`` ``(rk,)`` are None unless the batch rotates.
+    bfloat16 standard normal for the noise rows, or None on the fused route,
+    which draws ``seeds`` ``(3 B,)`` int32 in [0, 2^31 - 1) instead, one per
+    image channel plane. ``rotate_rows`` ``(rk,)`` and ``angles`` ``(rk,)``
+    are None unless the batch rotates.
     """
 
     crop_rows: torch.Tensor
     crop_window: tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
     scalars: torch.Tensor
     sels: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-    noise: torch.Tensor
+    noise: torch.Tensor | None
     photo_start: int | None = None
     positional_flip: bool = False
     rotate_rows: torch.Tensor | None = None
     angles: torch.Tensor | None = None
+    seeds: torch.Tensor | None = None
 
 
 def sample_exact_k(
-    gen: torch.Generator, b: int, h: int, w: int, device, rotate: bool, positional_crop: bool
+    gen: torch.Generator, b: int, h: int, w: int, device, rotate: bool, positional_crop: bool,
+    fused_photometric: bool = False,
 ) -> ExactKDraws:
-    """Draw :class:`ExactKDraws` for a ``B >= 16`` batch from ``gen``."""
+    """Draw :class:`ExactKDraws` for a ``B >= 16`` batch from ``gen``; with
+    ``fused_photometric``, the fused route's (no ``positional_flip``, seeds
+    instead of a noise field)."""
     if b < 16:
         raise ValueError(f"the exact-k path takes B >= 16, got {b}")
     k = round(P_CROP * b)
@@ -330,7 +341,7 @@ def sample_exact_k(
         rows = torch.randperm(b, generator=gen, device=device)[:n3]
     sels = (rows[:n_noise], rows[n_noise : n_noise + n_glass], rows[n_noise + n_glass :])
 
-    positional_flip = bool(positional_crop) and b % 2 == 0
+    positional_flip = bool(positional_crop) and b % 2 == 0 and not fused_photometric
     if positional_flip:
         flip = (torch.arange(b, device=device) % 2).float()
     else:
@@ -344,6 +355,11 @@ def sample_exact_k(
     motion = zeros.index_fill(0, sels[2], 1.0)
     mbin = torch.randint(0, 16, (b,), generator=gen, device=device).float()
     scalars = torch.stack([flip, alpha, beta, sigma, glass, motion, mbin, zeros], dim=1)
+    if fused_photometric:
+        seeds = torch.randint(0, 2**31 - 1, (3 * b,), generator=gen, device=device,
+                              dtype=torch.int32)
+        return ExactKDraws(crop_rows, window, scalars, sels, None, photo_start,
+                           positional_flip, rotate_rows, angles, seeds)
     noise = torch.randn((n_noise, h, w, 3), generator=gen, device=device, dtype=torch.bfloat16)
     return ExactKDraws(crop_rows, window, scalars, sels, noise, photo_start,
                        positional_flip, rotate_rows, angles)
@@ -385,10 +401,16 @@ def _apply_photometric_subset(imgs, scalars, sels, noise, photo_start, positiona
     return out
 
 
-def apply_exact_k(imgs, boxes, masks, d: ExactKDraws):
+def apply_exact_k(imgs, boxes, masks, d: ExactKDraws, fused_photometric: bool = False):
     """The exact-k path: crop, rotation, flip and photometric on their row
-    subsets, then flipped and rounded boxes. bfloat16 images out."""
-    imgs = imgs.to(torch.bfloat16, copy=True)
+    subsets, then flipped and rounded boxes. bfloat16 images out; with
+    ``fused_photometric`` (draws from ``sample_exact_k(...,
+    fused_photometric=True)``) float32 throughout, the flip, then one launch
+    of the fused photometric kernel over the whole batch."""
+    if fused_photometric != (d.seeds is not None):
+        raise ValueError("fused_photometric needs the fused route's draws (seeds, no noise) "
+                         "and the default route the default draws")
+    imgs = imgs.to(torch.float32 if fused_photometric else torch.bfloat16, copy=True)
     w = imgs.shape[2]
     boxes, masks = boxes.clone(), masks.clone()
     ci, cb, cm = _apply_crop(imgs[d.crop_rows], boxes[d.crop_rows], masks[d.crop_rows],
@@ -399,8 +421,12 @@ def apply_exact_k(imgs, boxes, masks, d: ExactKDraws):
         rb, rm = rotate_boxes(boxes[r], masks[r], d.angles, w)
         imgs[r] = rotate_batch(imgs[r], d.angles)
         boxes[r], masks[r] = rb, rm
-    imgs = _apply_photometric_subset(imgs, d.scalars, d.sels, d.noise, d.photo_start,
-                                     d.positional_flip)
+    if fused_photometric:
+        imgs = torch.where(d.scalars[:, 0, None, None, None] > 0.5, imgs.flip(2), imgs)
+        imgs = photometric_batch(imgs, d.scalars, d.seeds)
+    else:
+        imgs = _apply_photometric_subset(imgs, d.scalars, d.sels, d.noise, d.photo_start,
+                                         d.positional_flip)
     boxes = _round_coords(_flip_boxes(boxes, d.scalars[:, 0], w))
     return imgs, boxes, masks
 
@@ -409,19 +435,21 @@ def apply_exact_k(imgs, boxes, masks, d: ExactKDraws):
 
 
 def augment_batch_fast(gen: torch.Generator, imgs, boxes, masks, rotate: bool = False,
-                       positional_crop: bool = False):
+                       positional_crop: bool = False, fused_photometric: bool = False):
     """Augment a ``(B, H, W, 3)`` uint8 batch with padded ``(B, N, 5)``
     boxes and ``(B, N)`` masks, drawing from ``gen`` (on the batch's
     device). ``B < 16``: per-sample gates, float32 images; ``B >= 16``:
-    exact-k subsets, bfloat16 images. ``rotate`` adds the Rotate op on the
-    card; ``positional_crop`` (shuffled feeds only) takes the subsets as row
+    exact-k subsets, bfloat16 images, or float32 through the fused
+    photometric kernel with ``fused_photometric`` (which changes nothing
+    below 16). ``rotate`` adds the Rotate op on the card;
+    ``positional_crop`` (shuffled feeds only) takes the subsets as row
     ranges. Returns ``(images in [0, 1], boxes, masks)``."""
     b, h, w = imgs.shape[:3]
     if b < 16:
         draws = sample_per_sample(gen, b, h, w, imgs.device, rotate)
         return apply_per_sample(imgs, boxes, masks, draws)
-    draws = sample_exact_k(gen, b, h, w, imgs.device, rotate, positional_crop)
-    return apply_exact_k(imgs, boxes, masks, draws)
+    draws = sample_exact_k(gen, b, h, w, imgs.device, rotate, positional_crop, fused_photometric)
+    return apply_exact_k(imgs, boxes, masks, draws, fused_photometric)
 
 
 def resize_only_batch(imgs, boxes, masks):

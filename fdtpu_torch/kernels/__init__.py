@@ -1,12 +1,17 @@
 """Hand-written Hopper kernels with their plain PyTorch versions. The build
 module (``kernels/build.py``) is imported only when a kernel launches."""
 
+from fdtpu_torch.kernels.epilogue import fused_residual_tail, reference_tail  # noqa: F401
 from fdtpu_torch.kernels.nms import (  # noqa: F401
     decode_filter_nms_batch,
     decode_filter_nms_reference,
     grid_decode_tables,
     grid_tables_on,
     ssd_output_decode_tables,
+)
+from fdtpu_torch.kernels.photometric import (  # noqa: F401
+    photometric_batch,
+    photometric_reference,
 )
 from fdtpu_torch.kernels.rotate import (  # noqa: F401
     ROTATE_LIMIT_RAD,

@@ -15,6 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fdtpu_torch.kernels.epilogue import fused_residual_tail
+
+
 class DropoutMasks:
     """The channel masks of one forward's dropout layers, drawn from an
     explicit ``torch.Generator`` (on the activations' device) in call order.
@@ -101,11 +104,19 @@ class ResidualBlock(nn.Module):
         -> maxpool while the spatial height > pool_until
 
     Submodule names ``conv1``/``conv2`` follow the reference torch model.
+
+    ``fused_tail`` (eval only) runs ``leaky -> +skip -> maxpool`` as one
+    launch of the fused residual-tail kernel (``kernels/epilogue.py``),
+    bit-equal to the eager tail: fdtpu's ``TailBlock(mode="pallas")`` of
+    ``scripts/bench_pool_fusion.py``. With dropout masks it raises, and so
+    does the kernel under autograd.
     """
 
-    def __init__(self, filters: int, pool_until: int, dropout: float = 0.25):
+    def __init__(self, filters: int, pool_until: int, dropout: float = 0.25,
+                 fused_tail: bool = False):
         super().__init__()
         self.pool_until = pool_until
+        self.fused_tail = fused_tail
         self.conv1 = nn.Conv2d(filters, filters, 3, padding=1)
         self.conv2 = nn.Conv2d(filters, filters, 3, padding=1)
         self.dropout = Dropout2d(dropout)
@@ -113,8 +124,13 @@ class ResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor, masks: DropoutMasks | None = None) -> torch.Tensor:
         skip = x
         x = leaky_relu(conv(self.conv1, x))
-        x = leaky_relu(conv(self.conv2, x))
-        x = self.dropout(x, masks) + skip
+        x = conv(self.conv2, x)
+        if self.fused_tail:
+            if masks is not None:
+                raise ValueError("fused_tail is eval-only: the forward was given dropout masks")
+            # dropout is the identity at eval
+            return fused_residual_tail(x, skip, pool=x.shape[2] > self.pool_until)
+        x = self.dropout(leaky_relu(x), masks) + skip
         if x.shape[2] > self.pool_until:  # NCHW: dim 2 is the height
             x = max_pool_2x2(x)
         return x

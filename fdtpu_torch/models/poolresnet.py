@@ -29,6 +29,8 @@ class PoolResnet(nn.Module):
     train step needs). The head's output is cast to float32 before its
     sigmoid. Dropout applies only when ``forward`` is given
     :class:`~fdtpu_torch.models.layers.DropoutMasks` (fdtpu's ``train=True``).
+    ``fused_tail`` (eval only) gives every residual block the fused tail
+    kernel (:class:`~fdtpu_torch.models.layers.ResidualBlock`).
     """
 
     def __init__(
@@ -45,6 +47,7 @@ class PoolResnet(nn.Module):
         head_dropout: float = 0.5,
         generator: torch.Generator | None = None,
         compute_dtype: torch.dtype | None = None,
+        fused_tail: bool = False,
     ):
         super().__init__()
         self.compute_dtype = compute_dtype
@@ -59,7 +62,8 @@ class PoolResnet(nn.Module):
         pad = input_kernel_size - input_stride
         self.conv1 = nn.Conv2d(3, filters, input_kernel_size, stride=input_stride, padding=pad)
         self.residual_blocks = nn.ModuleList(
-            ResidualBlock(filters, pool_until=2 * num_patches, dropout=dropout)
+            ResidualBlock(filters, pool_until=2 * num_patches, dropout=dropout,
+                          fused_tail=fused_tail)
             for _ in range(num_residual_blocks)
         )
         self.head_dropout = Dropout2d(head_dropout)

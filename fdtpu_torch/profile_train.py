@@ -1,12 +1,14 @@
 """Profile the port's train step on one CUDA card.
 
     python -m fdtpu_torch.profile_train [--batch 128] [--size 320] [--grid 15]
-                                        [--no-rotate] [--steps 10]
+                                        [--no-rotate] [--fused-photometric]
+                                        [--steps 10]
 
 Drives ``make_train_step`` at ``bench.py``'s train shape by default
 (PoolResnet-128, 10 blocks, bf16 compute with float32 params, SAM + Adam,
-device augmentation with positional crop and rotation), random weights and
-u8 frames from seed 0, one face per image. Prints, beside the card's
+device augmentation with positional crop and rotation; ``--fused-photometric``
+takes the float32 route through the fused photometric kernel), random
+weights and u8 frames from seed 0, one face per image. Prints, beside the card's
 nvidia-smi name and power limit:
 
 * ms per step by CUDA events over ``--steps`` steps after warmup, with no
@@ -41,6 +43,7 @@ from fdtpu_torch.utils.config import DetectorConfig, TrainConfig
 # kernel classes, the first match on the lower-cased kernel name wins
 CLASSES = (
     ("rotation (shear kernels)", ("shear_",)),
+    ("photometric kernel", ("photometric_kernel",)),
     ("decode+NMS kernel", ("decode_filter_nms",)),
     ("convolution (cuDNN, CUTLASS, depthwise)", ("conv", "gemm", "xmma", "cutlass", "cudnn")),
     ("optimizer (multi-tensor)", ("multi_tensor",)),
@@ -71,11 +74,12 @@ def busy_us(spans) -> float:
     return total + (cur[1] - cur[0] if cur is not None else 0.0)
 
 
-def setup(batch: int, size: int, grid: int, rotate: bool):
+def setup(batch: int, size: int, grid: int, rotate: bool, fused_photometric: bool = False):
     cfg = DetectorConfig(input_shape=(size, size), num_patches=grid)
     module = build_model("poolresnet", cfg, "cuda", torch.Generator().manual_seed(0),
                          compute_dtype=torch.bfloat16)
-    tcfg = TrainConfig(rotate_device=rotate, positional_crop=True)
+    tcfg = TrainConfig(rotate_device=rotate, positional_crop=True,
+                       fused_photometric=fused_photometric)
     state = create_train_state(module, tcfg, 100)
     rng = np.random.default_rng(0)
     images = rng.integers(0, 255, size=(batch, size, size, 3), dtype=np.uint8)
@@ -92,6 +96,7 @@ def main() -> None:
     ap.add_argument("--size", type=int, default=320)
     ap.add_argument("--grid", type=int, default=15)
     ap.add_argument("--no-rotate", action="store_true")
+    ap.add_argument("--fused-photometric", action="store_true")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
@@ -101,7 +106,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    state, step, data = setup(args.batch, args.size, args.grid, not args.no_rotate)
+    state, step, data = setup(args.batch, args.size, args.grid, not args.no_rotate,
+                              args.fused_photometric)
     n = args.steps
 
     for _ in range(5):
@@ -142,7 +148,8 @@ def main() -> None:
     kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
 
     shape = (f"train b{args.batch} {args.size}px grid {args.grid} bf16 SAM+Adam, rotation "
-             f"{'off' if args.no_rotate else 'on'}")
+             f"{'off' if args.no_rotate else 'on'}, photometric "
+             f"{'fused (float32)' if args.fused_photometric else 'default chain (bfloat16)'}")
     print(f"== {shape} [{card}]")
     print(f"step {step_ms:.3f} ms by CUDA events, unprofiled ({args.batch * 1e3 / step_ms:.1f} "
           f"img/s); under the profiler {host_ms:.3f} ms by host clock")

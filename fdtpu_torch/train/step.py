@@ -4,7 +4,8 @@ YOLO-grid family.
 One train step::
 
     u8 batch -> device augmentation (crop, rotation on the card's shear
-    kernels, flip, photometric) -> grid target encoding -> forward with
+    kernels, flip, photometric; with ``fused_photometric`` one launch of the
+    photometric kernel) -> grid target encoding -> forward with
     dropout -> YOLO loss -> SAM two-point gradients -> Adam (or SGD) at the
     MultiStep learning rate [-> decode through the NMS kernel + metrics]
 
@@ -61,12 +62,14 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def _prepare_inputs(images, boxes, box_mask, gen: torch.Generator | None,
-                    rotate: bool = False, positional_crop: bool = False):
+                    rotate: bool = False, positional_crop: bool = False,
+                    fused_photometric: bool = False):
     """u8 batch -> float batch in [0, 1] and its boxes: augmented when a
     generator is given, otherwise scaled with the min-area filter."""
     if gen is not None:
         return augment_batch_fast(gen, images, boxes, box_mask, rotate=rotate,
-                                  positional_crop=positional_crop)
+                                  positional_crop=positional_crop,
+                                  fused_photometric=fused_photometric)
     return resize_only_batch(images, boxes, box_mask)
 
 
@@ -134,6 +137,7 @@ def make_train_step(
             imgs, bx, bm = _prepare_inputs(
                 images, boxes, box_mask, gen if augment else None,
                 rotate=config.rotate_device, positional_crop=bool(config.positional_crop),
+                fused_photometric=config.fused_photometric,
             )
         with record_function("train/targets"):
             enc = _encode_targets(net, bx, bm, image_size)

@@ -60,3 +60,6 @@ class TrainConfig:
     # crop the first k batch rows instead of a sampled subset; valid for
     # shuffled feeds only (see data/augment.py:augment_batch_fast)
     positional_crop: bool | None = None
+    # the exact-k batch (B >= 16) in float32 through the fused photometric
+    # kernel (kernels/photometric.py), fdtpu's FDTPU_PALLAS_AUGMENT=1 route
+    fused_photometric: bool = False
