@@ -52,22 +52,30 @@ non-zero; without a CUDA card it fails at once and prints no result):
 11. the fused photometric kernel (K5) against its plain version on the
     card: identity, brightness/contrast, noise (seeds 0, 2^31 - 2 and
     random), glass, motion, all gates at once, at B in {1, 26, 128} and S in
-    {64, 320, 480}, and each of the 16 motion bins. Bit-equal with noise
-    off; with noise on, bit-equal or within atol 1e-6 (the line says
-    which). Then the whole fused exact-k augmentation at b128/320 with
-    rotation, kernel against plain version on the same draws;
+    {64, 320, 480}; halo-free and blurred images in one batch, all noised,
+    at 320 px and at odd sides (37x45, 33x70) that put rows, images and the
+    buffer's end off the 16-byte grid; a view at an odd offset; each of the
+    16 motion bins. Bit-equal with noise off; with noise on, bit-equal or
+    within atol 1e-6 (the line says which). Then the whole fused exact-k
+    augmentation at b128/320 with rotation, kernel against plain version on
+    the same draws;
 12. the fused residual-tail kernel (K6) against its plain version, float32
-    and bfloat16, pooled and unpooled, channels_last and contiguous, at
-    (128, 128, 40, 40), (128, 128, 20, 20), (1, 128, 60, 60) and
-    (1, 128, 30, 30). Bit-equal. Then the K6 path: ``Detector.apply`` with
-    ``fused_tail`` at b128/320 and b1/480, bit-equal to the eager forward,
-    the tail kernel launched once a block;
+    and bfloat16, pooled and unpooled, channels_last and contiguous, with
+    and without conv2's bias folded in, at (128, 128, 40, 40),
+    (128, 128, 20, 20), (1, 128, 60, 60), (1, 128, 30, 30) and the edges:
+    C = 12 and 6 (not a multiple of 8), (3, 5, 7, 9) (a numel not a
+    multiple of 8), inputs at an offset of one element. Bit-equal. Then the
+    K6 path: ``Detector.apply`` with ``fused_tail`` at b128/320 and b1/480,
+    bit-equal to the eager forward, the tail kernel launched once a block;
 13. the K5 path: three bf16 train steps at b128/320 with rotation and
     ``fused_photometric``, losses finite, the photometric kernel launched
-    once a step; then timings with CUDA events after warmup: K5 and K6
-    against their plain versions at the main paths' shapes, the train step
-    with ``fused_photometric`` against the default chain, and the three
-    arms of ``fdtpu_torch.bench_pool_fusion`` at b128/320 and b1/480.
+    once a step; then timings with CUDA events after warmup: K5 against its
+    plain version at b128/320 on four tables (the fused route's, every gate
+    off, noise on every row, both blurs on every row), K6 at the eval
+    forward's shapes with and without the bias, each with warm and cold L2
+    (cycling through more than 150 MB of inputs), the train step with
+    ``fused_photometric`` against the default chain, and the three arms of
+    ``fdtpu_torch.bench_pool_fusion`` at b128/320 and b1/480.
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training and fused paths), error, times, and its bound: the
@@ -75,12 +83,16 @@ larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
 outside the tensor cores (H100 SXM data sheet). ``library_ms`` is null for
 every kernel: no single PyTorch call computes any of the five functions.
+The ``residual_tail`` entry also lists every shape phase 13 timed
+(``shapes``), each with its warm and cold times, plain times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Weights are random,
 drawn from a fixed seed.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -138,6 +150,9 @@ SHEAR_OPS = 4  # (1 - f) a + f b
 # on their planes; 2 a motion tap on the motion planes
 PHOTO_BASE_OPS, PHOTO_NOISE_OPS, PHOTO_GLASS_OPS = 5, 30, 18
 TAIL_OPS = 3  # leaky, add, max, per input element
+K6_SHAPES = (((128, 128, 40, 40), True), ((128, 128, 20, 20), False),
+             ((1, 128, 60, 60), True), ((1, 128, 30, 30), True), ((1, 128, 15, 15), False))
+L2_FLUSH_BYTES = 150e6  # three times the H100's 50 MB L2
 
 
 def check(ok: bool, what: str) -> None:
@@ -202,6 +217,62 @@ def event_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_s() -> float:
+    """The rate at which ``torch.cuda._sleep`` spins, from one timed sleep."""
+    torch.cuda._sleep(1000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / (start.elapsed_time(end) / 1e3)
+
+
+def queue_behind_sleep(host_s: float) -> None:
+    """Occupy the card for longer than ``host_s`` seconds of host launches
+    (at most half a second), so that the launches queue up behind it."""
+    torch.cuda._sleep(int(sleep_cycles_per_s() * min(1.5 * host_s + 1e-3, 0.5)))
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """The card's time for one call of ``fn``: the calls are queued behind a
+    sleep that outlasts their launches on the host, so the card runs them
+    back to back and the CUDA events around them time the card alone, not
+    the host's launch cost. (A ``fn`` that synchronises, as a plain
+    version's ``nonzero`` does, runs at the host's pace as in
+    ``event_ms``.)"""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    queue_behind_sleep(host_s * iters)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int) -> float:
+    """Host microseconds one call of ``fn`` takes to launch, with the card
+    busy behind a sleep so that no launch waits for a free queue slot."""
+    fn()
+    torch.cuda.synchronize()
+    queue_behind_sleep(2e-4 * iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 # -- phases ----------------------------------------------------------------------
@@ -636,6 +707,22 @@ def phase_photometric_vs_plain() -> float:
                 sc = photometric_table(gen, b, **kw)
                 compare(imgs, sc, seeds, bool(sc[:, kphoto.NOISE_SIGMA].any()),
                         f"B={b} S={s} {case}")
+    # halo-free and blurred images in one batch, every one noised: rows
+    # cycle through no blur, glass, motion and both (the kernel picks its
+    # path per CTA); odd sides put row starts, image starts and the buffer's
+    # end off the 16-byte grid; a view at an odd offset takes the wrapper's
+    # aligned copy
+    for b, h, w in ((128, 320, 320), (8, 37, 45), (5, 33, 70)):
+        imgs = torch.rand((b, h, w, 3), generator=gen, device="cuda") * 255.0
+        sc = photometric_table(gen, b, "all", False, False)
+        sc[:, kphoto.GLASS] = (torch.arange(b, device="cuda") % 4 % 2).float()
+        sc[:, kphoto.MOTION] = (torch.arange(b, device="cuda") % 4 >= 2).float()
+        compare(imgs, sc, photometric_seeds(gen, b), True,
+                f"B={b} {h}x{w} halo-free and blurred rows, all noised")
+    flat = torch.rand((3 * 37 * 45 * 3 + 1,), generator=gen, device="cuda") * 255.0
+    compare(flat[1:].view(3, 37, 45, 3), photometric_table(gen, 3, True, True, True),
+            photometric_seeds(gen, 3), True, "B=3 37x45 at an offset of one float")
+
     imgs = torch.rand((16, 64, 64, 3), generator=gen, device="cuda") * 255.0
     bins = torch.arange(16, device="cuda").float()
     compare(imgs, photometric_table(gen, 16, False, False, "all", bins=bins),
@@ -672,30 +759,65 @@ def phase_photometric_vs_plain() -> float:
     return worst
 
 
+def tail_operands(gen, shape, dtype, fmt, offset=0):
+    """``c2``, ``skip`` and a conv-like ``bias`` on the card; with
+    ``offset``, ``c2`` and ``skip`` are views ``offset`` elements into their
+    storage."""
+    def one():
+        n, c, h, w = shape
+        flat = (torch.randn((n * c * h * w + offset,), generator=gen, device="cuda") * 3).to(dtype)
+        t = flat[offset:]
+        if fmt == torch.channels_last:
+            return t.view(n, h, w, c).permute(0, 3, 1, 2)
+        return t.view(shape)
+
+    bias = (torch.randn((shape[1],), generator=gen, device="cuda") * 0.5).to(dtype)
+    return one(), one(), bias
+
+
 def phase_tail_vs_plain() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     runs = 0
-    for shape in ((128, 128, 40, 40), (128, 128, 20, 20), (1, 128, 60, 60), (1, 128, 30, 30)):
+
+    def same(c2, skip, pool, bias, where):
+        nonlocal runs
+        fmt = torch.contiguous_format if c2.is_contiguous() else torch.channels_last
+        got = kep.fused_residual_tail(c2, skip, pool=pool, bias=bias)
+        want = kep.reference_tail(c2, skip, pool, bias)
+        runs += 1
+        check(got.dtype == want.dtype and torch.equal(got, want), f"K6 differs at {where}")
+        check(got.is_contiguous(memory_format=fmt), f"K6 output layout at {where}")
+
+    # the main paths' shapes, and the edges: C not a multiple of 8, a numel
+    # not a multiple of 8 (unpooled), odd widths
+    shapes = ((128, 128, 40, 40), (128, 128, 20, 20), (1, 128, 60, 60), (1, 128, 30, 30),
+              (4, 12, 20, 20), (3, 5, 7, 9), (2, 6, 6, 10))
+    for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             for fmt in (torch.channels_last, torch.contiguous_format):
-                c2, skip = ((torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
-                            .contiguous(memory_format=fmt) for _ in range(2))
+                c2, skip, bias = tail_operands(gen, shape, dtype, fmt)
                 for pool in (True, False):
-                    got = kep.fused_residual_tail(c2, skip, pool=pool)
-                    want = kep.reference_tail(c2, skip, pool)
-                    runs += 1
-                    where = f"{shape} {dtype} {fmt} pool={pool}"
-                    check(got.dtype == want.dtype and torch.equal(got, want),
-                          f"K6 differs at {where}")
-                    check(got.is_contiguous(memory_format=fmt), f"K6 output layout at {where}")
+                    if pool and (shape[2] % 2 or shape[3] % 2):
+                        continue
+                    for b in (None, bias):
+                        same(c2, skip, pool, b, f"{shape} {dtype} {fmt} pool={pool} "
+                                                f"bias={b is not None}")
+                # inputs 16-byte misaligned: both (out stays aligned), or c2 alone
+                c2o, skipo, _ = tail_operands(gen, shape, dtype, fmt, offset=1)
+                for pool in (True, False):
+                    if pool and (shape[2] % 2 or shape[3] % 2):
+                        continue
+                    same(c2o, skipo, pool, bias, f"{shape} {dtype} {fmt} pool={pool} offset 1")
+                    same(c2o, skip, pool, None, f"{shape} {dtype} {fmt} pool={pool} c2 offset 1")
     torch.cuda.synchronize()
     print(f"[12 tail=plain] {runs} cases bit-equal (float32 and bfloat16, pooled and "
-          f"unpooled, channels_last and contiguous)")
+          f"unpooled, channels_last and contiguous, with and without the bias; C = 12 and 5, "
+          f"numel 945, inputs at an offset of one element)")
 
 
 def phase_tail_path():
-    """The K6 path: ``Detector.apply`` with every block's tail fused, against
-    the eager forward of the same Detector."""
+    """The K6 path: ``Detector.apply`` with every block's tail fused (conv2's
+    bias folded in), against the eager forward of the same Detector."""
     shapes = {"b128-320": (128, BENCH_CFG), "b1-480": (1, DetectorConfig())}
     dets = {key: Detector(build_model("poolresnet", cfg, "cuda",
                                       torch.Generator().manual_seed(SEED)))
@@ -769,43 +891,112 @@ def photometric_bound(imgs, sc, seeds) -> dict:
     return bound(2 * nbytes(imgs) + nbytes(sc, seeds), ops)
 
 
-def tail_bound(c2, skip, pool: bool) -> dict:
+def tail_bound(c2, skip, pool: bool, bias=None) -> dict:
     out = c2.numel() // 4 if pool else c2.numel()
-    return bound(nbytes(c2, skip) + out * c2.element_size(), TAIL_OPS * c2.numel())
+    extra = (bias is not None) * c2.numel()  # the bias add
+    return bound(nbytes(c2, skip, *(() if bias is None else (bias,))) + out * c2.element_size(),
+                 TAIL_OPS * c2.numel() + extra)
 
 
-def phase_fused_timings(card, train):
-    times = {}
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    # K5 at the train shape: b128/320 float32, the exact-k table of the
-    # fused route (26 rows each noised, glass-blurred and motion-blurred)
+def turns(kern, plain, iters: int, plain_iters: int) -> tuple[float, float, str]:
+    """Kernel and plain times on the card (``device_ms``): plain, kernel,
+    kernel, plain, so that drift on the card hits both alike."""
+    p1, k1, k2, p2 = (device_ms(f, n) for f, n in
+                      ((plain, plain_iters), (kern, iters), (kern, iters), (plain, plain_iters)))
+    return (k1 + k2) / 2, (p1 + p2) / 2, f"runs {k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}"
+
+
+def cycling(fn, operands):
+    """A call of ``fn`` on the next operands of the list, round and round."""
+    it = itertools.cycle(operands)
+    return lambda: fn(*next(it))
+
+
+def photometric_times(card, gen) -> dict:
+    """K5 at the train shape, b128/320 float32, on four tables: the exact-k
+    table of the fused route (26 rows each noised, glass-blurred and
+    motion-blurred; the row of record), every gate off, the noise on every
+    row, and both blurs on every row (noise off). Brightness/contrast as the
+    fused route drew it in all four. Each split shows what a stage costs."""
     d = aug.sample_exact_k(gen, 128, 320, 320, "cuda", rotate=True, positional_crop=True,
                            fused_photometric=True)
     imgs = torch.rand((128, 320, 320, 3), generator=gen, device="cuda") * 255.0
-    kern = lambda: kphoto.photometric_batch(imgs, d.scalars, d.seeds)  # noqa: E731
-    plain = lambda: kphoto.photometric_reference(imgs, d.scalars, d.seeds)  # noqa: E731
-    p1, k1, k2, p2 = (event_ms(f, n) for f, n in ((plain, 5), (kern, 20), (kern, 20), (plain, 5)))
-    bnd = photometric_bound(imgs, d.scalars, d.seeds)
-    times["photometric"] = ((k1 + k2) / 2, (p1 + p2) / 2, bnd)
-    print(f"[13 time] photometric (128, 320, 320, 3) float32, the fused route's table: kernel "
-          f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms (runs {k1:.4f}/{k2:.4f} vs "
-          f"{p1:.4f}/{p2:.4f}); bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
+    off = d.scalars.clone()
+    off[:, [kphoto.NOISE_SIGMA, kphoto.GLASS, kphoto.MOTION]] = 0.0
+    noise, blurs = off.clone(), off.clone()
+    noise[:, kphoto.NOISE_SIGMA] = torch.sqrt(
+        10.0 + torch.rand((128,), generator=gen, device="cuda") * 390.0)
+    blurs[:, [kphoto.GLASS, kphoto.MOTION]] = 1.0
+    out = {}
+    for table, sc in (("the fused route's table", d.scalars), ("gates off", off),
+                      ("noise on every row", noise), ("both blurs on every row", blurs)):
+        ms, plain, runs = turns(lambda sc=sc: kphoto.photometric_batch(imgs, sc, d.seeds),
+                                lambda sc=sc: kphoto.photometric_reference(imgs, sc, d.seeds),
+                                20, 3)
+        bnd = photometric_bound(imgs, sc, d.seeds)
+        out[table] = (ms, plain, bnd)
+        print(f"[13 time] photometric (128, 320, 320, 3) float32, {table}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms ({runs}); bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']} [{card}]")
+    return out
 
-    # K6 at the eval forward's shapes: at b128/320 block 0 pools and blocks
-    # 1-9 do not; at b1/480 blocks 0 and 1 pool and blocks 2-9 do not
-    for shape, pool in (((128, 128, 40, 40), True), ((128, 128, 20, 20), False),
-                        ((1, 128, 60, 60), True), ((1, 128, 30, 30), True),
-                        ((1, 128, 15, 15), False)):
-        c2, skip = ((torch.randn(shape, generator=gen, device="cuda") * 3).to(torch.bfloat16)
-                    .contiguous(memory_format=torch.channels_last) for _ in range(2))
-        kern = lambda: kep.fused_residual_tail(c2, skip, pool=pool)  # noqa: E731
-        plain = lambda: kep.reference_tail(c2, skip, pool)  # noqa: E731
-        p1, k1, k2, p2 = (event_ms(f, 50) for f in (plain, kern, kern, plain))
-        bnd = tail_bound(c2, skip, pool)
-        times.setdefault("residual_tail", ((k1 + k2) / 2, (p1 + p2) / 2, bnd))
-        print(f"[13 time] residual_tail {shape} bf16 channels_last pool={pool}: kernel "
-              f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms (runs {k1:.4f}/{k2:.4f} vs "
-              f"{p1:.4f}/{p2:.4f}); bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} [{card}]")
+
+def tail_times(card, gen, with_bias: bool = True) -> list[dict]:
+    """K6 at the eval forward's shapes, bf16 channels_last: at b128/320
+    block 0 pools and blocks 1-9 do not; at b1/480 blocks 0 and 1 pool and
+    blocks 2-9 do not. ``with_bias``: conv2's bias folded in, as the
+    ``fused_tail`` forward runs it on the card, and the plain version adds
+    it first, as the eager forward does. Each shape twice: warm, the same
+    inputs every launch (at b128 an unpooled block's 26 MB of inputs stay in
+    the 50 MB L2), and cold, cycling through enough input sets that each
+    launch finds its inputs out of L2. Times are the card's alone
+    (``device_ms``); the host's launch cost of one call is ``host_us``."""
+    rows = []
+    for shape, pool in K6_SHAPES:
+        sets = [tail_operands(gen, shape, torch.bfloat16, torch.channels_last)]
+        while len(sets) * nbytes(*sets[0][:2]) < L2_FLUSH_BYTES:
+            sets.append(tail_operands(gen, shape, torch.bfloat16, torch.channels_last))
+        if with_bias:
+            def kern(c, s, b, pool=pool):
+                return kep.fused_residual_tail(c, s, pool=pool, bias=b)
+
+            def plain(c, s, b, pool=pool):
+                return kep.reference_tail(c, s, pool, b)
+        else:
+            def kern(c, s, b, pool=pool):
+                return kep.fused_residual_tail(c, s, pool=pool)
+
+            def plain(c, s, b, pool=pool):
+                return kep.reference_tail(c, s, pool)
+        c2, skip, bias = sets[0]
+        row = {"shape": list(shape), "pool": pool, "bias": with_bias,
+               **tail_bound(c2, skip, pool, bias if with_bias else None)}
+        for l2, operands in (("warm", sets[:1]), ("cold", sets)):
+            ms, plain_ms, runs = turns(cycling(kern, operands), cycling(plain, operands), 50, 50)
+            row[f"ms_{l2}"], row[f"plain_ms_{l2}"] = ms, plain_ms
+            print(f"[13 time] residual_tail {shape} bf16 channels_last pool={pool} "
+                  f"bias={with_bias}, {l2} L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  f"({runs}); bound {row['bound_ms']:.4f} ms by {row['bound_by']} [{card}]")
+        row["host_us"] = host_us(lambda: kern(c2, skip, bias), 200)
+        row["plain_host_us"] = host_us(lambda: plain(c2, skip, bias), 200)
+        print(f"[13 time] residual_tail {shape} pool={pool} bias={with_bias}: host "
+              f"{row['host_us']:.1f} us a call, plain {row['plain_host_us']:.1f} us [{card}]")
+        rows.append(row)
+    return rows
+
+
+def phase_fused_timings(card, train):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    photo = photometric_times(card, gen)
+    tails = tail_times(card, gen) + tail_times(card, gen, with_bias=False)
+    # the kernels line: K5 on the fused route's table; K6 at its most
+    # launched shape, b128 unpooled with the bias (nine launches of ten a
+    # b128 forward), warm, beside every shape it was timed at
+    top = next(r for r in tails if r["shape"] == [128, 128, 20, 20] and r["bias"])
+    times = {"photometric": photo["the fused route's table"],
+             "residual_tail": (top["ms_warm"], top["plain_ms_warm"],
+                               {k: top[k] for k in ("bound_ms", "bound_by")}),
+             "residual_tail_shapes": tails}
 
     state, fused_step, batch = train
     default_step = make_train_step(state.module, TrainConfig(rotate_device=True,
@@ -818,9 +1009,11 @@ def phase_fused_timings(card, train):
           f"{(d1 + d2) / 2:.3f} ms/step (runs {d1:.3f}/{d2:.3f}) [{card}]")
     for b, size, grid in ((128, 320, 15), (1, 480, 10)):
         r = bpf.measure(b, size, grid, iters=20)
+        runs = "; ".join(f"{arm} {'/'.join(f'{t:.4f}' for t in r[f'fwd_{arm}_runs_ms'])}"
+                         for arm in bpf.ARMS)
         print(f"[13 time] bench_pool_fusion b{b} {size}px: prod {r['fwd_prod_ms']:.4f} ms, "
               f"slicemax {r['fwd_slicemax_ms']:.4f} ms, fused {r['fwd_fused_ms']:.4f} ms a forward "
-              f"(all bit-equal to prod) [{card}]")
+              f"(runs {runs}; all bit-equal to prod) [{card}]")
     return times
 
 
@@ -854,7 +1047,8 @@ def main() -> None:
                              shear_times[kname]))
     kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"], photo_worst,
                          fused_times["photometric"]))
-    kernels.append(entry(RESIDUAL_TAIL, tail_launches, 0.0, fused_times["residual_tail"]))
+    kernels.append({**entry(RESIDUAL_TAIL, tail_launches, 0.0, fused_times["residual_tail"]),
+                    "shapes": fused_times["residual_tail_shapes"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -9,11 +9,13 @@ default) in bfloat16 and channels_last, as the ``Detector`` serves it, with
 random weights and frames from seed 0, in three arms that differ only in
 each residual block's tail ``leaky(c2) + skip [-> maxpool2x2]``:
 
-* ``prod``: the eager tail (three kernels: leaky ReLU, add, max-pool);
+* ``prod``: the eager tail (fdtpu's production block: conv2's bias add,
+  leaky ReLU, add, max-pool, each its own kernel);
 * ``slicemax``: the tail as the max of four strided slices of
   ``leaky(c2) + skip``;
 * ``fused``: the fused residual-tail kernel (``kernels/epilogue.py``) in
-  every block, ``PoolResnet(fused_tail=True)``: one launch a block.
+  every block, conv2's bias folded in, ``PoolResnet(fused_tail=True)``:
+  one launch a block.
 
 Every arm is first held bit-equal to ``prod`` on the batch; then each
 forward is timed with CUDA events after warmup, in the order prod,

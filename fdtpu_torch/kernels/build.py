@@ -109,7 +109,7 @@ def load_library() -> ctypes.CDLL:
     lib.fdtpu_shear_cols.restype = _I
     lib.fdtpu_photometric.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
     lib.fdtpu_photometric.restype = _I
-    lib.fdtpu_residual_tail.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.fdtpu_residual_tail.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.fdtpu_residual_tail.restype = _I
     lib.fdtpu_cuda_error_string.argtypes = [_I]
     lib.fdtpu_cuda_error_string.restype = ctypes.c_char_p

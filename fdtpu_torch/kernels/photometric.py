@@ -205,6 +205,8 @@ def photometric_batch(imgs: torch.Tensor, scalars: torch.Tensor, seeds: torch.Te
     from fdtpu_torch.kernels import build
 
     imgs, scalars, seeds = imgs.contiguous(), scalars.contiguous(), seeds.contiguous()
+    if imgs.data_ptr() % 16:  # the kernel moves 16-byte vectors: a view at an odd offset
+        imgs = imgs.clone()
     lib = build.load_library()
     out = torch.empty_like(imgs)
     b, h, w, _ = imgs.shape

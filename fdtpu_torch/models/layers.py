@@ -67,10 +67,11 @@ class Dropout2d(nn.Module):
         return torch.where(keep, x / (1.0 - self.rate), 0.0)
 
 
-def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def conv(layer: nn.Conv2d, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
     """``layer`` applied in ``x``'s dtype: the weights are cast to it (a
-    no-op when they already have it), the params stay as they are."""
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    no-op when they already have it), the params stay as they are. Without
+    ``with_bias`` the layer's bias is left for the caller to add."""
+    bias = layer.bias.to(x.dtype) if with_bias and layer.bias is not None else None
     return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, layer.padding)
 
 
@@ -108,8 +109,12 @@ class ResidualBlock(nn.Module):
     ``fused_tail`` (eval only) runs ``leaky -> +skip -> maxpool`` as one
     launch of the fused residual-tail kernel (``kernels/epilogue.py``),
     bit-equal to the eager tail: fdtpu's ``TailBlock(mode="pallas")`` of
-    ``scripts/bench_pool_fusion.py``. With dropout masks it raises, and so
-    does the kernel under autograd.
+    ``scripts/bench_pool_fusion.py``. On the card the kernel also adds
+    ``conv2``'s bias: cuDNN's convolution leaves it to a separate
+    elementwise pass, whose rounding the kernel repeats. On the CPU oneDNN
+    adds the bias inside the convolution and rounds once, so there it stays
+    in the convolution. With dropout masks it raises, and so does the kernel
+    under autograd.
     """
 
     def __init__(self, filters: int, pool_until: int, dropout: float = 0.25,
@@ -124,12 +129,16 @@ class ResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor, masks: DropoutMasks | None = None) -> torch.Tensor:
         skip = x
         x = leaky_relu(conv(self.conv1, x))
-        x = conv(self.conv2, x)
         if self.fused_tail:
             if masks is not None:
                 raise ValueError("fused_tail is eval-only: the forward was given dropout masks")
+            pool = x.shape[2] > self.pool_until
             # dropout is the identity at eval
-            return fused_residual_tail(x, skip, pool=x.shape[2] > self.pool_until)
+            if x.device.type == "cuda" and self.conv2.bias is not None:
+                c2 = conv(self.conv2, x, with_bias=False)
+                return fused_residual_tail(c2, skip, pool=pool, bias=self.conv2.bias.to(x.dtype))
+            return fused_residual_tail(conv(self.conv2, x), skip, pool=pool)
+        x = conv(self.conv2, x)
         x = self.dropout(leaky_relu(x), masks) + skip
         if x.shape[2] > self.pool_until:  # NCHW: dim 2 is the height
             x = max_pool_2x2(x)

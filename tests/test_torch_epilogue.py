@@ -122,6 +122,81 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         kep.fused_residual_tail(c2, x, pool=True)
 
 
+def bias_for(seed, c, dtype):
+    return jnp.asarray(np.random.default_rng(seed).normal(size=(c,)).astype(np.float32)).astype(dtype)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bias_operand_matches_fdtpu(dtype, pool, layout):
+    """The wrapper's plain version with ``bias`` against fdtpu's
+    ``reference_tail`` on ``c2 + bias``: the add rounds to the dtype in
+    both, so float32 is equal and bfloat16 differs only by the slope's
+    rounding (the module docstring's bound)."""
+    c2, skip = planes(10 + int(pool) + 2 * (dtype == "bfloat16"), dtype=jnp.dtype(dtype))
+    bias = bias_for(7, c2.shape[-1], jnp.dtype(dtype))
+    c2b = c2 + bias  # NHWC: the bias broadcasts over the channel axis
+    want = np.asarray(jep.reference_tail(c2b, skip, pool=pool).astype(jnp.float32))
+    tc2, tskip = to_port(c2, layout), to_port(skip, layout)
+    tbias = torch.from_numpy(np.array(bias.astype(jnp.float32))).to(tc2.dtype)
+    got_t = kep.fused_residual_tail(tc2, tskip, pool=pool, bias=tbias)
+    assert got_t.dtype == tc2.dtype
+    assert got_t.is_contiguous(memory_format=torch.channels_last if layout == "channels_last"
+                               else torch.contiguous_format)
+    tc2b = tc2 + tbias.view(1, -1, 1, 1)
+    np.testing.assert_array_equal(to_nhwc(tc2b), np.asarray(c2b.astype(jnp.float32)))
+    got = to_nhwc(got_t)
+    if dtype == "float32":
+        np.testing.assert_array_equal(got, want)
+        return
+    leaky = to_nhwc(F.leaky_relu(tc2b.float(), 0.2))
+    flat = np.asarray(jep.reference_tail(c2b, skip, pool=False).astype(jnp.float32))
+    bound = bf16_step(leaky) + bf16_step(flat)
+    bound[np.asarray(c2b.astype(jnp.float32)) >= 0] = 0.0
+    if pool:
+        bound = to_nhwc(F.max_pool2d(torch.from_numpy(bound).permute(0, 3, 1, 2), 2))
+    diff = np.abs(got - want)
+    assert (diff <= bound).all(), diff.max()
+    same_slope = F.leaky_relu(tc2b, BF16_SLOPE) + tskip
+    if pool:
+        same_slope = F.max_pool2d(same_slope, 2)
+    np.testing.assert_array_equal(to_nhwc(same_slope), want)
+
+
+def test_bias_rounds_before_the_tail():
+    """``c2 + bias`` is rounded to bfloat16 before the leaky ReLU, as the
+    eager bias add after a cuDNN convolution rounds it; adding in float32
+    and rounding once would differ on these inputs."""
+    c2, skip = planes(21, dtype=jnp.bfloat16)
+    tc2, tskip = to_port(c2, "channels_last"), to_port(skip, "channels_last")
+    tbias = torch.from_numpy(np.random.default_rng(3).normal(size=tc2.shape[1]) * 3).bfloat16()
+    got = kep.fused_residual_tail(tc2, tskip, pool=False, bias=tbias)
+    eager = F.leaky_relu(tc2 + tbias.view(1, -1, 1, 1), 0.2) + tskip
+    assert torch.equal(got, eager)
+    unrounded = (F.leaky_relu(tc2.float() + tbias.float().view(1, -1, 1, 1), 0.2)
+                 + tskip.float()).bfloat16()
+    assert not torch.equal(got, unrounded)
+
+
+def test_wrapper_rejects_a_bad_bias():
+    x = torch.zeros(2, 8, 6, 10)
+    kep.fused_residual_tail(x, x, pool=True, bias=torch.zeros(8))
+    with pytest.raises(ValueError, match="bias must be"):
+        kep.fused_residual_tail(x, x, pool=True, bias=torch.zeros(9))
+    with pytest.raises(ValueError, match="bias must be"):
+        kep.fused_residual_tail(x, x, pool=True, bias=torch.zeros(1, 8))
+    with pytest.raises(TypeError, match="bias must be"):
+        kep.fused_residual_tail(x, x, pool=True, bias=torch.zeros(8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="bias lies on"):
+        kep.fused_residual_tail(x, x, pool=True, bias=torch.zeros(8, device="meta"))
+    b = torch.zeros(8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="eval-only"):
+        kep.fused_residual_tail(x, x, pool=True, bias=b)
+    with torch.no_grad():
+        kep.fused_residual_tail(x, x, pool=True, bias=b)
+
+
 def small_pair():
     """fdtpu's PoolResnet (filters 16, 2 blocks, 160 px) and the port's with
     its params and ``fused_tail``."""
@@ -167,10 +242,24 @@ def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for dt in (torch.float32, torch.bfloat16):
-        for fmt in (torch.channels_last, torch.contiguous_format):
-            c2, skip = (torch.randn((4, 32, 20, 20), generator=g, device="cuda").to(dt)
-                        .contiguous(memory_format=fmt) for _ in range(2))
-            for pool in (True, False):
-                assert torch.equal(kep.fused_residual_tail(c2, skip, pool=pool),
-                                   kep.reference_tail(c2, skip, pool))
+
+    def operands(shape, dt, fmt, offset=0):
+        n, c, h, w = shape
+        flat = torch.randn((n * c * h * w + offset,), generator=g, device="cuda").to(dt)[offset:]
+        if fmt == torch.channels_last:
+            return flat.view(n, h, w, c).permute(0, 3, 1, 2)
+        return flat.view(shape)
+
+    # 32 channels; C = 12 (not a multiple of 8); numel 945 (not a multiple of 8)
+    for shape in ((4, 32, 20, 20), (4, 12, 20, 20), (3, 5, 7, 9)):
+        for dt in (torch.float32, torch.bfloat16):
+            for fmt in (torch.channels_last, torch.contiguous_format):
+                bias = torch.randn((shape[1],), generator=g, device="cuda").to(dt)
+                for offset in (0, 1):  # 1: both inputs off the 16-byte grid
+                    c2, skip = operands(shape, dt, fmt, offset), operands(shape, dt, fmt, offset)
+                    for pool in (True, False):
+                        if pool and shape[2] % 2:
+                            continue
+                        for b in (None, bias):
+                            assert torch.equal(kep.fused_residual_tail(c2, skip, pool=pool, bias=b),
+                                               kep.reference_tail(c2, skip, pool, b))

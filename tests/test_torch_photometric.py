@@ -236,3 +236,12 @@ def test_kernel_matches_plain_on_card():
                motion=rng.integers(0, 2, 8))
     x, s, sd = (torch.from_numpy(a).cuda() for a in (imgs, sc, seeds))
     assert torch.equal(kp.photometric_batch(x, s, sd), kp.photometric_reference(x, s, sd))
+    # halo-free and blurred images in one batch, all noised, at sides that
+    # put rows and images off the 16-byte grid; then a view at an odd offset
+    imgs, seeds = inputs(rng, 8, 37, 45)
+    sc = table(rng, 8, sigma=9.0, glass=np.arange(8) % 2, motion=np.arange(8) // 4)
+    x, s, sd = (torch.from_numpy(a).cuda() for a in (imgs, sc, seeds))
+    got, want = kp.photometric_batch(x, s, sd), kp.photometric_reference(x, s, sd)
+    assert (got - want).abs().max().item() <= ATOL
+    flat = torch.cat([torch.zeros(1, device="cuda"), x.flatten()])[1:].view(x.shape)
+    assert torch.equal(kp.photometric_batch(flat, s, sd), got)
