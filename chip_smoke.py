@@ -4,15 +4,24 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --kernel-times`` runs phases 1 and 2 and the K1-K4
+timings alone, without plain versions, and prints them as one JSON line;
+``python -m fdtpu_torch.compare_parent`` runs it in turns on two trees.)
+
 Phases, one printed line each (any failure raises, and the script exits
 non-zero; without a CUDA card it fails at once and prints no result):
 
 1. the card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build the hand-written kernel from the checkout's sources;
+2. build the hand-written kernels from the checkout's sources;
 3. the decode+filter+NMS kernel against its plain PyTorch version on the
    card: B in {1, 8, 128}, N in {100, 225, 4774}, capacity in {64, 128},
-   thresholds 0.5/0.5 and 0.7/0.01, random, saturated, tie and empty maps.
-   Masks, scores and coordinates must be bit-equal;
+   thresholds 0.5/0.5 and 0.7/0.01, random, saturated, tie, all-equal and
+   empty maps; negative scores under a threshold of -0.7 (a score <= -0.5
+   ends the scan); +0.0 and -0.0 tied under -0.3; exactly capacity,
+   capacity + 1, 256 and 257 eligible candidates (the rank sort's limit
+   and the bitonic sort's first size). Outputs are allocated over blocks
+   filled with 0xFF, so a row the kernel fails to write shows. Masks,
+   scores and coordinates must be bit-equal;
 4. the full-width float32 forward (PoolResnet-128, 10 blocks, 480 px, B=2,
    TF32 off) on the card against the same model on the CPU, atol 1e-4;
 5. the serving path: a bfloat16 Detector on the card, ``predict`` on three
@@ -20,12 +29,19 @@ non-zero; without a CUDA card it fails at once and prints no result):
    path at the bench shape (320 px, grid 15, B=128, capacity 64). The
    kernel's launch count must rise once per call, and the batch path's boxes
    must equal the plain version's on the same forward output;
-6. timings with CUDA events after warmup: kernel against plain version at
-   three shapes, the b128 forward + decode, the b1 predict latency;
+6. timings: the NMS kernel on the card alone (``device_ms``) through its
+   wrapper and through the bare entry point, against its plain version,
+   and its wrapper's host time a call (``host_us``), at three shapes; with
+   CUDA events after warmup the b128 forward + decode and the b1 predict
+   latency;
 7. the rotation kernels (shear_rows, shear_cols) against their plain
    versions on the card, every pass and the whole rotate_batch, float32 and
    bfloat16, B in {1, 8, 26}, S in {200, 320, 480} (200 = 8 mod 16), angles
-   0, +-ROTATE_LIMIT_RAD and random; and K4's rotate_batch_transposed.
+   0, +-ROTATE_LIMIT_RAD and random; and K4's rotate_batch_transposed. Then
+   the edges of both shears: k from 0 to 40 (shear_cols' ring, and its
+   read straight from device memory when the shear outgrows the ring),
+   rows not a multiple of its 128-row band (328, 37), lanes off the
+   16-byte grid (45), c = 1, planes one element into their storage.
    Bit-equal;
 8. one float32 SAM + SGD train step at DetectorConfig() (480 px, grid 10,
    B=2, augmentation and dropout off, TF32 off) on the card against the
@@ -46,9 +62,10 @@ non-zero; without a CUDA card it fails at once and prints no result):
    rotate_batch (one per step) and the NMS kernel launches once per metrics
    step;
 10. timings with CUDA events after warmup: train img/s at b128/320 with
-    rotation on and off, the b8/480 step, each shear kernel against its
-    plain version at the shapes the training path gives it (and shear_rows
-    on K4's channel-stacked planes of the same images);
+    rotation on and off, the b8/480 step; then each shear kernel on the
+    card alone (``device_ms``) against its plain version at the shapes the
+    training path gives it (and shear_rows on K4's channel-stacked planes
+    of the same images);
 11. the fused photometric kernel (K5) against its plain version on the
     card: identity, brightness/contrast, noise (seeds 0, 2^31 - 2 and
     random), glass, motion, all gates at once, at B in {1, 26, 128} and S in
@@ -83,8 +100,9 @@ larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
 outside the tensor cores (H100 SXM data sheet). ``library_ms`` is null for
 every kernel: no single PyTorch call computes any of the five functions.
-The ``residual_tail`` entry also lists every shape phase 13 timed
-(``shapes``), each with its warm and cold times, plain times and bound.
+The ``decode_filter_nms``, ``shear_rows``, ``shear_cols`` and
+``residual_tail`` entries also list every shape they were timed at
+(``shapes``).
 The last line is ``{"ok": true, "device": {...}}``. Weights are random,
 drawn from a fixed seed.
 """
@@ -94,8 +112,10 @@ from __future__ import annotations
 import functools
 import itertools
 import json
+import math
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -150,6 +170,7 @@ SHEAR_OPS = 4  # (1 - f) a + f b
 # on their planes; 2 a motion tap on the motion planes
 PHOTO_BASE_OPS, PHOTO_NOISE_OPS, PHOTO_GLASS_OPS = 5, 30, 18
 TAIL_OPS = 3  # leaky, add, max, per input element
+NMS_TIMED = ((128, 225, 64), (1, 100, 128), (128, 4774, 128))  # (B, N, capacity)
 K6_SHAPES = (((128, 128, 40, 40), True), ((128, 128, 20, 20), False),
              ((1, 128, 60, 60), True), ((1, 128, 30, 30), True), ((1, 128, 15, 15), False))
 L2_FLUSH_BYTES = 150e6  # three times the H100's 50 MB L2
@@ -183,19 +204,44 @@ def card_line() -> str:
 # -- inputs ----------------------------------------------------------------------
 
 
-def candidates(rng, b, n, case):
-    """(B, N, 5) rows [conf, x, y, w, h] in the model's [0, 1] units."""
+def candidates(rng, b, n, case, eligible=None):
+    """(B, N, 5) rows [conf, x, y, w, h] in the model's [0, 1] units. With
+    ``eligible``, exactly that many rows an image score 0.9 and the rest
+    0.1, all boxes of zero size (nothing suppresses anything)."""
     v = rng.uniform(0, 1, size=(b, n, 5)).astype(np.float32)
-    if case == "saturated":  # small, mostly disjoint boxes: > capacity survive
+    if eligible is not None:
+        v[..., 0] = 0.1
+        for i in range(b):
+            v[i, rng.choice(n, size=eligible, replace=False), 0] = 0.9
+        v[..., 3:] = 0.0
+    elif case == "saturated":  # small, mostly disjoint boxes: > capacity survive
         v[..., 3:] = rng.uniform(0.002, 0.03, size=(b, n, 2))
     elif case == "tie":  # three score levels, many exact ties
         v[..., 0] = rng.choice(np.float32([0.3, 0.75, 0.9]), size=(b, n))
+        v[..., 3:] *= 0.1
+    elif case == "equal":  # every score the same: the index decides
+        v[..., 0] = 0.75
+        v[..., 3:] *= 0.1
+    elif case == "negative":  # scores in [-1, -0.4]: a score <= -0.5 ends the scan
+        v[..., 0] = rng.uniform(-1, -0.4, size=(b, n))
+        v[..., 3:] *= 0.1
+    elif case == "signed zeros":  # +0.0 and -0.0 tie; the index decides
+        v[..., 0] = rng.choice(np.float32([0.0, -0.0, -0.25, -0.6]), size=(b, n))
         v[..., 3:] *= 0.1
     elif case == "empty":
         v[:] = 0.0
     else:  # random
         v[..., 3:] *= 0.3
     return torch.from_numpy(v).cuda()
+
+
+def poison(*shapes_dtypes) -> None:
+    """Leave NaN / 0xFF blocks of these shapes in the caching allocator, so
+    that a kernel which skips an output entry it should write shows it."""
+    for shape, dtype in shapes_dtypes:
+        t = torch.empty(shape, dtype=dtype, device="cuda")
+        t.view(torch.uint8).fill_(0xFF)
+        del t
 
 
 def tables_for(n):
@@ -301,28 +347,51 @@ def phase_build() -> None:
 def phase_kernel_vs_plain() -> float:
     rng = np.random.default_rng(SEED)
     worst, runs = 0.0, 0
+
+    def same(vals, tables, prob, iou, cap, where):
+        nonlocal worst, runs
+        b = vals.shape[0]
+        # the kernel writes every entry: uninitialised outputs full of 0xFF
+        poison(((b, cap, 5), torch.float32), ((b, cap), torch.bool))
+        gb, gm = knms.decode_filter_nms_batch(vals, tables, prob, iou, cap)
+        wb, wm = knms.decode_filter_nms_reference(vals, tables, prob, iou, cap)
+        torch.cuda.synchronize()
+        err = (gb - wb).abs().max().item()
+        worst = max(worst, err)
+        runs += 1
+        check(torch.equal(gm, wm), f"masks differ at {where}")
+        check(torch.equal(gb, wb), f"boxes differ at {where} (max {err})")
+        return gm
+
     for b in (1, 8, 128):
         for n in (100, 225, 4774):
             tables = tables_for(n)
             for cap in (64, 128):
-                for case in ("random", "saturated", "tie", "empty"):
+                for case in ("random", "saturated", "tie", "equal", "empty"):
                     vals = candidates(rng, b, n, case)
                     for prob, iou in ((0.5, 0.5), (0.7, 0.01)):
-                        gb, gm = knms.decode_filter_nms_batch(vals, tables, prob, iou, cap)
-                        wb, wm = knms.decode_filter_nms_reference(vals, tables, prob, iou, cap)
-                        torch.cuda.synchronize()
-                        err = (gb - wb).abs().max().item()
-                        worst = max(worst, err)
-                        runs += 1
                         where = f"B={b} N={n} cap={cap} {case} {prob}/{iou}"
-                        check(torch.equal(gm, wm), f"masks differ at {where}")
-                        check(torch.equal(gb, wb), f"boxes differ at {where} (max {err})")
+                        gm = same(vals, tables, prob, iou, cap, where)
                         if case == "saturated" and prob == 0.5 and n / 2 > 1.5 * cap:
                             check(bool(gm.all()), f"not saturated at {where}")
                         if case == "empty":
                             check(not gm.any(), f"boxes from an empty map at {where}")
-    print(f"[3 kernel=plain] {runs} cases bit-equal (masks, scores, coordinates); "
-          f"max |kernel - plain| = {worst}")
+                # thresholds below -0.5: negative scores, and +0.0 / -0.0 ties
+                for case, prob in (("negative", -0.7), ("signed zeros", -0.3)):
+                    vals = candidates(rng, b, n, case)
+                    same(vals, tables, prob, 0.5, cap, f"B={b} N={n} cap={cap} {case} {prob}/0.5")
+                # eligible counts at the edges: capacity, one above it, and
+                # the rank sort's limit of 256 against the bitonic sort's 257
+                for m in (cap, cap + 1, 256, 257):
+                    if m > n:
+                        continue
+                    vals = candidates(rng, b, n, None, eligible=m)
+                    gm = same(vals, tables, 0.5, 0.5, cap, f"B={b} N={n} cap={cap} M={m}")
+                    check(bool((gm.sum(-1) == min(m, cap)).all()), f"M={m} kept != {min(m, cap)}")
+    print(f"[3 kernel=plain] {runs} cases bit-equal (masks, scores, coordinates; outputs "
+          f"allocated over 0xFF): random, saturated, tie, equal, empty, negative scores under "
+          f"threshold -0.7, +-0.0 under -0.3, M = cap, cap + 1, 256, 257; max |kernel - plain| = "
+          f"{worst}")
     return worst
 
 
@@ -330,9 +399,8 @@ def phase_forward_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = DetectorConfig()
-    cpu = build_model("poolresnet", cfg, generator=torch.Generator().manual_seed(SEED)).eval()
-    gpu = build_model("poolresnet", cfg, generator=torch.Generator().manual_seed(SEED))
-    gpu = gpu.cuda().eval()
+    cpu = build_model("poolresnet", cfg, "cpu", torch.Generator().manual_seed(SEED)).eval()
+    gpu = build_model("poolresnet", cfg, "cuda", torch.Generator().manual_seed(SEED)).eval()
     u8 = np.random.default_rng(SEED + 1).integers(0, 256, size=(2, 480, 480, 3), dtype=np.uint8)
     x = torch.from_numpy(u8).float() / 255.0
     with torch.inference_mode():
@@ -395,29 +463,68 @@ def phase_main_path():
     return launches, det480, det320, batch
 
 
-def phase_timings(card, det480, det320, batch):
+def mean_of_two(fn, iters: int) -> tuple[float, str]:
+    """``device_ms`` twice; the mean and both runs."""
+    a, b = device_ms(fn, iters), device_ms(fn, iters)
+    return (a + b) / 2, f"runs {a:.4f}/{b:.4f}"
+
+
+def nms_kernel_alone(vals, tables, cap):
+    """A launch of the library's entry point on outputs made once: the
+    kernel's time without the wrapper's checks and allocations (and without
+    the two zero fills an older wrapper launched before it)."""
+    lib = build.load_library()
+    b, n, _ = vals.shape
+    boxes = torch.zeros((b, cap, 5), device="cuda")
+    mask = torch.zeros((b, cap), dtype=torch.bool, device="cuda")
+    args = (vals.data_ptr(), *(t.data_ptr() for t in tables[:4]),
+            *(float(np.float32(v)) for v in (*tables[4:], 0.5, 0.5)), b, n, cap,
+            boxes.data_ptr(), mask.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        check(lib.fdtpu_decode_filter_nms(*args) == 0, "decode_filter_nms launch")
+        return boxes, mask
+    return launch
+
+
+def nms_times(card, with_plain: bool = True) -> list[dict]:
+    """K1/K2 on random maps at the three timed shapes, the card's time alone
+    (``device_ms``): through the wrapper as the paths call it (``ms``), the
+    kernel alone (``kernel_ms``), and the wrapper's host time a call
+    (``host_us``)."""
     rng = np.random.default_rng(SEED + 3)
-    times = {}
-    for b, n, cap in ((128, 225, 64), (1, 100, 128), (128, 4774, 128)):
+    rows = []
+    for b, n, cap in NMS_TIMED:
         vals = candidates(rng, b, n, "random")
         tables = tables_for(n)
         kern = lambda: knms.decode_filter_nms_batch(vals, tables, 0.5, 0.5, cap)  # noqa: E731
         plain = lambda: knms.decode_filter_nms_reference(vals, tables, 0.5, 0.5, cap)  # noqa: E731
-        # plain, kernel, kernel, plain: drift on the card hits both alike
-        p1, k1, k2, p2 = (event_ms(f, 20) for f in (plain, kern, kern, plain))
+        row = {"shape": [b, n, cap]}
+        if with_plain:
+            row["ms"], row["plain_ms"], runs = turns(kern, plain, 50, 3)
+        else:
+            row["ms"], runs = mean_of_two(kern, 50)
+        row["kernel_ms"], alone_runs = mean_of_two(nms_kernel_alone(vals, tables, cap), 50)
+        row["host_us"] = host_us(kern, 200)
         # the bound of this data: the decode of every candidate, and one scan
         # of all N a greedy round (kept rows, plus the round that finds none
-        # alive when fewer than `cap` survive)
+        # alive when fewer than `cap` survive), whatever implements it
         boxes, mask = kern()
         kept = mask.sum(-1)
         rounds = int((kept + (kept < cap).long()).sum())
-        bnd = bound(nbytes(vals, *tables[:4], boxes, mask),
-                    b * n * NMS_DECODE_OPS + rounds * n * NMS_ROUND_OPS)
-        times[(b, n, cap)] = ((k1 + k2) / 2, (p1 + p2) / 2, bnd)
-        print(f"[6 time] decode_filter_nms B={b} N={n} cap={cap} random maps: kernel "
-              f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms "
-              f"(runs {k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}); bound {bnd['bound_ms']:.5f} ms "
-              f"by {bnd['bound_by']} ({rounds} rounds) [{card}]")
+        row.update(bound(nbytes(vals, *tables[:4], boxes, mask),
+                         b * n * NMS_DECODE_OPS + rounds * n * NMS_ROUND_OPS))
+        rows.append(row)
+        plain_txt = f", plain {row['plain_ms']:.4f} ms" if with_plain else ""
+        print(f"[6 time] decode_filter_nms B={b} N={n} cap={cap} random maps: wrapper "
+              f"{row['ms']:.4f} ms{plain_txt} ({runs}); kernel alone {row['kernel_ms']:.4f} ms "
+              f"({alone_runs}); host {row['host_us']:.1f} us a call; bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({rounds} rounds) [{card}]")
+    return rows
+
+
+def phase_timings(card, det480, det320, batch):
+    rows = nms_times(card)
 
     def infer():
         return det320.non_max_suppression(det320.apply(batch.float() / 255.0))
@@ -436,7 +543,7 @@ def phase_timings(card, det480, det320, batch):
             lat.append((time.perf_counter() - t0) * 1e3)
     print(f"[6 time] b1 predict 480px bf16 (H2D + /255 + forward + decode): median "
           f"{statistics.median(lat):.3f} ms, min {min(lat):.3f} ms over {len(lat)} [{card}]")
-    return times[(128, 225, 64)]
+    return rows
 
 
 # -- training -------------------------------------------------------------------
@@ -483,9 +590,29 @@ def phase_rotate_vs_plain() -> float:
                 p2 = krot.shear_cols(p1, k2, 3, center)
                 same(p2, krot.shear_cols_reference(p1, k2, 3, center),
                      f"shear_cols pass 2 at B={b} S={s} {dtype}")
+    # the shear kernels' edges, one plane per k: no shear, +-sin of the
+    # limit, and shears steep enough that shear_cols stages a band in
+    # passes (|k| 1.5 and 3) or reads its taps straight from device memory
+    # (k 40); rows not a multiple of the 64-row band (328: S = 200), lanes
+    # neither a multiple of the tile nor of 16 bytes (45), c = 1; and each
+    # as a view one element into its storage (shear_cols' scalar instance)
+    ks = torch.tensor([0.0, math.sin(lim), -math.sin(lim), 0.9, -1.5, 3.0, 40.0], device="cuda")
+    for (rows, lanes, c), dtype, offset in itertools.product(
+            ((328, 984, 3), (37, 45, 3), (70, 1000, 1)), (torch.float32, torch.bfloat16), (0, 1)):
+        numel = len(ks) * rows * lanes
+        flat = (torch.rand((numel + offset,), generator=gen, device="cuda") * 255).to(dtype)
+        planes = flat[offset:].view(len(ks), rows, lanes)
+        center = (rows - 1) / 2.0
+        where = f"({len(ks)}, {rows}, {lanes}) c={c} {dtype} offset {offset}"
+        same(krot.shear_cols(planes, ks, c, center),
+             krot.shear_cols_reference(planes, ks, c, center), f"shear_cols edges {where}")
+        same(krot.shear_rows(planes, ks, c, 0, center),
+             krot.shear_rows_reference(planes, ks, c, 0, center), f"shear_rows edges {where}")
     torch.cuda.synchronize()
     print(f"[7 rotate=plain] {runs} comparisons bit-equal (rotate_batch, K4's "
-          f"rotate_batch_transposed, and the passes alone); max |kernel - plain| = {worst}")
+          f"rotate_batch_transposed, the passes alone, and the edges: k up to 40, rows 328 "
+          f"and 37, lanes 45, c = 1, views at an offset of one element); "
+          f"max |kernel - plain| = {worst}")
     return worst
 
 
@@ -604,10 +731,15 @@ def phase_train_timings(card, runs):
     print(f"[10 time] train b8 480px bf16 SAM+Adam rotation on: {ms8:.3f} ms/step "
           f"({8e3 / ms8:.1f} img/s) [{card}]")
 
-    times = {}
+    return shear_times(card)
+
+
+def shear_times(card, with_plain: bool = True) -> list[dict]:
+    """K3a, K3b and K4 on the planes the training path gives them: the
+    26-image exact-k subset at b128/320 in bf16, all 8 images at b8/480 in
+    float32; the card's time alone (``device_ms``)."""
+    rows = []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    # the planes the training path gives the kernels: the 26-image exact-k
-    # subset at b128/320 in bf16, all 8 images at b8/480 in float32
     for b, s, dtype in ((26, 320, torch.bfloat16), (8, 480, torch.float32)):
         x = (torch.rand((b, s, s, 3), generator=gen, device="cuda") * 255).to(dtype)
         ang = (torch.rand((b,), generator=gen, device="cuda") * 2 - 1) * krot.ROTATE_LIMIT_RAD
@@ -626,14 +758,18 @@ def phase_train_timings(card, runs):
         }
         for name, (kern, plain) in pairs.items():
             shape = tuple((stacked if "K4" in name else planes).shape)
-            p1, k_1, k_2, p2 = (event_ms(f, 20) for f in (plain, kern, kern, plain))
             # each pass reads its planes once and writes them once
-            times.setdefault(name, ((k_1 + k_2) / 2, (p1 + p2) / 2,
-                                    bound(2 * nbytes(planes), SHEAR_OPS * planes.numel())))
-            print(f"[10 time] {name} {shape} {dtype}: kernel {(k_1 + k_2) / 2:.4f} ms, "
-                  f"plain {(p1 + p2) / 2:.4f} ms (runs {k_1:.4f}/{k_2:.4f} vs {p1:.4f}/{p2:.4f}) "
-                  f"[{card}]")
-    return times
+            row = {"name": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                   **bound(2 * nbytes(planes), SHEAR_OPS * planes.numel())}
+            if with_plain:
+                row["ms"], row["plain_ms"], runs = turns(kern, plain, 50, 5)
+            else:
+                row["ms"], runs = mean_of_two(kern, 50)
+            rows.append(row)
+            plain_txt = f", plain {row['plain_ms']:.4f} ms" if with_plain else ""
+            print(f"[10 time] {name} {shape} {dtype}: kernel {row['ms']:.4f} ms{plain_txt} "
+                  f"({runs}); bound {row['bound_ms']:.4f} ms by {row['bound_by']} [{card}]")
+    return rows
 
 
 # -- the fused kernels: K5 and K6 ----------------------------------------------------
@@ -1017,17 +1153,27 @@ def phase_fused_timings(card, train):
     return times
 
 
+def kernel_times_only() -> None:
+    """``--kernel-times``: the card, the build, and K1-K4's device times
+    (no plain versions) as one JSON line; ``python -m
+    fdtpu_torch.compare_parent`` runs this in turns on two trees."""
+    card, _ = phase_card()
+    phase_build()
+    print(json.dumps({"kernel_times": {"card": card, "decode_filter_nms": nms_times(card, False),
+                                       "shears": shear_times(card, False)}}))
+
+
 def main() -> None:
     card, name = phase_card()
     phase_build()
     worst = phase_kernel_vs_plain()
     phase_forward_f32()
     launches, det480, det320, batch = phase_main_path()
-    nms_times = phase_timings(card, det480, det320, batch)
+    nms_rows = phase_timings(card, det480, det320, batch)
     rot_worst = phase_rotate_vs_plain()
     phase_train_f32()
     train_launches, runs = phase_train_path()
-    shear_times = phase_train_timings(card, runs)
+    shear_rows = phase_train_timings(card, runs)
     del runs
     photo_worst = phase_photometric_vs_plain()
     phase_tail_vs_plain()
@@ -1040,11 +1186,18 @@ def main() -> None:
         return {**meta, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 **bnd, "library_ms": None}
 
-    kernels = [entry(KERNEL, launches + train_launches["decode_filter_nms"], worst, nms_times)]
+    def row_times(row):
+        return row["ms"], row["plain_ms"], {k: row[k] for k in ("bound_ms", "bound_by")}
+
+    # K1 at b128/225 and the shears on the b128 exact-k planes head their
+    # entries; every shape timed follows under "shapes"
+    kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"], worst,
+                        row_times(nms_rows[0])), "shapes": nms_rows}]
     for kname, meta in SHEARS.items():
-        kernels.append(entry({"name": kname, **meta},
-                             train_launches[kname] + photo_launches[kname], rot_worst,
-                             shear_times[kname]))
+        rows = [r for r in shear_rows if r["name"].startswith(kname)]
+        kernels.append({**entry({"name": kname, **meta},
+                                train_launches[kname] + photo_launches[kname], rot_worst,
+                                row_times(rows[0])), "shapes": rows})
     kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"], photo_worst,
                          fused_times["photometric"]))
     kernels.append({**entry(RESIDUAL_TAIL, tail_launches, 0.0, fused_times["residual_tail"]),
@@ -1056,4 +1209,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--kernel-times"]:
+        kernel_times_only()
+    else:
+        main()

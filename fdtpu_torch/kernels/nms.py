@@ -17,7 +17,10 @@ One semantics at every batch size, that of fdtpu's batched Pallas kernel
 :func:`decode_filter_nms_batch` dispatches on where the tensor lies: a CPU
 tensor goes to the plain PyTorch version, :func:`decode_filter_nms_reference`;
 a CUDA tensor goes to the hand-written kernel
-(``csrc/decode_filter_nms.cu``) or the call raises. Thresholds are rounded to
+(``csrc/decode_filter_nms.cu``) or the call raises. The kernel reaches the
+same rows by one sort of the eligible candidates and a resolve in chunks of
+32 (``tests/test_torch_nms.py`` holds a numpy model of that reformulation
+against fdtpu's kernel on the CPU). Thresholds are rounded to
 float32 once here, and those values go to either version, as JAX compares a
 float32 plane against a weakly typed Python float in float32.
 """
@@ -195,8 +198,9 @@ def decode_filter_nms_batch(
     max_n = max_candidates(dev)
     if n > max_n:
         raise ValueError(f"N={n} candidates exceed the kernel's limit of {max_n} on this card")
-    boxes = torch.zeros((b, capacity, 5), dtype=torch.float32, device=values.device)
-    mask = torch.zeros((b, capacity), dtype=torch.bool, device=values.device)
+    # the kernel writes every row, the zero rows after the last kept one too
+    boxes = torch.empty((b, capacity, 5), dtype=torch.float32, device=values.device)
+    mask = torch.empty((b, capacity), dtype=torch.bool, device=values.device)
     with torch.cuda.device(dev):
         err = lib.fdtpu_decode_filter_nms(
             values.data_ptr(), *(c.data_ptr() for c in cols),
@@ -217,8 +221,8 @@ decode_filter_nms_batch.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def max_candidates(device_index: int) -> int:
-    """The kernel's largest N: the most candidates whose planes fit one
-    CTA's shared memory on the card ``device_index``."""
+    """The kernel's largest N: the most candidates whose planes and sort
+    list fit one CTA's shared memory on the card ``device_index``."""
     from fdtpu_torch.kernels import build
 
     out = ctypes.c_int(0)

@@ -118,12 +118,14 @@ class Detector:
 def build_model(
     name: str,
     config,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
     generator: torch.Generator | None = None,
     compute_dtype: torch.dtype | None = None,
 ) -> PoolResnet:
     """Construct a float32 detector module by family name, its weights drawn
-    from ``generator``. Only ``"poolresnet"`` is ported. For serving, the
+    from ``generator``, on ``device``: the card unless the caller names
+    ``"cpu"`` (no fallback: without a card the default raises). Only
+    ``"poolresnet"`` is ported. For serving, the
     compute dtype (``config.dtype``) is the :class:`Detector`'s, see
     :data:`DTYPES`; a module to train takes ``compute_dtype`` and keeps its
     params float32."""

@@ -116,8 +116,8 @@ def test_config_duplicates_fdtpu():
 
 def test_build_model_families():
     cfg = DetectorConfig(filters=8, input_shape=SIZE, num_patches=5, num_residual_blocks=1)
-    a = build_model("poolresnet", cfg, generator=torch.Generator().manual_seed(0))
-    b = build_model("poolresnet", cfg, generator=torch.Generator().manual_seed(0))
+    a = build_model("poolresnet", cfg, "cpu", torch.Generator().manual_seed(0))
+    b = build_model("poolresnet", cfg, "cpu", torch.Generator().manual_seed(0))
     for (name, p), q in zip(a.state_dict().items(), b.state_dict().values()):
         assert p.dtype == torch.float32 and torch.equal(p, q), name
     assert a.grid_size() == 5
@@ -130,7 +130,18 @@ def test_build_model_families():
 def test_lecun_init_scale():
     """Weights follow fdtpu's default init: std sqrt(1/fan_in), zero bias."""
     cfg = DetectorConfig(filters=64, num_residual_blocks=1)
-    m = build_model("poolresnet", cfg, generator=torch.Generator().manual_seed(0))
+    m = build_model("poolresnet", cfg, "cpu", torch.Generator().manual_seed(0))
     w = m.residual_blocks[0].conv1.weight
     assert abs(w.std().item() - (1 / (64 * 9)) ** 0.5) < 2e-3
     assert not m.residual_blocks[0].conv1.bias.any()
+
+
+def test_build_model_defaults_to_the_card():
+    """With no ``device`` the module is built on the card; without a card
+    that raises instead of falling back to the CPU."""
+    cfg = DetectorConfig(filters=8, input_shape=SIZE, num_patches=5, num_residual_blocks=1)
+    if torch.cuda.is_available():
+        assert build_model("poolresnet", cfg).conv1.weight.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build_model("poolresnet", cfg)

@@ -196,14 +196,140 @@ def test_library_path_tracks_sources(tmp_path, monkeypatch):
     assert build.library_path() != first
 
 
+def sorted_scan_model(values, tables, prob, iou, cap, chunk=32):
+    """numpy model of the CUDA kernel's reformulation of the greedy loop:
+    the eligible candidates (``conf > prob`` and ``conf > -0.5``) sorted by
+    (score desc, index asc), then resolved in chunks of ``chunk``: a chunk
+    row is dropped if a kept box or a kept earlier row of the chunk
+    suppresses it (IoU not ``<= iou``, the kernel's arithmetic and operand
+    order, all in float32), which the kernel settles by iterating that rule
+    over the whole chunk until a round changes nothing; the scan stops at
+    ``cap`` kept."""
+    f32 = np.float32
+    sx, ox, sy, oy = (np.asarray(t, f32) for t in tables[:4])
+    ws, hs, prob, iou = (f32(t) for t in (*tables[4:], prob, iou))
+    b, _, _ = values.shape
+    boxes, mask = np.zeros((b, cap, 5), f32), np.zeros((b, cap), bool)
+    for img, v in enumerate(values):
+        conf = v[:, 0]
+        x, y = v[:, 1] * sx + ox, v[:, 2] * sy + oy
+        x0, y0 = np.rint(x), np.rint(y)
+        x1, y1 = np.rint(x + v[:, 3] * ws), np.rint(y + v[:, 4] * hs)
+        area = np.maximum(x1 - x0, f32(0)) * np.maximum(y1 - y0, f32(0))
+
+        def suppresses(p, i):
+            inter = (np.maximum(np.minimum(x1[i], x1[p]) - np.maximum(x0[i], x0[p]), f32(0))
+                     * np.maximum(np.minimum(y1[i], y1[p]) - np.maximum(y0[i], y0[p]), f32(0)))
+            union = (area[i] + area[p]) - inter
+            with np.errstate(divide="ignore", invalid="ignore"):
+                r = np.where(union > 0, inter / union, f32(0))
+            return ~(r <= iou)
+
+        eligible = np.flatnonzero((conf > prob) & (conf > f32(-0.5)))
+        key = conf[eligible] + f32(0)  # -0.0 + 0.0 = +0.0: the two zeros tie
+        order = eligible[np.lexsort((eligible, -key))]
+        kept = []
+        for c0 in range(0, len(order), chunk):
+            if len(kept) == cap:
+                break
+            q = order[c0 : c0 + chunk]
+            removed = (suppresses(np.array(kept)[:, None], q[None, :]).any(0) if kept
+                       else np.zeros(len(q), bool))
+            by = np.tril(suppresses(q[None, :], q[:, None]), k=-1)  # [b, a]: earlier a kills b
+            # a row is kept iff no kept earlier row kills it: iterate the
+            # rule from every spared row until a round changes nothing
+            keep = spared = ~removed
+            while True:
+                nxt = spared & ~(by & keep[None, :]).any(1)
+                if (nxt == keep).all():
+                    break
+                keep = nxt
+            kept.extend(q[keep][: cap - len(kept)])
+        k = np.array(kept, dtype=np.int64)
+        boxes[img, : len(k)] = np.stack([conf[k], x0[k], y0[k], x1[k] - x0[k], y1[k] - y0[k]], 1)
+        mask[img, : len(k)] = True
+    return boxes, mask
+
+
+def scan_case_values(rng, b, n, case):
+    """(B, N, 5) rows and the probability threshold of one map case."""
+    v = rng.uniform(0, 1, size=(b, n, 5)).astype(np.float32)
+    prob = 0.5
+    if case == "saturated":  # small, mostly disjoint boxes: > capacity survive
+        v[..., 3:] = rng.uniform(0.002, 0.03, size=(b, n, 2))
+    elif case == "ties":  # three score levels, many exact ties
+        v[..., 0] = rng.choice(np.float32([0.6, 0.75, 0.9]), size=(b, n))
+        v[..., 3:] *= 0.1
+    elif case == "negative threshold":  # scores <= -0.5 end the scan
+        v[..., 0] = rng.uniform(-1, -0.4, size=(b, n))
+        v[..., 3:] *= 0.1
+        prob = -0.7
+    elif case == "signed zeros":  # +0.0 and -0.0 tie; the index decides
+        v[..., 0] = rng.choice(np.float32([0.0, -0.0, -0.25, -0.6]), size=(b, n))
+        v[..., 3:] *= 0.1
+        prob = -0.3
+    else:  # random
+        v[..., 3:] *= 0.3
+    return v, prob
+
+
+@pytest.mark.parametrize("case", ["random", "saturated", "ties", "negative threshold",
+                                  "signed zeros"])
+@pytest.mark.parametrize("n,b,cap", [(100, 2, 32), (225, 2, 64), (SSD_PRIORS, 1, 128)])
+def test_sorted_chunked_scan_matches_k1(case, n, b, cap):
+    """The kernel's reformulation (one sort, a resolve in chunks of 32
+    against the kept list) equals fdtpu's greedy K1 in interpret mode, and
+    the port's plain version bit for bit."""
+    rng = np.random.default_rng(n + len(case))
+    vals, prob = scan_case_values(rng, b, n, case)
+    if n == SSD_PRIORS:
+        tables, jtables = (knms.ssd_output_decode_tables(n, (480, 480)),
+                           jax_ssd_output_tables(n, (480, 480)))
+    else:
+        s = int(round(n ** 0.5))
+        tables = jtables = knms.grid_decode_tables(s, (480, 480) if s == 10 else (320, 320))
+    got = sorted_scan_model(vals, tables, prob, 0.5, cap)
+    assert_same(got, k1(vals, jtables, prob, 0.5, cap))
+    want = port(vals, tables, prob, 0.5, cap)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1].any()
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card():
+    """The kernel on the scan model's maps, and at eligible counts of
+    capacity, one above it, and the rank sort's 256 against the bitonic
+    sort's 257; outputs allocated over 0xFF (the kernel writes every
+    entry). ``chip_smoke.py`` phase 3 runs the full sweep."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(1)
-    for s, size, b, cap in ((10, 480, 1, 128), (15, 320, 128, 64)):
-        vals = torch.from_numpy(rng.uniform(0, 1, size=(b, s * s, 5)).astype(np.float32)).cuda()
-        tables = knms.grid_tables_on(s, (size, size), vals.device)
-        gb, gm = knms.decode_filter_nms_batch(vals, tables, 0.5, 0.5, cap)
-        wb, wm = knms.decode_filter_nms_reference(vals, tables, 0.5, 0.5, cap)
+
+    def same(vals, tables, prob, cap):
+        junk = torch.empty(vals.shape[0] * cap * 6, dtype=torch.float32, device="cuda")
+        junk.view(torch.uint8).fill_(0xFF)
+        del junk
+        gb, gm = knms.decode_filter_nms_batch(vals, tables, prob, 0.5, cap)
+        wb, wm = knms.decode_filter_nms_reference(vals, tables, prob, 0.5, cap)
         assert torch.equal(gm, wm) and torch.equal(gb, wb)
+        return gm
+
+    for n, b, cap in ((100, 1, 128), (225, 128, 64), (SSD_PRIORS, 1, 128)):
+        if n == SSD_PRIORS:
+            cols = knms.ssd_output_decode_tables(n, (480, 480))
+        else:
+            cols = knms.grid_decode_tables(int(round(n ** 0.5)), (480, 480) if n == 100 else (320, 320))
+        tables = (*(torch.from_numpy(c).cuda() for c in cols[:4]), *cols[4:])
+        for case in ("random", "saturated", "ties", "negative threshold", "signed zeros"):
+            vals, prob = scan_case_values(rng, b, n, case)
+            same(torch.from_numpy(vals).cuda(), tables, prob, cap)
+        for m in (cap, cap + 1, 256, 257):
+            if m > n:
+                continue
+            vals = rng.uniform(0, 1, size=(b, n, 5)).astype(np.float32)
+            vals[..., 0], vals[..., 3:] = 0.1, 0.0
+            for i in range(b):
+                vals[i, rng.choice(n, size=m, replace=False), 0] = 0.9
+            gm = same(torch.from_numpy(vals).cuda(), tables, 0.5, cap)
+            assert (gm.sum(-1) == min(m, cap)).all()

@@ -137,13 +137,33 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
 
 @pytest.mark.gpu
 def test_shear_kernels_match_plain_on_card():
+    """Whole rotations at S = 200 and 320 with angles 0 and +-the limit, and
+    the shears' edges: steep k (shear_cols staged in passes, or read from
+    device memory), rows not a multiple of the band, lanes off the 16-byte
+    grid, c = 1, views one element into their storage. Both dtypes,
+    bit-equal. ``chip_smoke.py`` phase 7 runs the full sweep."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for b, s in ((1, 200), (8, 320)):
+    lim = rot.ROTATE_LIMIT_RAD
+    for b, s in ((3, 200), (8, 320)):
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.rand((b, s, s, 3), generator=g, device="cuda") * 255).to(dt)
-            a = (torch.rand((b,), generator=g, device="cuda") * 2 - 1) * rot.ROTATE_LIMIT_RAD
+            a = (torch.rand((b,), generator=g, device="cuda") * 2 - 1) * lim
+            a[:3] = torch.tensor([0.0, lim, -lim])
             assert torch.equal(rot.rotate_batch(x, a), rot.rotate_batch_reference(x, a))
             assert torch.equal(rot.rotate_batch_transposed(x, a),
                                rot.rotate_batch_transposed_reference(x, a))
+    ks = torch.tensor([0.0, np.sin(lim), -np.sin(lim), 0.9, -1.5, 3.0, 40.0],
+                      dtype=torch.float32, device="cuda")
+    for rows, lanes, c in ((328, 984, 3), (37, 45, 3), (70, 1000, 1)):
+        for dt in (torch.float32, torch.bfloat16):
+            for offset in (0, 1):
+                flat = (torch.rand((len(ks) * rows * lanes + offset,), generator=g,
+                                   device="cuda") * 255).to(dt)
+                x = flat[offset:].view(len(ks), rows, lanes)
+                ctr = (rows - 1) / 2.0
+                assert torch.equal(rot.shear_cols(x, ks, c, ctr),
+                                   rot.shear_cols_reference(x, ks, c, ctr))
+                assert torch.equal(rot.shear_rows(x, ks, c, 0, ctr),
+                                   rot.shear_rows_reference(x, ks, c, 0, ctr))
