@@ -19,9 +19,12 @@ non-zero; without a CUDA card it fails at once and prints no result):
    empty maps; negative scores under a threshold of -0.7 (a score <= -0.5
    ends the scan); +0.0 and -0.0 tied under -0.3; exactly capacity,
    capacity + 1, 256 and 257 eligible candidates (the rank sort's limit
-   and the bitonic sort's first size). Outputs are allocated over blocks
-   filled with 0xFF, so a row the kernel fails to write shows. Masks,
-   scores and coordinates must be bit-equal;
+   and the bitonic sort's first size); and past the kernel's shared-memory
+   limit (its global-scratch path): N = the limit + 1 (8,187 on the H100),
+   8,204 (SSD at 632 px) and 20,000, B in {1, 8}, capacity 128, random,
+   saturated and tie maps. Outputs are allocated over blocks filled with
+   0xFF, so a row the kernel fails to write shows. Masks, scores and
+   coordinates must be bit-equal;
 4. the full-width float32 forward (PoolResnet-128, 10 blocks, 480 px, B=2,
    TF32 off) on the card against the same model on the CPU, atol 1e-4;
 5. the serving path: a bfloat16 Detector on the card, ``predict`` on three
@@ -31,7 +34,8 @@ non-zero; without a CUDA card it fails at once and prints no result):
    must equal the plain version's on the same forward output;
 6. timings: the NMS kernel on the card alone (``device_ms``) through its
    wrapper and through the bare entry point, against its plain version,
-   and its wrapper's host time a call (``host_us``), at three shapes; with
+   and its wrapper's host time a call (``host_us``), at three shapes, and
+   its global-scratch path at (1, 8204), (8, 8204) and (8, 20000); with
    CUDA events after warmup the b128 forward + decode and the b1 predict
    latency;
 7. the rotation kernels (shear_rows, shear_cols) against their plain
@@ -92,10 +96,25 @@ non-zero; without a CUDA card it fails at once and prints no result):
     forward's shapes with and without the bias, each with warm and cold L2
     (cycling through more than 150 MB of inputs), the train step with
     ``fused_photometric`` against the default chain, and the three arms of
-    ``fdtpu_torch.bench_pool_fusion`` at b128/320 and b1/480.
+    ``fdtpu_torch.bench_pool_fusion`` at b128/320 and b1/480;
+14. the Trainer path at full width (``DetectorConfig()``, ``TrainConfig()``
+    defaults with rotation on the card and no first-batch drawings), b8,
+    SAM + Adam, on ``make_synthetic_widerface`` data (48 train, 16 val
+    images) in a temporary directory: ``Trainer.fit`` for two epochs with
+    ``StreamedDriver`` (losses finite, params moving, the ``.log``,
+    ``.jsonl`` and TensorBoard records and a checkpoint each epoch written,
+    K1 launched once a train epoch and once a val batch, the shears twice
+    and once a rotating step); a resume in a new Trainer (params, Adam
+    moments and step bit-equal to the saved ones) and one epoch more;
+    ``ResidentDriver`` against ``StreamedDriver`` in float32 with shuffle and
+    augmentation off and ``torch.use_deterministic_algorithms(True)``
+    (epoch metrics and params bit-equal); ``run_validation_epoch --with-ap``
+    on the saved checkpoint; and ``fdtpu_torch.bench``'s measuring
+    functions with loops of 5, 20 and 50 and one rep (``bench.py``'s keys,
+    every value finite).
 
 The line before the last is a JSON object with each kernel's launches (from
-the serving, training and fused paths), error, times, and its bound: the
+the serving, training, fused and Trainer paths), error, times, and its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
 outside the tensor cores (H100 SXM data sheet). ``library_ms`` is null for
@@ -109,29 +128,37 @@ drawn from a fixed seed.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import json
 import math
+import os
 import statistics
-import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from fdtpu_torch import bench as fbench
 from fdtpu_torch import bench_pool_fusion as bpf
+from fdtpu_torch import run_validation_epoch
+from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets
 from fdtpu_torch.data import augment as aug
+from fdtpu_torch.data import make_synthetic_widerface
 from fdtpu_torch.kernels import build
 from fdtpu_torch.kernels import epilogue as kep
 from fdtpu_torch.kernels import nms as knms
 from fdtpu_torch.kernels import photometric as kphoto
 from fdtpu_torch.kernels import rotate as krot
 from fdtpu_torch.models import Detector, PoolResnet, build_model
-from fdtpu_torch.train import create_train_state, make_train_step
+from fdtpu_torch.train import Trainer, create_train_state, make_train_step
+from fdtpu_torch.train.checkpoint import latest_checkpoint
 from fdtpu_torch.train.sam import global_norm
 from fdtpu_torch.utils.config import DetectorConfig, TrainConfig
+from fdtpu_torch.utils.tb import read_scalars
 
 SEED = 0
 FORWARD_ATOL = 1e-4  # float32 card vs CPU: summation order only, TF32 off
@@ -174,6 +201,9 @@ NMS_TIMED = ((128, 225, 64), (1, 100, 128), (128, 4774, 128))  # (B, N, capacity
 K6_SHAPES = (((128, 128, 40, 40), True), ((128, 128, 20, 20), False),
              ((1, 128, 60, 60), True), ((1, 128, 30, 30), True), ((1, 128, 15, 15), False))
 L2_FLUSH_BYTES = 150e6  # three times the H100's 50 MB L2
+TRAINER_IMAGES = (48, 16)  # phase 14's synthetic train and val images
+TRAINER_EPOCHS = 2
+BENCH_LOOPS = (5, 20, 50)  # phase 14's short train, infer and b1 loops, one rep
 
 
 def check(ok: bool, what: str) -> None:
@@ -191,14 +221,6 @@ def bound(nbytes: float, ops: float) -> dict:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 # -- inputs ----------------------------------------------------------------------
@@ -247,6 +269,8 @@ def poison(*shapes_dtypes) -> None:
 def tables_for(n):
     if n == 4774:  # SSD model output, 480 px
         cols = knms.ssd_output_decode_tables(n, (480, 480))
+    elif n > 4774:  # past the shared-memory path: SSD output tables at 632 px
+        cols = knms.ssd_output_decode_tables(n, (632, 632))
     else:
         s = int(round(n ** 0.5))
         cols = knms.grid_decode_tables(s, (480, 480) if s == 10 else (320, 320))
@@ -327,7 +351,7 @@ def host_us(fn, iters: int) -> float:
 def phase_card() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: chip_smoke.py runs only on a GPU")
-    card = card_line()
+    card = bpf.card_line()
     name = torch.cuda.get_device_name(0)
     print(card)
     print(f"[1 card] {name}; nvidia-smi: {card}; torch {torch.__version__}, "
@@ -388,11 +412,28 @@ def phase_kernel_vs_plain() -> float:
                     vals = candidates(rng, b, n, None, eligible=m)
                     gm = same(vals, tables, 0.5, 0.5, cap, f"B={b} N={n} cap={cap} M={m}")
                     check(bool((gm.sum(-1) == min(m, cap)).all()), f"M={m} kept != {min(m, cap)}")
+    # past the shared-memory limit: the same kernel on global scratch
+    large = large_n()
+    for b in (1, 8):
+        for n in large:
+            tables = tables_for(n)
+            for case in ("random", "saturated", "tie"):
+                vals = candidates(rng, b, n, case)
+                gm = same(vals, tables, 0.5, 0.5, 128, f"B={b} N={n} cap=128 {case} (scratch)")
+                if case == "saturated":
+                    check(bool(gm.all()), f"not saturated at B={b} N={n}")
     print(f"[3 kernel=plain] {runs} cases bit-equal (masks, scores, coordinates; outputs "
           f"allocated over 0xFF): random, saturated, tie, equal, empty, negative scores under "
-          f"threshold -0.7, +-0.0 under -0.3, M = cap, cap + 1, 256, 257; max |kernel - plain| = "
-          f"{worst}")
+          f"threshold -0.7, +-0.0 under -0.3, M = cap, cap + 1, 256, 257; past the shared-memory "
+          f"limit of {knms.max_candidates(0)} (global scratch): N = {large}, B = 1 and 8, cap 128, "
+          f"random, saturated, tie; max |kernel - plain| = {worst}")
     return worst
+
+
+def large_n() -> tuple[int, ...]:
+    """N past the kernel's shared-memory path: one past its limit, the SSD
+    map at 632 px, and 20,000."""
+    return (knms.max_candidates(0) + 1, 8204, 20000)
 
 
 def phase_forward_f32() -> None:
@@ -523,8 +564,33 @@ def nms_times(card, with_plain: bool = True) -> list[dict]:
     return rows
 
 
+def nms_large_times(card) -> list[dict]:
+    """K1's global-scratch path (N past the shared-memory limit) on random
+    maps, the card's time alone (``device_ms``) against its plain version."""
+    rng = np.random.default_rng(SEED + 12)
+    rows = []
+    for b, n in ((1, 8204), (8, 8204), (8, 20000)):
+        cap = 128
+        vals = candidates(rng, b, n, "random")
+        tables = tables_for(n)
+        kern = lambda: knms.decode_filter_nms_batch(vals, tables, 0.5, 0.5, cap)  # noqa: E731
+        plain = lambda: knms.decode_filter_nms_reference(vals, tables, 0.5, 0.5, cap)  # noqa: E731
+        row = {"shape": [b, n, cap], "path": "scratch"}
+        row["ms"], row["plain_ms"], runs = turns(kern, plain, 20, 2)
+        boxes, mask = kern()
+        kept = mask.sum(-1)
+        rounds = int((kept + (kept < cap).long()).sum())
+        row.update(bound(nbytes(vals, *tables[:4], boxes, mask),
+                         b * n * NMS_DECODE_OPS + rounds * n * NMS_ROUND_OPS))
+        rows.append(row)
+        print(f"[6 time] decode_filter_nms B={b} N={n} cap={cap} random maps, global scratch: "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms ({runs}); bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({rounds} rounds) [{card}]")
+    return rows
+
+
 def phase_timings(card, det480, det320, batch):
-    rows = nms_times(card)
+    rows = nms_times(card) + nms_large_times(card)
 
     def infer():
         return det320.non_max_suppression(det320.apply(batch.float() / 255.0))
@@ -1153,6 +1219,167 @@ def phase_fused_timings(card, train):
     return times
 
 
+# -- the Trainer path --------------------------------------------------------------
+
+
+def kernel_counts() -> dict:
+    return {"decode_filter_nms": knms.decode_filter_nms_batch.launches,
+            "shear_rows": krot.shear_rows.launches, "shear_cols": krot.shear_cols.launches}
+
+
+def counts_since(start: dict) -> dict:
+    return {k: v - start[k] for k, v in kernel_counts().items()}
+
+
+def trainer_loaders(root, shuffle: bool):
+    shape = DetectorConfig().input_shape
+    train = WIDERFaceDataSource(load_targets(root, "train", 3), shape, 8, error_log=None)
+    val = WIDERFaceDataSource(load_targets(root, "val", 3), shape, 8, error_log=None)
+    return BatchLoader(train, 8, shuffle=shuffle, seed=SEED, drop_last=True), BatchLoader(val, 8)
+
+
+def trainer_module(seed: int, dtype=torch.bfloat16):
+    return build_model("poolresnet", DetectorConfig(), "cuda", torch.Generator().manual_seed(seed),
+                       compute_dtype=dtype)
+
+
+def bench_py_keys() -> set[str]:
+    """The keys of ``bench.py``'s result line, read from its source."""
+    import ast
+    from pathlib import Path
+
+    tree = ast.parse((Path(__file__).resolve().parent / "bench.py").read_text())
+    keys = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == "result":
+            keys |= {k.value for k in node.value.keys}
+        if (isinstance(node, ast.Subscript) and getattr(node.value, "id", None) == "result"
+                and isinstance(node.ctx, ast.Store)):
+            keys.add(node.slice.value)
+    return keys
+
+
+def phase_trainer(tmp) -> dict:
+    """14: the Trainer path at full width (``DetectorConfig()``,
+    ``TrainConfig()`` defaults but rotation on the card and no first-batch
+    drawings), b8, on ``make_synthetic_widerface`` data. Returns the kernel
+    launches of the whole phase."""
+    from pathlib import Path
+
+    tmp = Path(tmp)
+    n_train, n_val = TRAINER_IMAGES
+    root = make_synthetic_widerface(tmp / "data", n_train, split="train", seed=SEED)
+    make_synthetic_widerface(root, n_val, split="val", seed=SEED + 1)
+    phase_start = kernel_counts()
+    tcfg = TrainConfig(rotate_device=True, max_epochs=TRAINER_EPOCHS, seed=SEED,
+                       visualize_first_batch=False, checkpoint_dir=str(tmp / "ckpt"),
+                       log_path=str(tmp / "logs" / "out.log"))
+
+    # fit, two epochs, streamed
+    train, val = trainer_loaders(root, shuffle=True)
+    trainer = Trainer(trainer_module(SEED), tcfg, train, val, run_name="smoke", device="cuda")
+    before = [p.detach().clone() for p in trainer.state.module.parameters()]
+    start = kernel_counts()
+    out = trainer.fit()
+    torch.cuda.synchronize()
+    fit = counts_since(start)
+    steps, val_batches = TRAINER_EPOCHS * len(train), len(val)
+    check(trainer.state.step == steps, f"Trainer took {trainer.state.step} steps, want {steps}")
+    check(all(np.isfinite(v) for split in out.values() for v in split.values()),
+          f"non-finite epoch metrics {out}")
+    moved = max((p - q).abs().max().item()
+                for p, q in zip(trainer.state.module.parameters(), before))
+    check(moved > 0, "Trainer params did not move")
+    want_k1 = TRAINER_EPOCHS * (1 + val_batches)  # the metrics step, then each val batch
+    check(fit["decode_filter_nms"] == want_k1,
+          f"K1 launched {fit['decode_filter_nms']} times in fit, want {want_k1}")
+    check(fit["shear_rows"] == 2 * steps and fit["shear_cols"] == steps,
+          f"shear launches {fit} over {steps} rotating steps")
+    logs = tmp / "logs"
+    lines = (logs / "out.log").read_text().splitlines()
+    records = (logs / "out.jsonl").read_text().splitlines()
+    (tb,) = (logs / "tb").glob("events.out.tfevents.*")
+    check(len(lines) == len(records) == len(read_scalars(tb)) == 2 * TRAINER_EPOCHS,
+          "log, jsonl and TensorBoard records")
+    ckpts = sorted(p.name for p in (tmp / "ckpt" / "smoke").glob("step_*.pt"))
+    want_ckpts = [f"step_{len(train) * (e + 1):08d}.pt" for e in range(TRAINER_EPOCHS)]
+    check(ckpts == want_ckpts, f"checkpoints {ckpts}, want {want_ckpts}")
+    print(f"[14 trainer] fit {TRAINER_EPOCHS} epochs, PoolResnet-128x10 480px grid 10 b8 bf16 "
+          f"SAM+Adam, rotation on the card, {n_train} train / {n_val} val synthetic images: "
+          f"train {out['train']}, val {out['val']}; params moved up to {moved:.3g}; launches "
+          f"{fit} ({steps} steps, {TRAINER_EPOCHS} metrics steps, {TRAINER_EPOCHS * val_batches} "
+          f"val batches); {len(lines)} log lines, checkpoints {ckpts}")
+
+    # resume in a new Trainer from other params: bit-equal state, one epoch more
+    train, val = trainer_loaders(root, shuffle=True)
+    resumed = Trainer(trainer_module(SEED + 1), tcfg, train, val, run_name="smoke", device="cuda")
+    check(resumed.maybe_resume() and resumed.epoch == TRAINER_EPOCHS,
+          "maybe_resume found no checkpoint")
+    check(resumed.state.step == trainer.state.step, "resumed step")
+    for p, q in zip(resumed.state.module.parameters(), trainer.state.module.parameters()):
+        check(torch.equal(p, q), "resumed params differ from the saved ones")
+        sa, sb = resumed.state.optimizer.state[p], trainer.state.optimizer.state[q]
+        check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa),
+              "resumed Adam state differs from the saved one")
+    more = resumed.fit(TRAINER_EPOCHS + 1)
+    check(resumed.state.step == steps + len(train), "the resumed epoch's steps")
+    check(all(np.isfinite(v) for split in more.values() for v in split.values()),
+          f"non-finite metrics after resume {more}")
+    print(f"[14 trainer] resumed at step {trainer.state.step}: params, Adam moments and step "
+          f"bit-equal to the saved ones; one more epoch: train loss {more['train']['loss']:.4f}, "
+          f"val loss {more['val']['loss']:.4f}")
+
+    # ResidentDriver against StreamedDriver, float32, deterministic
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for resident in (False, True):
+            train, val = trainer_loaders(root, shuffle=False)
+            cfg = dataclasses.replace(tcfg, device_data=resident, rotate_device=False,
+                                      checkpoint_dir=str(tmp / f"ckpt_{resident}"),
+                                      log_path=str(tmp / f"logs_{resident}" / "out.log"))
+            t = Trainer(trainer_module(SEED, dtype=None), cfg, train, val, augment=False,
+                        run_name="det", device="cuda")
+            runs[resident] = (t, t.fit())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (ts, streamed), (tr, resident) = runs[False], runs[True]
+    check(type(tr.driver).__name__ == "ResidentDriver", "device_data takes ResidentDriver")
+    check(streamed == resident, f"epoch metrics differ: streamed {streamed}, resident {resident}")
+    for p, q in zip(ts.state.module.parameters(), tr.state.module.parameters()):
+        check(torch.equal(p, q), "resident params differ from streamed")
+    print(f"[14 trainer] resident = streamed, float32, shuffle and augmentation off, "
+          f"deterministic algorithms: epoch metrics and params bit-equal "
+          f"(train loss {streamed['train']['loss']:.6f}, val loss {streamed['val']['loss']:.6f})")
+
+    # run_validation_epoch on the saved checkpoint, with AP
+    ckpt = latest_checkpoint(tmp / "ckpt" / "smoke")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        val_out = run_validation_epoch.main([
+            "--data-dir", str(root), "--checkpoint", str(ckpt), "--patches", "10",
+            "--with-ap", "--device", "cuda"])
+    finally:
+        os.chdir(cwd)
+    check(set(val_out) == {"loss", "iou", "recall", "precision", "f1", "AP@0.5"}
+          and all(np.isfinite(v) for v in val_out.values()), f"run_validation_epoch {val_out}")
+    print(f"[14 trainer] run_validation_epoch --with-ap on {ckpt.name}: {val_out}")
+
+    # the bench's measuring functions, short loops
+    train_iters, infer_iters, latency_iters = BENCH_LOOPS
+    line = fbench.run("cuda", rotate_device=True, train_iters=train_iters,
+                      infer_iters=infer_iters, latency_iters=latency_iters, reps=1)
+    want = bench_py_keys()
+    check(want <= set(line), f"bench keys {sorted(line)} lack {sorted(want - set(line))}")
+    numbers = [v for k, v in line.items() if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    numbers += [x for v in line.values() if isinstance(v, list) for x in v]
+    check(all(np.isfinite(numbers)) and line["train_mfu"] > 0, f"bench line {line}")
+    print(f"[14 trainer] fdtpu_torch.bench, loops {BENCH_LOOPS}, reps 1: {json.dumps(line)}")
+    return counts_since(phase_start)
+
+
 def kernel_times_only() -> None:
     """``--kernel-times``: the card, the build, and K1-K4's device times
     (no plain versions) as one JSON line; ``python -m
@@ -1180,6 +1407,9 @@ def main() -> None:
     tail_launches = phase_tail_path()
     photo_launches, train = phase_photometric_path()
     fused_times = phase_fused_timings(card, train)
+    del train
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer_launches = phase_trainer(tmp)
 
     def entry(meta, launches, err, times):
         ms, plain, bnd = times
@@ -1191,12 +1421,14 @@ def main() -> None:
 
     # K1 at b128/225 and the shears on the b128 exact-k planes head their
     # entries; every shape timed follows under "shapes"
-    kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"], worst,
+    kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"]
+                        + trainer_launches["decode_filter_nms"], worst,
                         row_times(nms_rows[0])), "shapes": nms_rows}]
     for kname, meta in SHEARS.items():
         rows = [r for r in shear_rows if r["name"].startswith(kname)]
         kernels.append({**entry({"name": kname, **meta},
-                                train_launches[kname] + photo_launches[kname], rot_worst,
+                                train_launches[kname] + photo_launches[kname]
+                                + trainer_launches[kname], rot_worst,
                                 row_times(rows[0])), "shapes": rows})
     kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"], photo_worst,
                          fused_times["photometric"]))

@@ -1,6 +1,20 @@
-"""Data: on-device augmentation. The loader and the WIDERFace source come
-with the Trainer (ROADMAP.md queue 1, item 8)."""
+"""WIDERFace data pipeline: annotation parsing, host image loading,
+on-device augmentation, fixed-shape batching with a device prefetcher."""
 
+from fdtpu_torch.data.widerface import (  # noqa: F401
+    DATASET_LINKS,
+    download_dataset_files,
+    load_targets,
+    parse_wider_annotations,
+)
+from fdtpu_torch.data.pipeline import (  # noqa: F401
+    Batch,
+    BatchLoader,
+    DevicePrefetcher,
+    WIDERFaceDataSource,
+    make_synthetic_widerface,
+    rotate_image_and_boxes,
+)
 from fdtpu_torch.data.augment import (  # noqa: F401
     ExactKDraws,
     SampleDraws,

@@ -2,10 +2,12 @@
 
 Each image goes through :meth:`Detector.predict` (host resize, ``/255``,
 forward, fused decode+filter+NMS); the boxes are drawn on the resized frame
-and saved. The weights are random, drawn from seed 0; loading a trained
-checkpoint is not ported yet. Run as::
+and saved. The weights come from ``--checkpoint`` (a checkpoint of the
+port, as ``train_model`` writes it), or are random, drawn from seed 0. A
+reference TorchScript ``.pth`` raises: its import is not ported (ROADMAP.md
+queue 1, item 4). Run as::
 
-    python -m fdtpu_torch.demo_model --images DIR --device cuda
+    python -m fdtpu_torch.demo_model --images DIR --checkpoint PATH --device cuda
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from fdtpu_torch.core.nms import compact_boxes
 from fdtpu_torch.models import DTYPES, Detector, build_model
+from fdtpu_torch.train.checkpoint import restore_variables
 from fdtpu_torch.utils.config import DetectorConfig
 from fdtpu_torch.utils.draw import draw_bbx
 
@@ -27,6 +30,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--images", default="imgs/test_imgs", help="input image dir")
     p.add_argument("--out", default="imgs/annotated_imgs")
+    p.add_argument("--checkpoint", default=None, help="a checkpoint of the port (.pt)")
     p.add_argument("--input", type=int, default=480)
     p.add_argument("--patches", type=int, default=10)
     p.add_argument("--filters", type=int, default=64)
@@ -46,6 +50,12 @@ def build_detector(args) -> Detector:
     )
     gen = torch.Generator().manual_seed(0)
     module = build_model("poolresnet", cfg, device=args.device, generator=gen)
+    if args.checkpoint:
+        if str(args.checkpoint).endswith(".pth"):
+            raise NotImplementedError(
+                "reference TorchScript checkpoints are not ported (ROADMAP.md queue 1, item 4)")
+        # before the Detector is built: it serves a copy of the params
+        module.load_state_dict(restore_variables(args.checkpoint, args.device))
     return Detector(
         module,
         probability_threshold=args.prob_threshold,

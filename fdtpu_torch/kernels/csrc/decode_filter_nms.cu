@@ -44,6 +44,16 @@
 // That is ~M/32 chunks of two barriers each in place of `capacity` rounds
 // of two (M ~ 112 at b128 on random maps: 4 chunks against 64 rounds).
 //
+// Any N: the planes and the list of an image live in the CTA's shared
+// memory while they fit (N <= max_candidates, 8,186 on the H100). Above
+// that the same kernel runs on a slice of global scratch per image, which
+// the caller allocates (fdtpu_decode_filter_nms_scratch_floats floats an
+// image): the same algorithm and arithmetic, every step bit for bit, only
+// with the planes and the bitonic sort in device memory (L1/L2) instead of
+// shared memory. __syncthreads orders the block's global accesses as it
+// does its shared ones. fdtpu's kernel takes any N as well, by tiling the
+// batch and keeping N whole (nms_pallas.py:262-274).
+//
 // Exactness against the plain PyTorch version and fdtpu's kernel: every
 // multiply, add and divide is a round-to-nearest intrinsic, so nothing is
 // contracted into an FMA (the build also passes -fmad=false), and the IoU
@@ -76,11 +86,11 @@ __host__ __device__ __forceinline__ int pow2_at_least(int n) {
   return p;
 }
 
-// Dynamic shared memory for `n` candidates: the planes, then the list of
-// eligible indices, pow2(n) slots for the bitonic sort.
-inline size_t smem_bytes(int n) {
-  return static_cast<size_t>(n) * kFloatPlanes * sizeof(float) +
-         static_cast<size_t>(pow2_at_least(n)) * sizeof(int);
+// One image's working set in floats (4 bytes each) for `n` candidates: the
+// planes, then the list of eligible indices, pow2(n) slots for the bitonic
+// sort. Dynamic shared memory, or a slice of the global scratch.
+__host__ __device__ __forceinline__ size_t work_floats(int n) {
+  return static_cast<size_t>(n) * kFloatPlanes + static_cast<size_t>(pow2_at_least(n));
 }
 
 __device__ __forceinline__ float max0(float d) { return d < 0.f ? 0.f : d; }
@@ -112,10 +122,13 @@ __global__ void __launch_bounds__(kThreads) decode_filter_nms_kernel(
     float w_scale, float h_scale, float prob_thr, float iou_thr, int n,
     int capacity,
     float* __restrict__ boxes,           // (B, capacity, 5), every row written
-    unsigned char* __restrict__ mask) {  // (B, capacity), every entry written
+    unsigned char* __restrict__ mask,    // (B, capacity), every entry written
+    float* scratch) {  // null: the working set in shared memory; else
+                       // (B, work_floats(n)) in device memory
   extern __shared__ float smem[];
-  const Planes pl{smem, smem + n, smem + 2 * n, smem + 3 * n, smem + 4 * n, smem + 5 * n};
-  int* list = reinterpret_cast<int*>(smem + kFloatPlanes * n);
+  float* work = scratch ? scratch + blockIdx.x * work_floats(n) : smem;
+  const Planes pl{work, work + n, work + 2 * n, work + 3 * n, work + 4 * n, work + 5 * n};
+  int* list = reinterpret_cast<int*>(work + kFloatPlanes * n);
   __shared__ int s_count;                 // eligible candidates M, then kept
   __shared__ unsigned s_by_kept;          // chunk rows suppressed by a kept box
   __shared__ unsigned s_tri[32];          // chunk row q: earlier rows suppressing q
@@ -312,15 +325,13 @@ __global__ void __launch_bounds__(kThreads) decode_filter_nms_kernel(
 
 extern "C" {
 
-// Launches the kernel on `stream`: one CTA per image. Returns the
-// cudaError_t of the launch (0 on success). The kernel writes every entry of
-// both outputs.
-int fdtpu_decode_filter_nms(const void* values, const void* sx, const void* ox,
-                            const void* sy, const void* oy, float w_scale,
-                            float h_scale, float prob_thr, float iou_thr,
-                            int batch, int n, int capacity, void* boxes,
-                            void* mask, void* stream) {
-  const size_t smem = smem_bytes(n);
+namespace {
+
+int launch(const void* values, const void* sx, const void* ox, const void* sy,
+           const void* oy, float w_scale, float h_scale, float prob_thr,
+           float iou_thr, int batch, int n, int capacity, void* boxes,
+           void* mask, void* scratch, void* stream) {
+  const size_t smem = scratch ? 0 : work_floats(n) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         decode_filter_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -332,9 +343,44 @@ int fdtpu_decode_filter_nms(const void* values, const void* sx, const void* ox,
       static_cast<const float*>(values), static_cast<const float*>(sx),
       static_cast<const float*>(ox), static_cast<const float*>(sy),
       static_cast<const float*>(oy), w_scale, h_scale, prob_thr, iou_thr, n,
-      capacity, static_cast<float*>(boxes),
-      static_cast<unsigned char*>(mask));
+      capacity, static_cast<float*>(boxes), static_cast<unsigned char*>(mask),
+      static_cast<float*>(scratch));
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` with each image's working set in shared
+// memory: one CTA per image, n <= max_candidates. Returns the cudaError_t
+// of the launch (0 on success). The kernel writes every entry of both
+// outputs.
+int fdtpu_decode_filter_nms(const void* values, const void* sx, const void* ox,
+                            const void* sy, const void* oy, float w_scale,
+                            float h_scale, float prob_thr, float iou_thr,
+                            int batch, int n, int capacity, void* boxes,
+                            void* mask, void* stream) {
+  return launch(values, sx, ox, sy, oy, w_scale, h_scale, prob_thr, iou_thr,
+                batch, n, capacity, boxes, mask, nullptr, stream);
+}
+
+// The same, with each image's working set in `scratch`: device memory of
+// batch * fdtpu_decode_filter_nms_scratch_floats(n) floats, any content,
+// which the kernel overwrites. Any n >= 1.
+int fdtpu_decode_filter_nms_scratch(const void* values, const void* sx,
+                                    const void* ox, const void* sy,
+                                    const void* oy, float w_scale,
+                                    float h_scale, float prob_thr,
+                                    float iou_thr, int batch, int n,
+                                    int capacity, void* boxes, void* mask,
+                                    void* scratch, void* stream) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  return launch(values, sx, ox, sy, oy, w_scale, h_scale, prob_thr, iou_thr,
+                batch, n, capacity, boxes, mask, scratch, stream);
+}
+
+// Floats of scratch one image takes at `n` candidates.
+long long fdtpu_decode_filter_nms_scratch_floats(int n) {
+  return static_cast<long long>(work_floats(n));
 }
 
 // The largest candidate count whose planes and list fit one CTA's shared

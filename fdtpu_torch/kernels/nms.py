@@ -163,7 +163,10 @@ def decode_filter_nms_batch(
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernel,
     and :attr:`decode_filter_nms_batch.launches` counts each launch; anything
-    the kernel does not take raises.
+    the kernel does not take raises. Up to :func:`max_candidates` rows an
+    image the kernel keeps its working set in shared memory; above that the
+    same kernel works in a scratch tensor allocated here, ``B`` times the
+    planes and the sort list of the padded ``N``.
     """
     if values.dim() != 3 or values.shape[-1] != 5:
         raise ValueError(f"values must be (B, N, 5), got {tuple(values.shape)}")
@@ -195,19 +198,19 @@ def decode_filter_nms_batch(
 
     lib = build.load_library()
     dev = values.device.index if values.device.index is not None else torch.cuda.current_device()
-    max_n = max_candidates(dev)
-    if n > max_n:
-        raise ValueError(f"N={n} candidates exceed the kernel's limit of {max_n} on this card")
     # the kernel writes every row, the zero rows after the last kept one too
     boxes = torch.empty((b, capacity, 5), dtype=torch.float32, device=values.device)
     mask = torch.empty((b, capacity), dtype=torch.bool, device=values.device)
+    args = (values.data_ptr(), *(c.data_ptr() for c in cols), w_scale, h_scale, prob, iou,
+            b, n, capacity, boxes.data_ptr(), mask.data_ptr())
     with torch.cuda.device(dev):
-        err = lib.fdtpu_decode_filter_nms(
-            values.data_ptr(), *(c.data_ptr() for c in cols),
-            w_scale, h_scale, prob, iou, b, n, capacity,
-            boxes.data_ptr(), mask.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if n <= max_candidates(dev):
+            err = lib.fdtpu_decode_filter_nms(*args, stream)
+        else:
+            scratch = torch.empty((b, lib.fdtpu_decode_filter_nms_scratch_floats(n)),
+                                  dtype=torch.float32, device=values.device)
+            err = lib.fdtpu_decode_filter_nms_scratch(*args, scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"decode_filter_nms kernel launch failed: {build.cuda_error_string(err)}"
@@ -221,8 +224,9 @@ decode_filter_nms_batch.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def max_candidates(device_index: int) -> int:
-    """The kernel's largest N: the most candidates whose planes and sort
-    list fit one CTA's shared memory on the card ``device_index``."""
+    """The most candidates whose planes and sort list fit one CTA's shared
+    memory on the card ``device_index``: up to it the kernel works in shared
+    memory, above it in global scratch."""
     from fdtpu_torch.kernels import build
 
     out = ctypes.c_int(0)

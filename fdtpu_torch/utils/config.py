@@ -41,13 +41,15 @@ class DetectorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields of ``fdtpu/utils/config.py:TrainConfig`` that the train
-    step reads, with the same defaults (the reference's config of record).
-    The loop's fields (epochs, logging, checkpoints, data parallelism) come
-    with the Trainer (ROADMAP.md queue 1, item 8)."""
+    """The fields of ``fdtpu/utils/config.py:TrainConfig``, with the same
+    defaults (the reference's config of record), but ``steps_per_dispatch``:
+    it exists for the TPU's dispatch cost, and the port runs one step a
+    batch. ``data_parallel`` other than None, 0 or 1 raises: data
+    parallelism is not ported (ROADMAP.md queue 1, item 5)."""
 
     learning_rate: float = 1e-4
     optimizer: str = "adam"  # "adam" (reference SAMSGD base) or "sgd"
+    max_epochs: int = 70
     batch_size: int = 8
     box_capacity: int = 8  # max gt boxes per image
     sam_rho: float = 0.05
@@ -55,6 +57,18 @@ class TrainConfig:
     lr_milestones: Tuple[int, ...] = (40,)  # MultiStepLR, in epochs
     lr_gamma: float = 0.1
     seed: int = 0
+    log_every_steps: int = 50
+    checkpoint_dir: str = "checkpoints"
+    log_path: str = "logs/out.log"
+    visualize_first_batch: bool = True
+    # train-epoch detection metrics, on the final batch of each epoch
+    train_metrics: bool = True
+    # autograd anomaly detection (fdtpu: jax_debug_nans), see train/loop.py
+    nan_check: bool = False
+    data_parallel: int | None = None
+    # stage the whole training set on the card once; each epoch is a
+    # permutation on the card (train/drivers.py:ResidentDriver)
+    device_data: bool = False
     # rotate on the card through the three-shear kernels (kernels/rotate.py)
     rotate_device: bool = False
     # crop the first k batch rows instead of a sampled subset; valid for
@@ -63,3 +77,10 @@ class TrainConfig:
     # the exact-k batch (B >= 16) in float32 through the fused photometric
     # kernel (kernels/photometric.py), fdtpu's FDTPU_PALLAS_AUGMENT=1 route
     fused_photometric: bool = False
+
+    def __post_init__(self):
+        if self.data_parallel not in (None, 0, 1):
+            raise NotImplementedError(
+                f"data_parallel={self.data_parallel}: data parallelism is not ported "
+                "(ROADMAP.md queue 1, item 5)"
+            )

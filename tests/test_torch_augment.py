@@ -263,3 +263,132 @@ def test_resize_only_batch_matches_fdtpu():
     np.testing.assert_allclose(gi.numpy(), np.asarray(wi), atol=1e-7, rtol=0)
     np.testing.assert_array_equal(gm.numpy(), np.asarray(wm))
     assert not gm[0, 0]
+
+
+# -- audits of the port's own draws (no fdtpu involved) ------------------------------------
+
+
+class _IdSource:
+    """A data source whose sample ``i`` is an image filled with ``i``, so a
+    batch names the samples it holds; one box each."""
+
+    def __init__(self, n, side):
+        self.n, self.side = n, side
+
+    def __len__(self):
+        return self.n
+
+    def get(self, i):
+        from fdtpu_torch.core.boxes import pad_boxes
+
+        boxes, mask = pad_boxes(np.float32([[1, 2, 2, 8, 8]]), 2)
+        return np.full((self.side, self.side, 3), i, np.uint8), boxes, mask
+
+
+def marginal_counts(epochs, b, shuffle, n=64, side=32, positional=None):
+    """Per-sample crop, flip and noise counts over ``epochs`` epochs of a
+    real ``BatchLoader`` feed, each step's draws made as the train step
+    makes them (its generator reseeded from the seed and the step, positional
+    subsets as the Trainer resolves them for the feed unless ``positional``
+    says otherwise)."""
+    positional = shuffle if positional is None else positional
+    from fdtpu_torch.data import BatchLoader
+    from fdtpu_torch.train.step import step_seed
+
+    loader = BatchLoader(_IdSource(n, side), b, shuffle=shuffle, seed=0, drop_last=True)
+    counts = {k: np.zeros(n) for k in ("crop", "flip", "noise")}
+    step = 0
+    for _ in range(epochs):
+        for batch in loader:
+            ids = batch.images[:, 0, 0, 0].astype(np.int64)
+            gen = torch.Generator().manual_seed(step_seed(0, step))
+            step += 1
+            if b < 16:
+                d = aug.sample_per_sample(gen, b, side, side, "cpu", rotate=False)
+                cw, ch = d.crop_window[2].numpy(), d.crop_window[3].numpy()
+                crop = (cw != side) | (ch != side)
+                flip, noise = d.flip.numpy() > 0.5, d.noise_gate.numpy() > 0.5
+            else:
+                d = aug.sample_exact_k(gen, b, side, side, "cpu", rotate=False,
+                                       positional_crop=positional)
+                crop = np.isin(np.arange(b), d.crop_rows.numpy())
+                flip = d.scalars[:, 0].numpy() > 0.5
+                noise = np.isin(np.arange(b), d.sels[0].numpy())
+            for key, hit in (("crop", crop), ("flip", flip), ("noise", noise)):
+                np.add.at(counts[key], ids[hit], 1)
+    return counts
+
+
+def dispersion_p_value(counts, epochs, p):
+    """Upper-tail p-value of the index of dispersion of per-sample counts
+    against Binomial(epochs, p): large when a sample's chance of the op
+    depends on which sample it is."""
+    from scipy.stats import chi2
+
+    d = ((counts - epochs * p) ** 2).sum() / (epochs * p * (1 - p))
+    return chi2.sf(d, len(counts) - 1)
+
+
+@pytest.mark.parametrize("b", [8, 16])
+def test_augmentation_marginals_are_binomial(b):
+    """Over 120 epochs of a shuffled feed, each sample is cropped, flipped
+    and noised as often as Binomial(120, p) says: on the per-sample path
+    (B = 8, independent gates, p = 0.2 / 0.5 / 0.2) and on the exact-k path
+    with positional subsets (B = 16: the first 3 rows cropped, odd rows
+    flipped, the next 3 noised; p = 3/16 / 1/2 / 3/16), whose argument rests
+    on the shuffle. Every p-value above 1e-3, every mean within 4 standard
+    errors."""
+    epochs, n = 120, 64
+    counts = marginal_counts(epochs, b, shuffle=True, n=n)
+    ps = {"crop": 0.2, "flip": 0.5, "noise": 0.2} if b < 16 else \
+        {"crop": 3 / 16, "flip": 0.5, "noise": 3 / 16}
+    for key, p in ps.items():
+        c = counts[key]
+        se = math.sqrt(epochs * p * (1 - p) / n)
+        assert abs(c.mean() - epochs * p) < 4 * se, (key, c.mean())
+        assert dispersion_p_value(c, epochs, p) > 1e-3, key
+
+
+def test_marginal_audit_catches_an_unshuffled_feed():
+    """The audit's power: positional subsets forced on a feed without the
+    shuffle (which the Trainer never does) crop and flip the same samples
+    every epoch, and the dispersion says so."""
+    counts = marginal_counts(30, 16, shuffle=False, positional=True)
+    assert dispersion_p_value(counts["crop"], 30, 3 / 16) < 1e-12
+    assert dispersion_p_value(counts["flip"], 30, 0.5) < 1e-12
+
+
+def assert_standard_normal(x: np.ndarray, what: str):
+    """Mean, variance, tails and the Kolmogorov-Smirnov distance of a field
+    against N(0, 1), at bars about 5 standard errors of its size."""
+    from scipy.stats import kstest
+
+    x = x.astype(np.float64).ravel()
+    n = x.size
+    assert abs(x.mean()) < 5 / math.sqrt(n), what
+    assert abs(x.var() - 1.0) < 5 * math.sqrt(2 / n), what
+    for k, inside in ((1, 0.682689), (2, 0.954500), (3, 0.997300)):
+        frac = (np.abs(x) < k).mean()
+        assert abs(frac - inside) < 5 * math.sqrt(inside * (1 - inside) / n) + 2e-3, (what, k)
+    assert kstest(x, "norm").statistic < 0.006, what
+
+
+def test_noise_fields_are_standard_normal():
+    """The port's noise, by its distribution (its bits cannot be JAX's): the
+    default route's bfloat16 field (bfloat16 rounding moves the KS distance
+    by about 2^-9), and the fused route's murmur3 Box-Muller field, whose
+    planes must also be uncorrelated with each other and change with the
+    seed."""
+    from fdtpu_torch.kernels.photometric import noise_field
+
+    gen = torch.Generator().manual_seed(11)
+    d = aug.sample_exact_k(gen, 64, 96, 96, "cpu", rotate=False, positional_crop=True)
+    assert_standard_normal(d.noise.float().numpy(), "default route")
+
+    seeds = torch.randint(0, 2**31 - 1, (12,), generator=gen, dtype=torch.int32)
+    field = noise_field(seeds, 96, 96).numpy()
+    assert_standard_normal(field, "fused route")
+    planes = field.reshape(12, -1)
+    corr = np.corrcoef(planes)[np.triu_indices(12, 1)]
+    assert np.abs(corr).max() < 5 / math.sqrt(planes.shape[1])
+    assert not np.array_equal(noise_field(seeds + 1, 96, 96).numpy(), field)

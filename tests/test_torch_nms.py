@@ -22,6 +22,8 @@ from fdtpu_torch.core.nms import compact_boxes, decode_filter_nms
 from fdtpu_torch.kernels import nms as knms
 
 SSD_PRIORS = 4774  # SSDConfig's (60, 30, 15, 7) patch sizes
+SSD_PRIORS_632 = 8204  # 79^2 + 39^2 + 19^2 + 9^2: past the kernel's shared-memory path
+SSD_INPUT = {SSD_PRIORS: (480, 480), SSD_PRIORS_632: (632, 632)}
 
 
 def grid_maps(rng, b, s, hot=6, size=(0.05, 0.95)):
@@ -275,16 +277,19 @@ def scan_case_values(rng, b, n, case):
 
 @pytest.mark.parametrize("case", ["random", "saturated", "ties", "negative threshold",
                                   "signed zeros"])
-@pytest.mark.parametrize("n,b,cap", [(100, 2, 32), (225, 2, 64), (SSD_PRIORS, 1, 128)])
+@pytest.mark.parametrize("n,b,cap", [(100, 2, 32), (225, 2, 64), (SSD_PRIORS, 1, 128),
+                                     (SSD_PRIORS_632, 1, 128)])
 def test_sorted_chunked_scan_matches_k1(case, n, b, cap):
     """The kernel's reformulation (one sort, a resolve in chunks of 32
     against the kept list) equals fdtpu's greedy K1 in interpret mode, and
-    the port's plain version bit for bit."""
+    the port's plain version bit for bit. At N = 8,204 (SSD at 632 px) the
+    kernel takes its global-scratch path on the card, with the same
+    algorithm."""
     rng = np.random.default_rng(n + len(case))
     vals, prob = scan_case_values(rng, b, n, case)
-    if n == SSD_PRIORS:
-        tables, jtables = (knms.ssd_output_decode_tables(n, (480, 480)),
-                           jax_ssd_output_tables(n, (480, 480)))
+    if n in SSD_INPUT:
+        tables, jtables = (knms.ssd_output_decode_tables(n, SSD_INPUT[n]),
+                           jax_ssd_output_tables(n, SSD_INPUT[n]))
     else:
         s = int(round(n ** 0.5))
         tables = jtables = knms.grid_decode_tables(s, (480, 480) if s == 10 else (320, 320))
