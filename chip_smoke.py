@@ -111,10 +111,27 @@ non-zero; without a CUDA card it fails at once and prints no result):
     (epoch metrics and params bit-equal); ``run_validation_epoch --with-ap``
     on the saved checkpoint; and ``fdtpu_torch.bench``'s measuring
     functions with loops of 5, 20 and 50 and one rep (``bench.py``'s keys,
-    every value finite).
+    every value finite);
+15. the SSD path (SSD-16, ``train_model_ssd``'s model, random weights):
+    the float32 forward at 480 px, B=2, card against CPU, atol 1e-4; bf16
+    serving: ``predict`` on three odd-sized frames, then the batch path at
+    b24/480 (N = 4,774, capacity 128, K1 in shared memory) and at b8/640
+    (N = 8,500, K1 on global scratch), boxes bit-equal to the plain
+    version's on the same forward output and K1 launched once a call; one
+    float32 SAM + SGD step at 480 px, B=2, card against CPU, at phase 8's
+    tolerances (the loss's hard-negative mining adds one more kink: a
+    negative whose score ties within rounding may be mined on one device
+    and not the other; the line counts those); five bf16 SAM + Adam steps
+    at b24/480, augmentation off, the last with train metrics (K1 once);
+    ``train_model_ssd``'s Trainer for two quarter-epochs on 192 / 24
+    synthetic images, a resume (params, Adam moments and step bit-equal)
+    and ``run_validation_epoch --model ssd --with-ap`` on its checkpoint;
+    timings with CUDA events: the train step, forward + decode at b24 and
+    the b1 ``predict``, and K1 alone on the SSD's maps at (24, 4774),
+    (1, 4774) and (8, 8500), each with its plain version and bound.
 
 The line before the last is a JSON object with each kernel's launches (from
-the serving, training, fused and Trainer paths), error, times, and its bound: the
+the serving, training, fused, Trainer and SSD paths), error, times, and its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
 outside the tensor cores (H100 SXM data sheet). ``library_ms`` is null for
@@ -144,7 +161,7 @@ import torch
 
 from fdtpu_torch import bench as fbench
 from fdtpu_torch import bench_pool_fusion as bpf
-from fdtpu_torch import run_validation_epoch
+from fdtpu_torch import run_validation_epoch, train_model_ssd
 from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets
 from fdtpu_torch.data import augment as aug
 from fdtpu_torch.data import make_synthetic_widerface
@@ -153,11 +170,13 @@ from fdtpu_torch.kernels import epilogue as kep
 from fdtpu_torch.kernels import nms as knms
 from fdtpu_torch.kernels import photometric as kphoto
 from fdtpu_torch.kernels import rotate as krot
-from fdtpu_torch.models import Detector, PoolResnet, build_model
+from fdtpu_torch.losses.ssd import hard_negative_mining
+from fdtpu_torch.models import SSD, Detector, PoolResnet, build_model, ssd_patch_sizes
 from fdtpu_torch.train import Trainer, create_train_state, make_train_step
+from fdtpu_torch.train import step as tstep
 from fdtpu_torch.train.checkpoint import latest_checkpoint
 from fdtpu_torch.train.sam import global_norm
-from fdtpu_torch.utils.config import DetectorConfig, TrainConfig
+from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 from fdtpu_torch.utils.tb import read_scalars
 
 SEED = 0
@@ -190,7 +209,10 @@ HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 F32_OPS_PER_MS = 67e9  # H100 SXM: 67 TFLOP/s float32 outside the tensor cores
 # operations counted per element (each multiply, add, compare, integer op,
 # conversion and transcendental is one)
-NMS_DECODE_OPS, NMS_ROUND_OPS = 17, 14  # per candidate; per candidate and round
+# K1: the filter's compare on every candidate; the decode of each eligible
+# one (score above the threshold); a greedy round's IoU test of each eligible
+# one of its image
+NMS_FILTER_OPS, NMS_DECODE_OPS, NMS_ROUND_OPS = 1, 17, 14
 SHEAR_OPS = 4  # (1 - f) a + f b
 # K5, per pixel and channel: brightness/contrast, clip and /255 on every
 # plane; the noise (two murmur3 mixes, Box-Muller) and the two 5-tap passes
@@ -204,6 +226,11 @@ L2_FLUSH_BYTES = 150e6  # three times the H100's 50 MB L2
 TRAINER_IMAGES = (48, 16)  # phase 14's synthetic train and val images
 TRAINER_EPOCHS = 2
 BENCH_LOOPS = (5, 20, 50)  # phase 14's short train, infer and b1 loops, one rep
+SSD_CFG = SSDConfig()  # SSD-16, 480 px, patch sizes (60, 30, 15, 7): 4,774 priors
+SSD_640 = SSDConfig(input_shape=(640, 640), patch_sizes=ssd_patch_sizes((640, 640)))  # 8,500
+SSD_BATCH, SSD_640_BATCH = 24, 8
+SSD_FACES = 4  # boxes an image in phase 15's batches
+SSD_TRAINER_IMAGES = (192, 24)  # two steps a quarter-epoch at b24, one val batch
 
 
 def check(ok: bool, what: str) -> None:
@@ -221,6 +248,22 @@ def bound(nbytes: float, ops: float) -> dict:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def nms_bound(vals, tables, boxes, mask, prob: float = 0.5) -> tuple[dict, int, int]:
+    """K1's bound on this data: every candidate read and compared; only the
+    eligible ones (score above ``prob``) decoded and scanned, once a greedy
+    round of their image (its kept rows, plus the round that finds none
+    alive when fewer than capacity survive), whatever implements it.
+    Returns the bound, the rounds and the eligible candidates in all."""
+    b, n, _ = vals.shape
+    eligible = (vals[..., 0] > prob).sum(-1)
+    kept = mask.sum(-1)
+    rounds = kept + (kept < mask.shape[-1]).long()
+    ops = (b * n * NMS_FILTER_OPS + int(eligible.sum()) * NMS_DECODE_OPS
+           + int((rounds * eligible).sum()) * NMS_ROUND_OPS)
+    return (bound(nbytes(vals, *tables[:4], boxes, mask), ops), int(rounds.sum()),
+            int(eligible.sum()))
 
 
 # -- inputs ----------------------------------------------------------------------
@@ -547,20 +590,15 @@ def nms_times(card, with_plain: bool = True) -> list[dict]:
             row["ms"], runs = mean_of_two(kern, 50)
         row["kernel_ms"], alone_runs = mean_of_two(nms_kernel_alone(vals, tables, cap), 50)
         row["host_us"] = host_us(kern, 200)
-        # the bound of this data: the decode of every candidate, and one scan
-        # of all N a greedy round (kept rows, plus the round that finds none
-        # alive when fewer than `cap` survive), whatever implements it
-        boxes, mask = kern()
-        kept = mask.sum(-1)
-        rounds = int((kept + (kept < cap).long()).sum())
-        row.update(bound(nbytes(vals, *tables[:4], boxes, mask),
-                         b * n * NMS_DECODE_OPS + rounds * n * NMS_ROUND_OPS))
+        bnd, rounds, eligible = nms_bound(vals, tables, *kern())
+        row.update(bnd)
         rows.append(row)
         plain_txt = f", plain {row['plain_ms']:.4f} ms" if with_plain else ""
         print(f"[6 time] decode_filter_nms B={b} N={n} cap={cap} random maps: wrapper "
               f"{row['ms']:.4f} ms{plain_txt} ({runs}); kernel alone {row['kernel_ms']:.4f} ms "
               f"({alone_runs}); host {row['host_us']:.1f} us a call; bound "
-              f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({rounds} rounds) [{card}]")
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({rounds} rounds, {eligible} "
+              f"eligible) [{card}]")
     return rows
 
 
@@ -577,15 +615,13 @@ def nms_large_times(card) -> list[dict]:
         plain = lambda: knms.decode_filter_nms_reference(vals, tables, 0.5, 0.5, cap)  # noqa: E731
         row = {"shape": [b, n, cap], "path": "scratch"}
         row["ms"], row["plain_ms"], runs = turns(kern, plain, 20, 2)
-        boxes, mask = kern()
-        kept = mask.sum(-1)
-        rounds = int((kept + (kept < cap).long()).sum())
-        row.update(bound(nbytes(vals, *tables[:4], boxes, mask),
-                         b * n * NMS_DECODE_OPS + rounds * n * NMS_ROUND_OPS))
+        bnd, rounds, eligible = nms_bound(vals, tables, *kern())
+        row.update(bnd)
         rows.append(row)
         print(f"[6 time] decode_filter_nms B={b} N={n} cap={cap} random maps, global scratch: "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms ({runs}); bound "
-              f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({rounds} rounds) [{card}]")
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({rounds} rounds, {eligible} "
+              f"eligible) [{card}]")
     return rows
 
 
@@ -692,20 +728,21 @@ def bench_like_batch(b, size, device):
     return tuple(torch.from_numpy(a).to(device) for a in (images, boxes, masks))
 
 
-def phase_train_f32() -> None:
+def f32_step_card_vs_cpu(make_module, make_batch, what: str) -> str:
+    """One float32 SAM + SGD step (augmentation off, TF32 off) of
+    ``make_module(device)`` on ``make_batch(device)``, on the CPU and on the
+    card; checks the loss, the grad norm and the update (params after minus
+    before) at phase 8's tolerances and returns the line's numbers."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = DetectorConfig()
     tcfg = TrainConfig(optimizer="sgd", learning_rate=1e-2)
     got = {}
     for dev in ("cpu", "cuda"):
-        module = PoolResnet(cfg.filters, cfg.input_shape, cfg.num_patches,
-                            cfg.num_residual_blocks, dropout=0.0, head_dropout=0.0,
-                            generator=torch.Generator().manual_seed(SEED + 5)).to(dev)
+        module = make_module(dev)
         before = [p.detach().cpu().clone() for p in module.parameters()]
         state = create_train_state(module, tcfg, 100)
         step = make_train_step(module, tcfg, augment=False)
-        state, sc = step(state, *bench_like_batch(2, 480, dev))
+        state, sc = step(state, *make_batch(dev))
         got[dev] = (sc["loss"].item(), sc["grad_norm"].item(),
                     [p.detach().cpu() - q for p, q in zip(module.parameters(), before)])
     (l_c, g_c, u_c), (l_g, g_g, u_g) = got["cpu"], got["cuda"]
@@ -714,17 +751,28 @@ def phase_train_f32() -> None:
     upd_err = global_norm(diff).item() / global_norm(u_c).item()
     tensor_err = max((d.norm() / u.norm()).item() for d, u in zip(diff, u_c))
     p_err = max(d.abs().max().item() for d in diff)
-    check(np.isfinite([l_g, g_g]).all(), "non-finite f32 train step on the card")
-    check(loss_err <= TRAIN_RTOL_LOSS, f"loss card {l_g} vs CPU {l_c}")
-    check(gn_err <= TRAIN_RTOL_GRAD_NORM, f"grad norm card {g_g} vs CPU {g_c}")
-    check(upd_err <= TRAIN_RTOL_UPDATE, f"update differs by {upd_err} in relative L2")
+    check(np.isfinite([l_g, g_g]).all(), f"non-finite f32 {what} step on the card")
+    check(loss_err <= TRAIN_RTOL_LOSS, f"{what} loss card {l_g} vs CPU {l_c}")
+    check(gn_err <= TRAIN_RTOL_GRAD_NORM, f"{what} grad norm card {g_g} vs CPU {g_c}")
+    check(upd_err <= TRAIN_RTOL_UPDATE, f"{what} update differs by {upd_err} in relative L2")
     check(tensor_err <= TRAIN_RTOL_UPDATE_TENSOR,
-          f"a tensor's update differs by {tensor_err} in relative L2")
-    print(f"[8 train f32] SAM + SGD step, PoolResnet-128x10 480px B=2, card vs CPU: loss "
-          f"{l_g:.6f} vs {l_c:.6f} (rel {loss_err:.3g}, rtol {TRAIN_RTOL_LOSS}); grad norm "
-          f"rel {gn_err:.3g} (rtol {TRAIN_RTOL_GRAD_NORM}); update rel L2 {upd_err:.3g} (rtol "
-          f"{TRAIN_RTOL_UPDATE}), worst tensor {tensor_err:.3g} (rtol {TRAIN_RTOL_UPDATE_TENSOR}); "
-          f"params max abs err {p_err:.3g}")
+          f"a {what} tensor's update differs by {tensor_err} in relative L2")
+    return (f"loss {l_g:.6f} vs {l_c:.6f} (rel {loss_err:.3g}, rtol {TRAIN_RTOL_LOSS}); grad norm "
+            f"rel {gn_err:.3g} (rtol {TRAIN_RTOL_GRAD_NORM}); update rel L2 {upd_err:.3g} (rtol "
+            f"{TRAIN_RTOL_UPDATE}), worst tensor {tensor_err:.3g} (rtol "
+            f"{TRAIN_RTOL_UPDATE_TENSOR}); params max abs err {p_err:.3g}")
+
+
+def phase_train_f32() -> None:
+    cfg = DetectorConfig()
+
+    def module(dev):
+        return PoolResnet(cfg.filters, cfg.input_shape, cfg.num_patches, cfg.num_residual_blocks,
+                          dropout=0.0, head_dropout=0.0,
+                          generator=torch.Generator().manual_seed(SEED + 5)).to(dev)
+
+    line = f32_step_card_vs_cpu(module, lambda dev: bench_like_batch(2, 480, dev), "PoolResnet")
+    print(f"[8 train f32] SAM + SGD step, PoolResnet-128x10 480px B=2, card vs CPU: {line}")
 
 
 def train_setup(cfg: DetectorConfig, b: int):
@@ -1380,6 +1428,257 @@ def phase_trainer(tmp) -> dict:
     return counts_since(phase_start)
 
 
+# -- the SSD path ------------------------------------------------------------------
+
+
+def ssd_module(cfg: SSDConfig, device, compute_dtype=None, seed: int = SEED):
+    return build_model("ssd", cfg, device, torch.Generator().manual_seed(seed),
+                       compute_dtype=compute_dtype)
+
+
+def ssd_batch(b, size, device):
+    """Random u8 frames with ``SSD_FACES`` boxes each, in a padded (B, 8, 5)
+    box array."""
+    rng = np.random.default_rng(SEED + 13)
+    images = rng.integers(0, 255, size=(b, size, size, 3), dtype=np.uint8)
+    boxes = np.zeros((b, 8, 5), dtype=np.float32)
+    boxes[:, :SSD_FACES, 0] = 1.0
+    boxes[:, :SSD_FACES, 1:3] = rng.uniform(0, size - 100, (b, SSD_FACES, 2)).round()
+    boxes[:, :SSD_FACES, 3:5] = rng.uniform(20, 100, (b, SSD_FACES, 2)).round()
+    masks = np.tile(np.arange(8) < SSD_FACES, (b, 1))
+    return tuple(torch.from_numpy(a).to(device) for a in (images, boxes, masks))
+
+
+def phase_ssd_forward_f32() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, gpu = ssd_module(SSD_CFG, "cpu").eval(), ssd_module(SSD_CFG, "cuda").eval()
+    u8 = np.random.default_rng(SEED + 14).integers(0, 256, size=(2, 480, 480, 3), dtype=np.uint8)
+    x = torch.from_numpy(u8).float() / 255.0
+    with torch.inference_mode():
+        want = cpu(x)
+        got = gpu(x.cuda()).cpu()
+    check(got.shape == (2, 4774, 5), f"SSD forward shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite SSD forward output")
+    err = (got - want).abs().max().item()
+    check(err <= FORWARD_ATOL, f"card SSD forward differs from CPU by {err} > {FORWARD_ATOL}")
+    above = (want[..., 0] > 0.5).float().mean().item()
+    print(f"[15 ssd forward f32] SSD-16 480px B=2 (4774 priors), card vs CPU max abs err "
+          f"{err:.3g} (atol {FORWARD_ATOL}); {above:.0%} of the scores above 0.5")
+
+
+def phase_ssd_serving():
+    """bf16 Detectors on the card: ``predict`` on three odd-sized frames,
+    then the batch path at b24/480 (N = 4,774, K1 in shared memory) and
+    b8/640 (N = 8,500, K1 on global scratch), boxes equal to the plain
+    version's on the same forward output."""
+    det = Detector(ssd_module(SSD_CFG, "cuda"))
+    det640 = Detector(ssd_module(SSD_640, "cuda"))
+    rng = np.random.default_rng(SEED + 15)
+    frames = [rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+              for h, w in ((377, 501), (480, 641), (211, 173))]
+    b24 = torch.from_numpy(rng.integers(0, 256, size=(SSD_BATCH, 480, 480, 3), dtype=np.uint8)).cuda()
+    b8 = torch.from_numpy(rng.integers(0, 256, size=(SSD_640_BATCH, 640, 640, 3),
+                                       dtype=np.uint8)).cuda()
+
+    knms.decode_filter_nms_batch.launches = 0
+    preds = [det.predict(f) for f in frames]
+    out24 = det.apply(b24.float() / 255.0)
+    boxes24, mask24 = det.non_max_suppression(out24)
+    out8 = det640.apply(b8.float() / 255.0)
+    boxes8, mask8 = det640.non_max_suppression(out8)
+    torch.cuda.synchronize()
+    launches = knms.decode_filter_nms_batch.launches
+    check(launches == len(frames) + 2, f"K1 launched {launches} times, want {len(frames) + 2}")
+
+    counts = [int(check_boxes(b, m, 128, 0.5, "SSD predict")) for _, b, m in preds]
+    check(out24.shape == (SSD_BATCH, 4774, 5) and out8.shape == (SSD_640_BATCH, 8500, 5),
+          f"SSD forward shapes {tuple(out24.shape)}, {tuple(out8.shape)}")
+    check(8500 > knms.max_candidates(0), "N = 8,500 does not reach K1's global-scratch path")
+    kept = {}
+    for name, out, boxes, mask, size in (("b24/480", out24, boxes24, mask24, 480),
+                                         ("b8/640", out8, boxes8, mask8, 640)):
+        check(bool(torch.isfinite(out).all()), f"non-finite SSD forward at {name}")
+        kept[name] = check_boxes(boxes, mask, 128, 0.5, f"SSD {name}")
+        tables = knms.ssd_output_tables_on(out.shape[1], (size, size), out.device)
+        wb, wm = knms.decode_filter_nms_reference(out, tables, 0.5, 0.5, 128)
+        check(torch.equal(mask, wm) and torch.equal(boxes, wb), f"SSD {name} boxes differ from plain")
+    eligible = (out24[..., 0] > 0.5).sum(-1).float().mean().item()
+    print(f"[15 ssd serving] bf16 SSD-16 Detectors on the card: predict x3 at 480px -> {counts} "
+          f"boxes; b24 at 480px (N 4774, {eligible:.0f} eligible an image) -> "
+          f"{int(kept['b24/480'].sum())} boxes; b8 at 640px (N 8500, global scratch) -> "
+          f"{int(kept['b8/640'].sum())} boxes; K1 launches {launches}; both batch decodes equal "
+          f"plain")
+    return launches, {"det": det, "det640": det640, "b24": b24, "out24": out24, "out8": out8}
+
+
+def phase_ssd_train_f32() -> None:
+    """One float32 SAM + SGD step of SSD-16 at 480 px, B=2, card against
+    CPU, augmentation and dropout off, at phase 8's tolerances; and how many
+    of the first forward's mined priors differ between the devices."""
+
+    def module(dev):
+        return SSD(SSD_CFG.filters, SSD_CFG.input_shape, SSD_CFG.patch_sizes, dropout=0.0,
+                   generator=torch.Generator().manual_seed(SEED + 5)).to(dev)
+
+    mined = {}
+    for dev in ("cpu", "cuda"):
+        net = module(dev)
+        images, boxes, masks = ssd_batch(2, 480, dev)
+        with torch.no_grad():
+            out = net(images.float() / 255.0)
+            enc, _ = tstep._encode_targets(net, boxes, masks, (480, 480))
+        mined[dev] = hard_negative_mining(-torch.log(out[..., 0].clamp(1e-7, 1.0)),
+                                          enc[..., 0], 10).cpu()
+    line = f32_step_card_vs_cpu(module, lambda dev: ssd_batch(2, 480, dev), "SSD")
+    flips = int((mined["cpu"] != mined["cuda"]).sum())
+    print(f"[15 ssd train f32] SAM + SGD step, SSD-16 480px B=2, card vs CPU: {line}; mined "
+          f"priors that differ {flips} of {int(mined['cpu'].sum())}")
+
+
+def phase_ssd_train_path():
+    """Five bf16 SAM + Adam steps of SSD-16 at 480 px, b24, augmentation
+    off (``train_model_ssd``'s default), the last with train metrics."""
+    module = ssd_module(SSD_CFG, "cuda", compute_dtype=torch.bfloat16)
+    tcfg = TrainConfig(seed=SEED)
+    state = create_train_state(module, tcfg, 100)
+    step = make_train_step(module, tcfg, augment=False)
+    metrics_step = make_train_step(module, tcfg, augment=False, compute_metrics=True)
+    batch = ssd_batch(SSD_BATCH, 480, "cuda")
+    before = [p.detach().clone() for p in module.parameters()]
+
+    knms.decode_filter_nms_batch.launches = 0
+    scalars = []
+    for i in range(TRAIN_STEPS):
+        state, sc = (metrics_step if i == TRAIN_STEPS - 1 else step)(state, *batch)
+        scalars.append(sc)
+    torch.cuda.synchronize()
+    launches = knms.decode_filter_nms_batch.launches
+    check(launches == 1, f"K1 launched {launches} times in {TRAIN_STEPS} SSD steps, want 1")
+    check(all(np.isfinite(v.item()) for sc in scalars for v in sc.values()),
+          "non-finite SSD train scalars")
+    moved = max((p - q).abs().max().item() for p, q in zip(module.parameters(), before))
+    check(moved > 0, "SSD params did not move")
+    check(all(p.dtype == torch.float32 for p in module.parameters()), "SSD params left float32")
+    last = scalars[-1]
+    print(f"[15 ssd train path] SSD-16 b24 480px bf16 SAM+Adam, {TRAIN_STEPS} steps: losses "
+          f"{[round(sc['loss'].item(), 3) for sc in scalars]}, grad norm "
+          f"{last['grad_norm'].item():.4f}, metrics iou {last['iou'].item():.4f} recall "
+          f"{last['recall'].item():.4f} precision {last['precision'].item():.4f}; params moved "
+          f"up to {moved:.3g}; K1 launches {launches}")
+    return launches, (state, step, batch)
+
+
+def phase_ssd_trainer(tmp) -> int:
+    """``train_model_ssd``'s Trainer (its defaults: SSD-16, 480 px, b24,
+    SAM + Adam, quarter-epochs) for two quarter-epochs on synthetic data,
+    a resume in a new Trainer, and ``run_validation_epoch --model ssd
+    --with-ap`` on the checkpoint. Returns K1's launches."""
+    from pathlib import Path
+
+    tmp = Path(tmp) / "ssd"
+    n_train, n_val = SSD_TRAINER_IMAGES
+    root = make_synthetic_widerface(tmp / "data", n_train, split="train", seed=SEED, max_faces=4)
+    make_synthetic_widerface(root, n_val, split="val", seed=SEED + 1, max_faces=4)
+    flags = ["--data-dir", str(root), "--epochs", str(TRAINER_EPOCHS), "--device", "cuda"]
+    cwd = os.getcwd()
+    os.chdir(tmp)  # checkpoints/, logs/ and imgs/ go here
+    try:
+        knms.decode_filter_nms_batch.launches = 0
+        trainer = train_model_ssd.build_trainer(train_model_ssd.parse_args(flags))
+        out = trainer.fit()
+        torch.cuda.synchronize()
+        fit_launches = knms.decode_filter_nms_batch.launches
+        steps = TRAINER_EPOCHS * len(trainer.train_loader)
+        check(trainer.state.step == steps, f"SSD Trainer took {trainer.state.step} steps, want {steps}")
+        check(all(np.isfinite(v) for split in out.values() for v in split.values()),
+              f"non-finite SSD epoch metrics {out}")
+        # each quarter-epoch: the first-batch drawing's eval, the metrics step, each val batch
+        want = TRAINER_EPOCHS * (2 + len(trainer.val_loader))
+        check(fit_launches == want, f"K1 launched {fit_launches} times in fit, want {want}")
+        ckpt = latest_checkpoint(tmp / "checkpoints" / trainer.run_name)
+        check(ckpt is not None and ckpt.name == f"step_{steps:08d}.pt", f"checkpoint {ckpt}")
+
+        resumed = train_model_ssd.build_trainer(train_model_ssd.parse_args([*flags, "--seed", "1"]))
+        check(resumed.maybe_resume() and resumed.epoch == TRAINER_EPOCHS
+              and resumed.state.step == steps, "the SSD resume's epoch or step")
+        for p, q in zip(resumed.state.module.parameters(), trainer.state.module.parameters()):
+            check(torch.equal(p, q), "resumed SSD params differ from the saved ones")
+            sa, sb = resumed.state.optimizer.state[p], trainer.state.optimizer.state[q]
+            check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa),
+                  "resumed SSD Adam state differs from the saved one")
+
+        val_out = run_validation_epoch.main([
+            "--data-dir", str(root), "--model", "ssd", "--checkpoint", str(ckpt),
+            "--batch-size", str(SSD_BATCH), "--with-ap", "--device", "cuda"])
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    launches = knms.decode_filter_nms_batch.launches
+    check(all(np.isfinite(v) for v in val_out.values()) and 0.0 <= val_out["AP@0.5"] <= 1.0,
+          f"run_validation_epoch --model ssd {val_out}")
+    print(f"[15 ssd trainer] train_model_ssd's Trainer, {TRAINER_EPOCHS} quarter-epochs of "
+          f"{len(trainer.train_loader)} steps (SSD-16 480px b24 bf16 SAM+Adam, {n_train} train / "
+          f"{n_val} val synthetic images): train {out['train']}, val {out['val']}; K1 launches "
+          f"{fit_launches}; resume: params, Adam moments and step bit-equal; "
+          f"run_validation_epoch --model ssd --with-ap on {ckpt.name}: {val_out}")
+    return launches
+
+
+def phase_ssd_timings(card, serving, train) -> list[dict]:
+    """CUDA events after warmup: the SSD train step, forward + decode at
+    b24/480 and the b1 ``predict``; then K1 alone (``device_ms``) on the
+    SSD's own maps against its plain version."""
+    state, step, batch = train
+    ms = step_ms(state, step, batch, 20)
+    print(f"[15 time] SSD-16 train b24 480px bf16 SAM+Adam: {ms:.3f} ms/step "
+          f"({SSD_BATCH * 1e3 / ms:.1f} img/s) [{card}]")
+    det, b24 = serving["det"], serving["b24"]
+    ms = event_ms(lambda: det.non_max_suppression(det.apply(b24.float() / 255.0)), 20)
+    print(f"[15 time] SSD-16 b24 480px bf16 forward + decode: {ms:.3f} ms/batch, "
+          f"{SSD_BATCH * 1e3 / ms:.1f} img/s [{card}]")
+    frame = np.random.default_rng(SEED + 16).integers(0, 256, size=(480, 480, 3), dtype=np.uint8)
+    lat = []
+    for i in range(60):
+        t0 = time.perf_counter()
+        det.predict(frame)
+        torch.cuda.synchronize()
+        if i >= 10:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    print(f"[15 time] SSD-16 b1 predict 480px bf16 (H2D + /255 + forward + decode): median "
+          f"{statistics.median(lat):.3f} ms, min {min(lat):.3f} ms over {len(lat)} [{card}]")
+
+    rows = []
+    out24, out8 = serving["out24"], serving["out8"]
+    for vals, size in ((out24, 480), (out24[:1].contiguous(), 480), (out8, 640)):
+        b, n, cap = vals.shape[0], vals.shape[1], 128
+        tables = knms.ssd_output_tables_on(n, (size, size), vals.device)
+        kern = lambda: knms.decode_filter_nms_batch(vals, tables, 0.5, 0.5, cap)  # noqa: E731
+        plain = lambda: knms.decode_filter_nms_reference(vals, tables, 0.5, 0.5, cap)  # noqa: E731
+        row = {"shape": [b, n, cap], "maps": "SSD-16 bf16 output, random weights",
+               "path": "scratch" if n > knms.max_candidates(0) else "shared"}
+        row["ms"], row["plain_ms"], runs = turns(kern, plain, 20, 2)
+        bnd, rounds, eligible = nms_bound(vals, tables, *kern())
+        row.update(bnd)
+        rows.append(row)
+        print(f"[15 time] decode_filter_nms B={b} N={n} cap={cap} on SSD maps ({row['path']}): "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms ({runs}); bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({rounds} rounds, {eligible} "
+              f"eligible) [{card}]")
+    return rows
+
+
+def phase_ssd(card, tmp):
+    """15: the SSD path. Returns K1's launches on it and its timed rows."""
+    phase_ssd_forward_f32()
+    serving_launches, serving = phase_ssd_serving()
+    phase_ssd_train_f32()
+    train_launches, train = phase_ssd_train_path()
+    trainer_launches = phase_ssd_trainer(tmp)
+    rows = phase_ssd_timings(card, serving, train)
+    return serving_launches + train_launches + trainer_launches, rows
+
+
 def kernel_times_only() -> None:
     """``--kernel-times``: the card, the build, and K1-K4's device times
     (no plain versions) as one JSON line; ``python -m
@@ -1410,6 +1709,7 @@ def main() -> None:
     del train
     with tempfile.TemporaryDirectory() as tmp:
         trainer_launches = phase_trainer(tmp)
+        ssd_launches, ssd_rows = phase_ssd(card, tmp)
 
     def entry(meta, launches, err, times):
         ms, plain, bnd = times
@@ -1422,8 +1722,8 @@ def main() -> None:
     # K1 at b128/225 and the shears on the b128 exact-k planes head their
     # entries; every shape timed follows under "shapes"
     kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"]
-                        + trainer_launches["decode_filter_nms"], worst,
-                        row_times(nms_rows[0])), "shapes": nms_rows}]
+                        + trainer_launches["decode_filter_nms"] + ssd_launches, worst,
+                        row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
     for kname, meta in SHEARS.items():
         rows = [r for r in shear_rows if r["name"].startswith(kname)]
         kernels.append({**entry({"name": kname, **meta},

@@ -11,6 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fdtpu_torch.models.ssd import SSD
+
+EXTRACTOR_BLOCKS = 9  # fdtpu's SSD: SSDResidualBlock_0..8 extract, the rest are scales
+
 
 def _conv(tree, prefix: str) -> dict[str, torch.Tensor]:
     kernel = np.asarray(tree["kernel"], dtype=np.float32)
@@ -45,16 +49,70 @@ def poolresnet_state_dict(params) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _numbered(params, prefix: str) -> list[str]:
+    """The keys ``{prefix}0, {prefix}1, ...`` of ``params``, in order;
+    raises unless they run from 0 without a gap."""
+    keys = sorted((k for k in params if k.startswith(prefix)), key=lambda k: int(k[len(prefix):]))
+    if keys != [f"{prefix}{i}" for i in range(len(keys))]:
+        raise ValueError(f"{prefix}* are not numbered 0..{len(keys) - 1}: {keys}")
+    return keys
+
+
+def ssd_state_dict(params) -> dict[str, torch.Tensor]:
+    """fdtpu ``SSD`` params (the ``variables["params"]`` tree, numpy leaves)
+    -> the port's ``SSD`` ``state_dict``.
+
+    ``Conv_0`` -> ``stem``; ``SSDResidualBlock_{i}`` -> ``extractor.{i}``
+    for i < 9, ``scales.{i - 9}`` after; ``Dense_{k}`` -> ``heads.{k}`` (its
+    ``(in, 5)`` kernel transposed). Flax names a block's convs in call
+    order: with a 1x1 skip projection (``in != out``) ``Conv_0`` is the
+    skip and ``Conv_1``/``Conv_2`` the 3x3 convs, else ``Conv_0``/``Conv_1``
+    are. A ``fast_blocks`` model has the same tree. Any other tree raises.
+    """
+    blocks = _numbered(params, "SSDResidualBlock_")
+    heads = _numbered(params, "Dense_")
+    unknown = set(params) - {"Conv_0", *blocks, *heads}
+    if unknown or "Conv_0" not in params or len(blocks) != EXTRACTOR_BLOCKS + len(heads) \
+            or not heads:
+        raise ValueError(f"not an SSD param tree: {sorted(params)}")
+    sd = _conv(params["Conv_0"], "stem")
+    for i, name in enumerate(blocks):
+        prefix = f"extractor.{i}" if i < EXTRACTOR_BLOCKS else f"scales.{i - EXTRACTOR_BLOCKS}"
+        block = params[name]
+        if set(block) == {"Conv_0", "Conv_1", "Conv_2"}:
+            names = {"Conv_0": "skip", "Conv_1": "conv1", "Conv_2": "conv2"}
+        elif set(block) == {"Conv_0", "Conv_1"}:
+            names = {"Conv_0": "conv1", "Conv_1": "conv2"}
+        else:
+            raise ValueError(f"not an SSD block: {name} holds {sorted(block)}")
+        for flax_name, torch_name in names.items():
+            sd.update(_conv(block[flax_name], f"{prefix}.{torch_name}"))
+    for k, name in enumerate(heads):
+        kernel = np.asarray(params[name]["kernel"], dtype=np.float32)  # (in, 5)
+        sd[f"heads.{k}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
+        sd[f"heads.{k}.bias"] = torch.from_numpy(np.array(params[name]["bias"], dtype=np.float32))
+    return sd
+
+
+def state_dict_from_fdtpu(params, module) -> dict[str, torch.Tensor]:
+    """fdtpu params (or an optimizer's tree of the same shape) as
+    ``module``'s ``state_dict``: :func:`ssd_state_dict` for an ``SSD``,
+    :func:`poolresnet_state_dict` otherwise."""
+    if isinstance(module, SSD):
+        return ssd_state_dict(params)
+    return poolresnet_state_dict(params)
+
+
 def train_state_from_fdtpu(state, module, config, steps_per_epoch: int = 1000):
-    """An fdtpu ``TrainState`` (PoolResnet params, optax Adam or SGD) as the
-    port's train state around ``module``: the step, the params through
-    :func:`poolresnet_state_dict`, and optax Adam's ``count``, ``mu`` and
-    ``nu`` as ``torch.optim.Adam``'s ``step``, ``exp_avg`` and
+    """An fdtpu ``TrainState`` (PoolResnet or SSD params, optax Adam or SGD)
+    as the port's train state around ``module``: the step, the params
+    through :func:`state_dict_from_fdtpu`, and optax Adam's ``count``,
+    ``mu`` and ``nu`` as ``torch.optim.Adam``'s ``step``, ``exp_avg`` and
     ``exp_avg_sq``. A step from the result can then be held against a step
     of fdtpu's state."""
     from fdtpu_torch.train.state import create_train_state
 
-    module.load_state_dict(poolresnet_state_dict(state.params))
+    module.load_state_dict(state_dict_from_fdtpu(state.params, module))
     ts = create_train_state(module, config, steps_per_epoch)
     ts.step = int(np.asarray(state.step))
     if config.optimizer == "sgd":
@@ -62,7 +120,7 @@ def train_state_from_fdtpu(state, module, config, steps_per_epoch: int = 1000):
     adam = [s for s in _walk(state.opt_state) if hasattr(s, "mu") and hasattr(s, "nu")]
     if len(adam) != 1:
         raise ValueError("expected one optax Adam state in the fdtpu opt_state")
-    mu, nu = poolresnet_state_dict(adam[0].mu), poolresnet_state_dict(adam[0].nu)
+    mu, nu = (state_dict_from_fdtpu(t, module) for t in (adam[0].mu, adam[0].nu))
     count = float(np.asarray(adam[0].count))
     for name, p in module.named_parameters():
         ts.optimizer.state[p] = {

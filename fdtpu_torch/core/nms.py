@@ -1,5 +1,6 @@
-"""YOLO-grid decode + filter + NMS (``fdtpu/core/nms.py`` names), as thin
-wrappers over ``fdtpu_torch.kernels.nms``.
+"""Decode + filter + NMS of the YOLO grid and of the SSD's priors
+(``fdtpu/core/nms.py`` names), as thin wrappers over
+``fdtpu_torch.kernels.nms`` (K1), batched ``(B, ...)`` or unbatched.
 
 The port has one NMS semantics at every batch size, that of fdtpu's Pallas
 kernel: every above-threshold candidate enters the greedy loop and kept rows
@@ -12,9 +13,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fdtpu_torch.kernels.nms import decode_filter_nms_batch, grid_tables_on
+from fdtpu_torch.kernels.nms import (
+    decode_filter_nms_batch,
+    grid_tables_on,
+    ssd_output_tables_on,
+    ssd_tables_on,
+)
 
 DEFAULT_CAPACITY = 128
+
+
+def _filter_nms(rows, tables_fn, probability_threshold, iou_threshold, capacity):
+    """K1 over ``(B, N, 5)`` rows, or over unbatched ``(N, 5)`` ones;
+    ``tables_fn(device)`` gives the decode tables."""
+    unbatched = rows.dim() == 2
+    if unbatched:
+        rows = rows[None]
+    boxes, mask = decode_filter_nms_batch(
+        rows, tables_fn(rows.device), probability_threshold, iou_threshold, capacity)
+    if unbatched:
+        return boxes[0], mask[0]
+    return boxes, mask
 
 
 def decode_filter_nms(
@@ -29,17 +48,37 @@ def decode_filter_nms(
     ``(S, S, 5)``) grid map. Returns ``(boxes, mask)``: ``(..., capacity, 5)``
     rows ``[score, x, y, w, h]`` in pixels and a ``(..., capacity)`` bool mask.
     """
-    unbatched = fm.dim() == 3
-    if unbatched:
-        fm = fm[None]
-    tables = grid_tables_on(num_patches, tuple(image_size), fm.device)
-    boxes, mask = decode_filter_nms_batch(
-        fm.reshape(fm.shape[0], -1, 5), tables,
-        probability_threshold, iou_threshold, capacity,
-    )
-    if unbatched:
-        return boxes[0], mask[0]
-    return boxes, mask
+    rows = fm.reshape(*fm.shape[:-3], -1, 5)
+    return _filter_nms(rows, lambda d: grid_tables_on(num_patches, tuple(image_size), d),
+                       probability_threshold, iou_threshold, capacity)
+
+
+def ssd_decode_filter_nms(
+    x: torch.Tensor,
+    patch_sizes: tuple[int, ...],
+    image_size: tuple[int, int],
+    probability_threshold: float,
+    iou_threshold: float,
+    capacity: int = DEFAULT_CAPACITY,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode + filter + NMS of ``(B, N, 5)`` (or ``(N, 5)``) raw encoded
+    prior rows, priors not applied: the decode tables fold them in."""
+    return _filter_nms(x, lambda d: ssd_tables_on(tuple(patch_sizes), tuple(image_size), d),
+                       probability_threshold, iou_threshold, capacity)
+
+
+def ssd_output_filter_nms(
+    x: torch.Tensor,
+    image_size: tuple[int, int],
+    probability_threshold: float,
+    iou_threshold: float,
+    capacity: int = DEFAULT_CAPACITY,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Filter + NMS of the SSD model's output, ``(B, N, 5)`` (or ``(N, 5)``)
+    normalized ``[score, x, y, w, h]`` with the priors applied in the graph:
+    only the pixel scaling remains."""
+    return _filter_nms(x, lambda d: ssd_output_tables_on(x.shape[-2], tuple(image_size), d),
+                       probability_threshold, iou_threshold, capacity)
 
 
 def compact_boxes(boxes, mask) -> np.ndarray:

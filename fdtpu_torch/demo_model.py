@@ -2,8 +2,10 @@
 
 Each image goes through :meth:`Detector.predict` (host resize, ``/255``,
 forward, fused decode+filter+NMS); the boxes are drawn on the resized frame
-and saved. The weights come from ``--checkpoint`` (a checkpoint of the
-port, as ``train_model`` writes it), or are random, drawn from seed 0. A
+and saved. ``--model`` names the family (``poolresnet`` or ``ssd``, whose
+patch sizes follow from ``--input``). The weights come from
+``--checkpoint`` (a checkpoint of the port, as ``train_model`` or
+``train_model_ssd`` writes it), or are random, drawn from seed 0. A
 reference TorchScript ``.pth`` raises: its import is not ported (ROADMAP.md
 queue 1, item 4). Run as::
 
@@ -31,6 +33,7 @@ def parse_args(argv=None):
     p.add_argument("--images", default="imgs/test_imgs", help="input image dir")
     p.add_argument("--out", default="imgs/annotated_imgs")
     p.add_argument("--checkpoint", default=None, help="a checkpoint of the port (.pt)")
+    p.add_argument("--model", default="poolresnet")
     p.add_argument("--input", type=int, default=480)
     p.add_argument("--patches", type=int, default=10)
     p.add_argument("--filters", type=int, default=64)
@@ -49,7 +52,7 @@ def build_detector(args) -> Detector:
         num_residual_blocks=args.blocks,
     )
     gen = torch.Generator().manual_seed(0)
-    module = build_model("poolresnet", cfg, device=args.device, generator=gen)
+    module = build_model(args.model, cfg, device=args.device, generator=gen)
     if args.checkpoint:
         if str(args.checkpoint).endswith(".pth"):
             raise NotImplementedError(

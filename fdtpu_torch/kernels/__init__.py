@@ -7,7 +7,10 @@ from fdtpu_torch.kernels.nms import (  # noqa: F401
     decode_filter_nms_reference,
     grid_decode_tables,
     grid_tables_on,
+    ssd_decode_tables,
     ssd_output_decode_tables,
+    ssd_output_tables_on,
+    ssd_tables_on,
 )
 from fdtpu_torch.kernels.photometric import (  # noqa: F401
     photometric_batch,

@@ -53,6 +53,23 @@ def grid_decode_tables(num_patches: int, image_size: tuple[int, int]):
     )
 
 
+def ssd_decode_tables(patch_sizes: tuple[int, ...], image_size: tuple[int, int]):
+    """Tables for raw encoded SSD rows (priors not applied yet):
+    ``x_pix = x_enc * (W / ps) + prior_x * W``, as
+    ``nms_pallas.ssd_decode_tables``; numpy float32 from the port's
+    priors."""
+    from fdtpu_torch.core.priors import calculate_priors, prior_scales
+
+    width, height = image_size
+    priors = calculate_priors(patch_sizes).numpy()
+    scales = prior_scales(patch_sizes).numpy()
+    return (
+        scales * width, priors[:, 0] * width,
+        scales * height, priors[:, 1] * height,
+        float(width), float(height),
+    )
+
+
 def ssd_output_decode_tables(num_priors: int, image_size: tuple[int, int]):
     """Tables for SSD model output (priors applied in the graph): pixel
     scaling only, as ``nms_pallas.ssd_output_decode_tables``."""
@@ -65,13 +82,35 @@ def ssd_output_decode_tables(num_priors: int, image_size: tuple[int, int]):
     )
 
 
+def _on(tables, device: torch.device):
+    *cols, w_scale, h_scale = tables
+    with torch.inference_mode(False):
+        return (*(torch.from_numpy(c).to(device) for c in cols), w_scale, h_scale)
+
+
+# The ``*_tables_on`` functions give the tables as float32 tensors on
+# ``device``, made once per argument tuple. The tensors are shared by every
+# caller and never written; they are made outside inference mode, whoever
+# asks first.
+
+
 @functools.lru_cache(maxsize=32)
 def grid_tables_on(num_patches: int, image_size: tuple[int, int], device: torch.device):
-    """:func:`grid_decode_tables` as float32 tensors on ``device``, made once
-    per ``(num_patches, image_size, device)``. The tensors are shared by
-    every caller and never written."""
-    *cols, w_scale, h_scale = grid_decode_tables(num_patches, image_size)
-    return (*(torch.from_numpy(c).to(device) for c in cols), w_scale, h_scale)
+    """:func:`grid_decode_tables` on ``device``."""
+    return _on(grid_decode_tables(num_patches, image_size), device)
+
+
+@functools.lru_cache(maxsize=32)
+def ssd_tables_on(patch_sizes: tuple[int, ...], image_size: tuple[int, int],
+                  device: torch.device):
+    """:func:`ssd_decode_tables` on ``device``."""
+    return _on(ssd_decode_tables(patch_sizes, image_size), device)
+
+
+@functools.lru_cache(maxsize=32)
+def ssd_output_tables_on(num_priors: int, image_size: tuple[int, int], device: torch.device):
+    """:func:`ssd_output_decode_tables` on ``device``."""
+    return _on(ssd_output_decode_tables(num_priors, image_size), device)
 
 
 def _f32(v: float) -> float:

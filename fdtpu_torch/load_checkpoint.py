@@ -1,6 +1,7 @@
 """Checkpoint smoke loader, the port's ``load_checkpoint.py``: load a
 checkpoint of the port, fetch one validation sample, decode ground-truth
-and predicted boxes, print both.
+and predicted boxes, print both. ``--model ssd`` builds the SSD, its patch
+sizes from ``--input``.
 
     python -m fdtpu_torch.load_checkpoint --data-dir DIR --checkpoint PATH [--device cuda]
 """

@@ -1,4 +1,5 @@
-"""Detector models; the zoo's PoolResnet is ported so far."""
+"""Detector models; the zoo's PoolResnet and the SSD are ported so far."""
 
-from fdtpu_torch.models.detector import DTYPES, Detector, build_model  # noqa: F401
+from fdtpu_torch.models.detector import DTYPES, Detector, build_model, is_ssd  # noqa: F401
 from fdtpu_torch.models.poolresnet import PoolResnet  # noqa: F401
+from fdtpu_torch.models.ssd import SSD, ssd_patch_sizes  # noqa: F401

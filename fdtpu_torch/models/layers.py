@@ -2,8 +2,9 @@
 
 Convolutions and pooling go to cuDNN (or oneDNN on the CPU) through
 ``torch.nn.functional``, as XLA handled them in fdtpu. Weights start from
-fdtpu's Flax defaults (LeCun-normal kernels, zero biases), drawn from an
-explicit ``torch.Generator``. A convolution computes in its input's dtype,
+fdtpu's Flax defaults (LeCun-normal kernels, zero biases), the SSD's from
+torch's default init as fdtpu's SSD does, drawn from an explicit
+``torch.Generator``. A convolution computes in its input's dtype,
 casting its weights to it (Flax's ``dtype=`` with float32 params).
 """
 
@@ -85,10 +86,10 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, kernel_size=2, stride=2)
 
 
-def lecun_normal_(conv: nn.Conv2d, generator: torch.Generator | None = None) -> None:
-    """Flax's default conv init in place: kernel ~ truncated normal (2 std)
-    with variance ``1 / fan_in``, bias 0."""
-    fan_in = conv.in_channels // conv.groups * math.prod(conv.kernel_size)
+def lecun_normal_(conv: nn.Conv2d | nn.Linear, generator: torch.Generator | None = None) -> None:
+    """Flax's default conv (and Dense) init in place: kernel ~ truncated
+    normal (2 std) with variance ``1 / fan_in``, bias 0."""
+    fan_in = conv.weight[0].numel()  # in_channels / groups * kh * kw, or in_features
     # 0.8796... is the std of a unit normal truncated to [-2, 2] (as in
     # jax.nn.initializers.variance_scaling)
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -96,6 +97,65 @@ def lecun_normal_(conv: nn.Conv2d, generator: torch.Generator | None = None) -> 
         nn.init.trunc_normal_(conv.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
         if conv.bias is not None:
             conv.bias.zero_()
+
+
+def torch_uniform_(layer: nn.Conv2d | nn.Linear, fan_in: int,
+                   generator: torch.Generator | None = None) -> None:
+    """torch's default ``nn.Conv2d``/``nn.Linear`` init in place, as fdtpu's
+    ``torch_conv_inits``: kernel and bias both ``U(-1/sqrt(fan_in),
+    1/sqrt(fan_in))`` (``kaiming_uniform(a=sqrt(5))`` reduces to that bound),
+    drawn from ``generator``. ``fan_in`` = in_channels * kh * kw (in_features
+    for a Linear)."""
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        layer.weight.uniform_(-bound, bound, generator=generator)
+        if layer.bias is not None:
+            layer.bias.uniform_(-bound, bound, generator=generator)
+
+
+def ssd_init_(layer: nn.Conv2d | nn.Linear, torch_init: bool,
+              generator: torch.Generator | None = None) -> None:
+    """The SSD's init of one layer: torch's default with ``torch_init``
+    (fdtpu's SSD default), else fdtpu's LeCun-normal."""
+    if torch_init:
+        torch_uniform_(layer, layer.weight[0].numel(), generator)
+    else:
+        lecun_normal_(layer, generator)
+
+
+class SSDResidualBlock(nn.Module):
+    """The SSD model's block (fdtpu's ``SSDResidualBlock``)::
+
+        conv3x3 -> leaky(0.2) -> conv3x3 -> leaky -> dropout2d -> + skip
+        -> 2x2 max-pool if use_max_pool
+
+    The skip is a 1x1 projection (``skip``) when the channel counts differ,
+    the identity otherwise. Weights start from torch's default init with
+    ``torch_init`` (fdtpu's SSD default), else from fdtpu's LeCun-normal.
+    fdtpu's ``fold_width`` lowering is left out: a TPU lowering of the same
+    convolutions.
+    """
+
+    def __init__(self, in_filters: int, out_filters: int, use_max_pool: bool = False,
+                 dropout: float = 0.25, torch_init: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.use_max_pool = use_max_pool
+        self.skip = nn.Conv2d(in_filters, out_filters, 1) if in_filters != out_filters else None
+        self.conv1 = nn.Conv2d(in_filters, out_filters, 3, padding=1)
+        self.conv2 = nn.Conv2d(out_filters, out_filters, 3, padding=1)
+        self.dropout = Dropout2d(dropout)
+        for layer in (self.skip, self.conv1, self.conv2):
+            if layer is not None:
+                ssd_init_(layer, torch_init, generator)
+
+    def forward(self, x: torch.Tensor, masks: DropoutMasks | None = None) -> torch.Tensor:
+        skip = x if self.skip is None else conv(self.skip, x)
+        x = leaky_relu(conv(self.conv1, x))
+        x = self.dropout(leaky_relu(conv(self.conv2, x)), masks) + skip
+        if self.use_max_pool:
+            x = max_pool_2x2(x)
+        return x
 
 
 class ResidualBlock(nn.Module):

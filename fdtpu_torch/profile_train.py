@@ -3,13 +3,16 @@
     python -m fdtpu_torch.profile_train [--batch 128] [--size 320] [--grid 15]
                                         [--no-rotate] [--fused-photometric]
                                         [--steps 10]
+    python -m fdtpu_torch.profile_train --model ssd [--batch 24] [--size 480]
 
 Drives ``make_train_step`` at ``bench.py``'s train shape by default
 (PoolResnet-128, 10 blocks, bf16 compute with float32 params, SAM + Adam,
 device augmentation with positional crop and rotation; ``--fused-photometric``
-takes the float32 route through the fused photometric kernel), random
-weights and u8 frames from seed 0, one face per image. Prints, beside the card's
-nvidia-smi name and power limit:
+takes the float32 route through the fused photometric kernel); with
+``--model ssd`` at ``train_model_ssd``'s (SSD-16, 480 px, 4,774 priors,
+b24, SAM + Adam, augmentation off); random weights and u8 frames from seed
+0, one face per image. Prints, beside the card's nvidia-smi name and power
+limit:
 
 * ms per step by CUDA events over ``--steps`` steps after warmup, with no
   profiler attached;
@@ -36,9 +39,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from fdtpu_torch.models import build_model
+from fdtpu_torch.models import build_model, ssd_patch_sizes
 from fdtpu_torch.train import create_train_state, make_train_step
-from fdtpu_torch.utils.config import DetectorConfig, TrainConfig
+from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 
 # kernel classes, the first match on the lower-cased kernel name wins
 CLASSES = (
@@ -74,9 +77,13 @@ def busy_us(spans) -> float:
     return total + (cur[1] - cur[0] if cur is not None else 0.0)
 
 
-def setup(batch: int, size: int, grid: int, rotate: bool, fused_photometric: bool = False):
-    cfg = DetectorConfig(input_shape=(size, size), num_patches=grid)
-    module = build_model("poolresnet", cfg, "cuda", torch.Generator().manual_seed(0),
+def setup(batch: int, size: int, grid: int, rotate: bool, fused_photometric: bool = False,
+          model: str = "poolresnet"):
+    if model == "ssd":
+        cfg = SSDConfig(input_shape=(size, size), patch_sizes=ssd_patch_sizes((size, size)))
+    else:
+        cfg = DetectorConfig(input_shape=(size, size), num_patches=grid)
+    module = build_model(model, cfg, "cuda", torch.Generator().manual_seed(0),
                          compute_dtype=torch.bfloat16)
     tcfg = TrainConfig(rotate_device=rotate, positional_crop=True,
                        fused_photometric=fused_photometric)
@@ -87,19 +94,24 @@ def setup(batch: int, size: int, grid: int, rotate: bool, fused_photometric: boo
     boxes[:, 0] = [1.0, 40, 60, 120, 100]
     masks = np.tile([True, False, False, False], (batch, 1))
     data = tuple(torch.from_numpy(a).cuda() for a in (images, boxes, masks))
-    return state, make_train_step(module, tcfg), data
+    # the SSD trains without augmentation, as train_model_ssd does by default
+    return state, make_train_step(module, tcfg, augment=model != "ssd"), data
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--size", type=int, default=320)
+    ap.add_argument("--model", default="poolresnet", choices=["poolresnet", "ssd"])
+    ap.add_argument("--batch", type=int, default=None, help="default 128 (24 for ssd)")
+    ap.add_argument("--size", type=int, default=None, help="default 320 (480 for ssd)")
     ap.add_argument("--grid", type=int, default=15)
     ap.add_argument("--no-rotate", action="store_true")
     ap.add_argument("--fused-photometric", action="store_true")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
+    ssd = args.model == "ssd"
+    args.batch = args.batch or (24 if ssd else 128)
+    args.size = args.size or (480 if ssd else 320)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     card = subprocess.run(
@@ -107,7 +119,7 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     state, step, data = setup(args.batch, args.size, args.grid, not args.no_rotate,
-                              args.fused_photometric)
+                              args.fused_photometric, args.model)
     n = args.steps
 
     for _ in range(5):
@@ -147,9 +159,14 @@ def main() -> None:
     busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3 / n
     kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
 
-    shape = (f"train b{args.batch} {args.size}px grid {args.grid} bf16 SAM+Adam, rotation "
-             f"{'off' if args.no_rotate else 'on'}, photometric "
-             f"{'fused (float32)' if args.fused_photometric else 'default chain (bfloat16)'}")
+    if ssd:
+        shape = (f"train SSD-16 b{args.batch} {args.size}px "
+                 f"({sum(p * p for p in ssd_patch_sizes((args.size,) * 2))} priors) bf16 "
+                 "SAM+Adam, augmentation off")
+    else:
+        shape = (f"train b{args.batch} {args.size}px grid {args.grid} bf16 SAM+Adam, rotation "
+                 f"{'off' if args.no_rotate else 'on'}, photometric "
+                 f"{'fused (float32)' if args.fused_photometric else 'default chain (bfloat16)'}")
     print(f"== {shape} [{card}]")
     print(f"step {step_ms:.3f} ms by CUDA events, unprofiled ({args.batch * 1e3 / step_ms:.1f} "
           f"img/s); under the profiler {host_ms:.3f} ms by host clock")

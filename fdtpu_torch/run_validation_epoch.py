@@ -1,5 +1,5 @@
-"""Validation-only runner, the port's ``run_validation_epoch.py`` for the
-YOLO grid family: build a model, load a checkpoint of the port, run one
+"""Validation-only runner, the port's ``run_validation_epoch.py``: build a
+model (PoolResnet or the SSD), load a checkpoint of the port, run one
 evaluation epoch over the val split and print loss/IoU/recall/precision/F1
 (and AP@0.5 with ``--with-ap``, or the official easy/medium/hard mAP with
 ``--widerface-gt-dir``).
@@ -7,10 +7,16 @@ evaluation epoch over the val split and print loss/IoU/recall/precision/F1
     python -m fdtpu_torch.run_validation_epoch --data-dir DIR \\
         --model poolresnet --patches 10 --checkpoint checkpoints/RUN/step_N.pt
 
+    python -m fdtpu_torch.run_validation_epoch --data-dir DIR --model ssd \\
+        --checkpoint checkpoints/ssd_16_480x480/step_N.pt --with-ap
+
 The same flags as ``run_validation_epoch.py``, but ``--model`` defaults to
-``poolresnet`` (the one family ported) and ``--device`` (default ``cuda``)
-replaces ``--platform``. ``--model ssd`` raises (ROADMAP.md queue 1, item
-3), and so does a reference TorchScript ``.pth`` checkpoint (item 4).
+``poolresnet`` and ``--device`` (default ``cuda``) replaces ``--platform``.
+``--model ssd`` validates under the SSD pipeline's constants, as the
+original does: ``SSDConfig`` (16 filters by default, the patch sizes of
+the input size), the <120-face filter, box capacity 128 and NMS capacity
+128. The other families and a reference TorchScript ``.pth`` checkpoint
+raise (ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -21,11 +27,11 @@ import numpy as np
 import torch
 
 from fdtpu_torch.data import BatchLoader, DevicePrefetcher, WIDERFaceDataSource, load_targets
-from fdtpu_torch.models import DTYPES, build_model
+from fdtpu_torch.models import DTYPES, build_model, ssd_patch_sizes
 from fdtpu_torch.train import Trainer
 from fdtpu_torch.train.checkpoint import restore_checkpoint
 from fdtpu_torch.train.metrics import average_precision, f1_score
-from fdtpu_torch.utils.config import DetectorConfig, TrainConfig
+from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 
 
 def parse_args(argv=None):
@@ -36,7 +42,7 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", default=None, help="a checkpoint of the port (.pt)")
     p.add_argument("--input", type=int, default=480)
     p.add_argument("--patches", type=int, default=15)
-    p.add_argument("--filters", type=int, default=None, help="default 128")
+    p.add_argument("--filters", type=int, default=None, help="default 128 (16 for ssd)")
     p.add_argument("--blocks", type=int, default=10)
     p.add_argument("--batch-size", type=int, default=8)
     # reference thresholds: run_validation_epoch.py:20-21
@@ -61,27 +67,40 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Runs the epoch and returns what it printed, as one dict."""
     args = parse_args(argv)
-    if args.model == "ssd":
-        raise NotImplementedError("the SSD family is not ported (ROADMAP.md queue 1, item 3)")
     if args.checkpoint and str(args.checkpoint).endswith(".pth"):
         raise NotImplementedError(
             "reference TorchScript checkpoints are not ported (ROADMAP.md queue 1, item 4)")
-    cfg = DetectorConfig(
-        filters=args.filters or 128,
-        input_shape=(args.input, args.input),
-        num_patches=args.patches,
-        num_residual_blocks=args.blocks,
-        probability_threshold=args.prob_threshold,
-        iou_threshold=args.iou_threshold,
-    )
-    nms_params = (args.prob_threshold, args.iou_threshold, 64)
-    targets = load_targets(args.data_dir, "val", max_faces=3)  # datamodule.py:102
-    if args.max_images:
-        targets = targets[: args.max_images]
-    loader = BatchLoader(WIDERFaceDataSource(targets, cfg.input_shape, 8), args.batch_size)
-
+    shape = (args.input, args.input)
+    if args.model == "ssd":
+        cfg = SSDConfig(
+            filters=args.filters or 16,
+            input_shape=shape,
+            patch_sizes=ssd_patch_sizes(shape),
+            probability_threshold=args.prob_threshold,
+            iou_threshold=args.iou_threshold,
+        )
+        nms_capacity = cfg.nms_capacity
+        # the SSD pipeline's <120-face filter and 128-box capacity
+        max_faces, box_capacity = 120, 128
+    else:
+        cfg = DetectorConfig(
+            filters=args.filters or 128,
+            input_shape=shape,
+            num_patches=args.patches,
+            num_residual_blocks=args.blocks,
+            probability_threshold=args.prob_threshold,
+            iou_threshold=args.iou_threshold,
+        )
+        nms_capacity = 64
+        max_faces, box_capacity = 3, 8  # datamodule.py:102
+    nms_params = (args.prob_threshold, args.iou_threshold, nms_capacity)
     module = build_model(args.model, cfg, args.device, torch.Generator().manual_seed(0),
                          compute_dtype=DTYPES[cfg.dtype])
+    targets = load_targets(args.data_dir, "val", max_faces=max_faces)
+    if args.max_images:
+        targets = targets[: args.max_images]
+    loader = BatchLoader(WIDERFaceDataSource(targets, cfg.input_shape, box_capacity),
+                         args.batch_size)
     trainer = Trainer(module, TrainConfig(visualize_first_batch=False), loader, loader,
                       nms_params=nms_params, run_name="validation", device=args.device)
     if args.checkpoint:

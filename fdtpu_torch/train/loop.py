@@ -13,10 +13,10 @@ The Trainer owns configuration, the train state, step construction,
 checkpointing and the fit loop; the per-feed-mode epoch bodies (streamed,
 device-resident) live in :mod:`fdtpu_torch.train.drivers`. It runs on the
 ``device`` it is given (default ``"cuda"``; the CPU only when asked),
-moves the module there, and never probes for a card. Only the PoolResnet
-grid family is ported; fdtpu's SSD-only arguments (``neg_pos_ratio``,
-``bg_push``) and its data-parallel step builders are not (ROADMAP.md queue
-1, items 3 and 5).
+moves the module there, and never probes for a card. It trains PoolResnet
+and the SSD (whose loss takes ``neg_pos_ratio`` and ``bg_push``, passed to
+every step it builds); fdtpu's data-parallel step builders are not ported
+(ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ class Trainer:
         nms_params: tuple[float, float, int] = (0.5, 0.5, 64),
         run_name: str = "run",
         device: torch.device | str = "cuda",
+        neg_pos_ratio: int = 10,
+        bg_push: float = 0.0,
     ):
         self.device = torch.device(device)
         self.module = module.to(self.device)
@@ -75,10 +77,14 @@ class Trainer:
             self.module, config, steps_per_epoch=max(len(train_loader), 1))
         self._augment = augment
         self._nms_params = nms_params
+        # the SSD loss's knobs, the same for every step (train/val objectives aligned)
+        self._loss_kw = dict(neg_pos_ratio=neg_pos_ratio, bg_push=bg_push)
         self._train_step_metrics = None  # built on first use
         self.train_step = make_train_step(
-            self.module, config, augment=augment, compute_metrics=False, nms_params=nms_params)
-        self.eval_step = make_eval_step(self.module, nms_params=nms_params, return_boxes=True)
+            self.module, config, augment=augment, compute_metrics=False, nms_params=nms_params,
+            **self._loss_kw)
+        self.eval_step = make_eval_step(self.module, nms_params=nms_params, return_boxes=True,
+                                        **self._loss_kw)
         self.epoch = 0
         self.profile_dir: str | None = None  # set to trace the next train epoch
         # feed mode (streamed / resident) -> one driver
@@ -91,7 +97,7 @@ class Trainer:
         if self._train_step_metrics is None:
             self._train_step_metrics = make_train_step(
                 self.module, self.config, augment=self._augment, compute_metrics=True,
-                nms_params=self._nms_params)
+                nms_params=self._nms_params, **self._loss_kw)
         return self._train_step_metrics
 
     def profile(self, trace_dir: str = "profiles"):

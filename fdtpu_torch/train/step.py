@@ -1,16 +1,20 @@
 """Train and eval steps (``fdtpu/train/step.py``), for the PoolResnet
-YOLO-grid family.
+YOLO-grid family and the SSD.
 
 One train step::
 
     u8 batch -> device augmentation (crop, rotation on the card's shear
     kernels, flip, photometric; with ``fused_photometric`` one launch of the
-    photometric kernel) -> grid target encoding -> forward with
-    dropout -> YOLO loss -> SAM two-point gradients -> Adam (or SGD) at the
-    MultiStep learning rate [-> decode through the NMS kernel + metrics]
+    photometric kernel) -> grid or prior target encoding -> forward with
+    dropout -> YOLO loss or SSD hard-negative-mining loss -> SAM two-point
+    gradients -> Adam (or SGD) at the MultiStep learning rate [-> decode
+    through the NMS kernel + metrics]
 
-fdtpu's choices that carry over: gradients use the batch-mean loss while
-the reported ``loss`` is the reference's masked sum; ``grad_norm`` is the
+fdtpu's choices that carry over: YOLO gradients use the batch-mean loss
+while the reported ``loss`` is the reference's masked sum (the SSD loss is
+already divided by its positive count and serves as both); the SSD
+localisation target has the priors applied, so that it lives where the
+model's output does (fdtpu's fix of the reference); ``grad_norm`` is the
 global norm of the applied gradients; train metrics compare against the
 augmented ground-truth boxes. fdtpu jits the step and returns a new state;
 here it runs eagerly and updates the state in place. Every random choice of
@@ -22,8 +26,9 @@ The train step's phases run under ``torch.profiler.record_function`` spans
 ``train/optimizer``, ``train/metrics``), which ``fdtpu_torch.profile_train``
 reads for device time by phase.
 
-Not ported: the SSD family (ROADMAP.md queue 1, item 9) and the SPMD
-``axis_name`` body (item 11); both raise ``NotImplementedError``.
+Not ported: the SPMD ``axis_name`` body with its cross-shard loss and
+gradient reductions (ROADMAP.md queue 1, item 5), and the rest of the zoo
+(item 4); both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,11 +40,15 @@ import torch
 from torch.profiler import record_function
 
 from fdtpu_torch.core.grid import encode_grid_targets
-from fdtpu_torch.core.nms import decode_filter_nms
+from fdtpu_torch.core.nms import decode_filter_nms, ssd_output_filter_nms
+from fdtpu_torch.core.priors import apply_priors, encode_ssd_targets, priors_on
 from fdtpu_torch.data.augment import augment_batch_fast, resize_only_batch
+from fdtpu_torch.losses.ssd import ssd_loss
 from fdtpu_torch.losses.yolo import yolo_loss
+from fdtpu_torch.models.detector import is_ssd
 from fdtpu_torch.models.layers import DropoutMasks
 from fdtpu_torch.models.poolresnet import PoolResnet
+from fdtpu_torch.models.ssd import SSD
 from fdtpu_torch.train.metrics import detection_metrics
 from fdtpu_torch.train.sam import global_norm, sam_gradients
 from fdtpu_torch.train.state import TrainState
@@ -47,13 +56,13 @@ from fdtpu_torch.utils.config import TrainConfig
 
 
 def _check_supported(module, axis_name) -> None:
-    if not isinstance(module, PoolResnet):
+    if not isinstance(module, (PoolResnet, SSD)):
         raise NotImplementedError(
-            f"{type(module).__name__}: only the PoolResnet grid family is ported "
-            "(SSD: ROADMAP.md queue 1, item 9)"
+            f"{type(module).__name__}: only PoolResnet and the SSD are ported "
+            "(the rest of the zoo: ROADMAP.md queue 1, item 4)"
         )
     if axis_name is not None:
-        raise NotImplementedError("data-parallel steps are not ported (ROADMAP.md queue 1, item 11)")
+        raise NotImplementedError("data-parallel steps are not ported (ROADMAP.md queue 1, item 5)")
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -74,15 +83,22 @@ def _prepare_inputs(images, boxes, box_mask, gen: torch.Generator | None,
 
 
 def _encode_targets(module, boxes, box_mask, image_size):
-    """Padded pixel boxes -> ``(B, S, S, 5)`` grid targets at the model's
-    actual output grid (its conv geometry, which may differ from
-    ``num_patches``)."""
-    return encode_grid_targets(boxes, box_mask, module.grid_size(), image_size)
+    """Padded pixel boxes -> ``(enc, gt_locs)``: ``(B, S, S, 5)`` grid
+    targets at the model's actual output grid (its conv geometry, which may
+    differ from ``num_patches``) and None; or ``(B, N, 5)`` prior targets
+    and their ``(B, N, 4)`` locations with the priors applied, for the
+    SSD."""
+    if is_ssd(module):
+        enc = encode_ssd_targets(boxes, box_mask, module.patch_sizes, image_size)
+        return enc, apply_priors(enc, *priors_on(module.patch_sizes, enc.device))[..., 1:5]
+    return encode_grid_targets(boxes, box_mask, module.grid_size(), image_size), None
 
 
 def _decode_predictions(module, out, image_size, prob, iou, capacity):
-    """Batched decode + filter + NMS of the raw grid output through the
+    """Batched decode + filter + NMS of the model's output through the
     fused kernel (``kernels/nms.py``, K1) on the card."""
+    if is_ssd(module):
+        return ssd_output_filter_nms(out, image_size, prob, iou, capacity)
     return decode_filter_nms(out, module.grid_size(), image_size, prob, iou, capacity)
 
 
@@ -92,10 +108,16 @@ def _loss_norm(sample_mask) -> torch.Tensor:
     return sample_mask.sum().clamp_min(1)
 
 
-def _loss_and_out(module, images, enc, sample_mask, masks: DropoutMasks | None = None):
-    """-> ``(mean loss, (sum loss, model out))``. ``sample_mask`` drops
-    padded samples from both."""
+def _loss_and_out(module, images, enc, sample_mask, masks: DropoutMasks | None = None,
+                  gt_locs=None, neg_pos_ratio: int = 10, bg_push: float = 0.0):
+    """-> ``(gradient loss, (reported loss, model out))``. ``sample_mask``
+    drops padded samples from both: their YOLO losses are masked out, their
+    SSD labels zeroed (no positives, so no mined negatives either)."""
     out = module(images, masks)
+    if is_ssd(module):
+        enc = enc * sample_mask[:, None, None]
+        loss = ssd_loss(out[..., 0], out[..., 1:5], enc[..., 0], gt_locs, neg_pos_ratio, bg_push)
+        return loss, (loss, out)
     per_sample = yolo_loss(out, enc)
     loss_sum = torch.sum(per_sample * sample_mask)
     return loss_sum / _loss_norm(sample_mask), (loss_sum, out)
@@ -113,8 +135,11 @@ def make_train_step(
     compute_metrics: bool = False,
     nms_params: tuple[float, float, int] = (0.5, 0.5, 64),
     axis_name: str | None = None,
+    neg_pos_ratio: int = 10,
+    bg_push: float = 0.0,
 ) -> Callable:
-    """Build the train step for ``module`` (the state's module).
+    """Build the train step for ``module`` (the state's module);
+    ``neg_pos_ratio`` and ``bg_push`` are the SSD loss's.
 
     ``step(state, images_u8, boxes, box_mask, sample_mask=None) -> (state,
     scalars)``: ``images_u8`` ``(B, H, W, 3)``, ``boxes`` ``(B, N, 5)``
@@ -140,12 +165,13 @@ def make_train_step(
                 fused_photometric=config.fused_photometric,
             )
         with record_function("train/targets"):
-            enc = _encode_targets(net, bx, bm, image_size)
+            enc, gt_locs = _encode_targets(net, bx, bm, image_size)
         masks = DropoutMasks(gen)
 
         def loss_fn():
             masks.rewind()  # both SAM points see the same dropout masks
-            return _loss_and_out(net, imgs, enc, sample_mask, masks)
+            return _loss_and_out(net, imgs, enc, sample_mask, masks, gt_locs, neg_pos_ratio,
+                                 bg_push)
 
         params = [p for p in net.parameters() if p.requires_grad]
         with record_function("train/gradients"):
@@ -182,12 +208,15 @@ def make_eval_step(
     nms_params: tuple[float, float, int] = (0.5, 0.5, 64),
     return_boxes: bool = False,
     axis_name: str | None = None,
+    neg_pos_ratio: int = 10,
+    bg_push: float = 0.0,
 ) -> Callable:
     """Build the eval step: loss and the reference's metrics, and the
     decoded boxes with ``return_boxes``.
 
     ``step(state, images_u8, boxes, box_mask, sample_mask=None) -> scalars``
     (or ``(scalars, (pred_boxes, pred_mask))``); no augmentation, no dropout.
+    ``neg_pos_ratio`` and ``bg_push`` are the SSD loss's, as in training.
     """
     _check_supported(module, axis_name)
     image_size = _image_size(module)
@@ -197,8 +226,9 @@ def make_eval_step(
         if sample_mask is None:
             sample_mask = torch.ones(images.shape[:1], dtype=torch.bool, device=images.device)
         imgs, bx, bm = _prepare_inputs(images, boxes, box_mask, None)
-        enc = _encode_targets(state.module, bx, bm, image_size)
-        _, (loss_sum, out) = _loss_and_out(state.module, imgs, enc, sample_mask)
+        enc, gt_locs = _encode_targets(state.module, bx, bm, image_size)
+        _, (loss_sum, out) = _loss_and_out(state.module, imgs, enc, sample_mask, None, gt_locs,
+                                           neg_pos_ratio, bg_push)
         return eval_scalars(state.module, out, loss_sum, bx, bm, sample_mask, nms_params,
                             return_boxes)
 

@@ -15,7 +15,8 @@ ported by design: it amortizes the TPU's dispatch cost), and
 ``--pretrained-backbone`` (item 4, MobileNetV3 and the TorchScript import);
 ``--no-fast-stem`` (the port runs the plain stem, whose math the fast stem
 shares) and ``--platform`` (``--device`` names the device). ``--model``
-other than ``poolresnet`` raises through ``build_model`` (items 3-4).
+other than ``poolresnet`` raises through ``build_model`` (item 4); the SSD
+trains through ``fdtpu_torch.train_model_ssd``.
 """
 
 from __future__ import annotations

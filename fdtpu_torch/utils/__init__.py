@@ -1,3 +1,3 @@
 """Config and drawing utilities."""
 
-from fdtpu_torch.utils.config import DetectorConfig, TrainConfig  # noqa: F401
+from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig  # noqa: F401

@@ -1,4 +1,4 @@
-"""Detector and train configs: the same fields and defaults as
+"""Detector, SSD and train configs: the same fields and defaults as
 ``fdtpu/utils/config.py``, duplicated so the port never imports fdtpu."""
 
 from __future__ import annotations
@@ -36,6 +36,29 @@ class DetectorConfig:
     @property
     def image_size(self) -> Tuple[int, int]:
         """(width, height) as used by box encode/decode."""
+        return (self.input_shape[1], self.input_shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class SSDConfig:
+    """SSD detector knobs; defaults mirror the reference's
+    ``train_model_ssd.py:22-25`` and ``models/SSD.py:99`` (patch sizes ->
+    4774 priors)."""
+
+    filters: int = 16
+    input_shape: Tuple[int, int] = (480, 480)
+    patch_sizes: Tuple[int, ...] = (60, 30, 15, 7)
+    probability_threshold: float = 0.5
+    iou_threshold: float = 0.5
+    nms_capacity: int = 128
+    neg_pos_ratio: int = 10  # ModelMetaSSD.py:175
+    # opt-in quality extension (not in the reference; see losses/ssd.py):
+    # weight on the BCE of unmined background priors. 0.0 = faithful.
+    bg_push: float = 0.0
+    dtype: str = "bfloat16"
+
+    @property
+    def image_size(self) -> Tuple[int, int]:
         return (self.input_shape[1], self.input_shape[0])
 
 

@@ -63,7 +63,7 @@ def test_run_validation_epoch_reads_the_checkpoint(trained, monkeypatch):
     assert fresh["loss"] != plain["loss"]  # the checkpoint was loaded
 
 
-@pytest.mark.parametrize("extra,item", [(["--model", "ssd"], "item 3"),
+@pytest.mark.parametrize("extra,item", [(["--model", "resnet"], "item 4"),
                                         (["--checkpoint", "model.pth"], "item 4")])
 def test_run_validation_epoch_unported_raise(extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -87,7 +87,7 @@ def test_train_model_unported_model_raises(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     make_synthetic_widerface(tmp_path / "data", 2, split="train")
     make_synthetic_widerface(tmp_path / "data", 2, split="val")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         train_model.main(["--data-dir", "data", "--model", "resnet", *SMALL])
 
 

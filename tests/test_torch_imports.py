@@ -56,11 +56,16 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "fdtpu"}
                                     "fdtpu_torch.load_checkpoint",
                                     "fdtpu_torch.demo_model",
                                     "fdtpu_torch.train.loop",
-                                    "fdtpu_torch.data.pipeline"])
+                                    "fdtpu_torch.data.pipeline",
+                                    "fdtpu_torch.train_model_ssd",
+                                    "fdtpu_torch.models.ssd",
+                                    "fdtpu_torch.core.priors",
+                                    "fdtpu_torch.losses.ssd",
+                                    "fdtpu_torch.compat.from_fdtpu"])
 def test_kernel_modules_import_alone_without_jax(module):
-    """Each module of the fused kernels, each entry point and the Trainer
-    with its loader, imported on its own: no JAX, no fdtpu, and no build
-    until a kernel launches."""
+    """Each module of the fused kernels, each entry point, the Trainer
+    with its loader and the SSD's modules, imported on its own: no JAX, no
+    fdtpu, and no build until a kernel launches."""
     proc = subprocess.run(
         [sys.executable, "-c", ALONE, module], cwd=REPO, capture_output=True, text=True,
         timeout=120,

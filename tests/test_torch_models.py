@@ -21,7 +21,7 @@ import torch
 from fdtpu.models import PoolResnet as JaxPoolResnet
 from fdtpu.utils.config import DetectorConfig as JaxDetectorConfig
 from fdtpu_torch.compat import poolresnet_state_dict
-from fdtpu_torch.models import Detector, PoolResnet, build_model
+from fdtpu_torch.models import SSD, Detector, PoolResnet, build_model
 from fdtpu_torch.utils.config import DetectorConfig
 
 SIZE = (160, 160)
@@ -121,8 +121,19 @@ def test_build_model_families():
     for (name, p), q in zip(a.state_dict().items(), b.state_dict().values()):
         assert p.dtype == torch.float32 and torch.equal(p, q), name
     assert a.grid_size() == 5
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model("ssd", cfg)
+    ssd = build_model("ssd", cfg, "cpu", torch.Generator().manual_seed(0))
+    assert isinstance(ssd, SSD) and ssd.patch_sizes == (20, 10, 5, 2)  # from the input shape
+    # torch's default init, as fdtpu's SSD (tests/test_models.py's
+    # test_ssd_default_init_is_torch): uniform kernel and bias within
+    # 1/sqrt(fan_in), and initial scores spread, not pinned at 0.5
+    bound = 1 / 27 ** 0.5  # the stem's fan_in: 3 x 3 x 3
+    assert ssd.stem.bias.abs().max() <= bound and ssd.stem.bias.abs().max() > 0
+    assert ssd.stem.weight.abs().max() <= bound
+    assert ssd.heads[0].bias.abs().max() <= 1 / ssd.heads[0].in_features ** 0.5
+    scores = ssd.eval()(torch.zeros(1, *SIZE, 3))[0, :, 0]
+    assert scores.std() > 1e-3
+    with pytest.raises(NotImplementedError, match="item 4"):
+        build_model("resnet", cfg)
     with pytest.raises(ValueError):
         build_model("nope", cfg)
 
