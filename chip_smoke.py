@@ -69,7 +69,10 @@ non-zero; without a CUDA card it fails at once and prints no result):
     rotation on and off, the b8/480 step; then each shear kernel on the
     card alone (``device_ms``) against its plain version at the shapes the
     training path gives it (and shear_rows on K4's channel-stacked planes
-    of the same images);
+    of the same images), and against the library call, one
+    ``F.grid_sample`` of the same planes (float32 only: with bfloat16
+    planes its grid is bfloat16 too, which is not the same function), with
+    its largest difference from the plain version;
 11. the fused photometric kernel (K5) against its plain version on the
     card: identity, brightness/contrast, noise (seeds 0, 2^31 - 2 and
     random), glass, motion, all gates at once, at B in {1, 26, 128} and S in
@@ -130,12 +133,36 @@ non-zero; without a CUDA card it fails at once and prints no result):
     the b1 ``predict``, and K1 alone on the SSD's maps at (24, 4774),
     (1, 4774) and (8, 8500), each with its plain version and bound.
 
+16. the rest of the zoo at 480 px: MobileNetV3-Small (grid 15), Resnet-64
+    (10 blocks, grid 15) and SeparableCNN-128 (10 blocks, 16 patches, grid
+    10). The float32 eval forward at B=2, card against CPU, atol 1e-4, TF32
+    off, MobileNetV3's weights and non-trivial running statistics imported
+    from a reference-layout TorchScript archive; one float32 SAM + SGD step
+    of MobileNetV3 at B=2, card against CPU, at phase 8's tolerances, and
+    the batch statistics each BatchNorm folds in within 1e-3 (the ``bn3``
+    biases, whose gradient is rounding noise, held to a negligible update
+    instead); bf16 serving of each family (``predict`` on three odd-sized
+    frames, then b64/480), K1 once a call and bit-equal to its plain
+    version; bf16 SAM + Adam steps at b8/480 with rotation on the card
+    (five of MobileNetV3, two each of the others, the last with train
+    metrics): losses finite, params and BatchNorm statistics moving, three
+    shear launches a step; ``train_model --model mobilenetv3
+    --rotate-device`` for one epoch on 48 / 16 synthetic images, a resume
+    (params, statistics, Adam moments and step bit-equal) and
+    ``run_validation_epoch`` (MobileNetV3 by default) on its checkpoint;
+    timings with CUDA events: b1 ``predict``, b64 forward + decode and the
+    b8 train step (three runs: a range) of each family.
+
 The line before the last is a JSON object with each kernel's launches (from
-the serving, training, fused, Trainer and SSD paths), error, times, and its bound: the
+the serving, training, fused, Trainer, SSD and zoo paths), error, times, and its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
-outside the tensor cores (H100 SXM data sheet). ``library_ms`` is null for
-every kernel: no single PyTorch call computes any of the five functions.
+outside the tensor cores (H100 SXM data sheet). ``library_ms`` is the time
+of one ``F.grid_sample`` call (bilinear, zero padding, align_corners) for
+the shears' float32 rows, the same function within float32 rounding of its
+normalised coordinates; null for the bfloat16 rows (its grid would be
+bfloat16 too) and for the other kernels: no single PyTorch call computes a
+batched greedy NMS, the photometric chain or the fused tail.
 The ``decode_filter_nms``, ``shear_rows``, ``shear_cols`` and
 ``residual_tail`` entries also list every shape they were timed at
 (``shapes``).
@@ -161,7 +188,8 @@ import torch
 
 from fdtpu_torch import bench as fbench
 from fdtpu_torch import bench_pool_fusion as bpf
-from fdtpu_torch import run_validation_epoch, train_model_ssd
+from fdtpu_torch import run_validation_epoch, train_model, train_model_ssd
+from fdtpu_torch.compat import torch_import
 from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets
 from fdtpu_torch.data import augment as aug
 from fdtpu_torch.data import make_synthetic_widerface
@@ -171,7 +199,16 @@ from fdtpu_torch.kernels import nms as knms
 from fdtpu_torch.kernels import photometric as kphoto
 from fdtpu_torch.kernels import rotate as krot
 from fdtpu_torch.losses.ssd import hard_negative_mining
-from fdtpu_torch.models import SSD, Detector, PoolResnet, build_model, ssd_patch_sizes
+from fdtpu_torch.models.layers import BatchNorm
+from fdtpu_torch.models import (
+    SSD,
+    Detector,
+    MobileNetV3Backbone,
+    PoolResnet,
+    build_model,
+    has_batch_stats,
+    ssd_patch_sizes,
+)
 from fdtpu_torch.train import Trainer, create_train_state, make_train_step
 from fdtpu_torch.train import step as tstep
 from fdtpu_torch.train.checkpoint import latest_checkpoint
@@ -203,6 +240,7 @@ RESIDUAL_TAIL = {"name": "residual_tail", "route": "cuda",
 TRAIN_RTOL_LOSS, TRAIN_RTOL_GRAD_NORM = 1e-4, 1e-3
 TRAIN_RTOL_UPDATE, TRAIN_RTOL_UPDATE_TENSOR = 1e-2, 5e-2  # relative L2, phase 8
 TRAIN_STEPS = 5
+BN_RTOL = 1e-3  # phase 16: the batch statistics a BatchNorm folds in, f32, card vs CPU
 FUSED_STEPS = 3
 NOISE_ATOL = 1e-6  # K5 with noise on: logf/cosf against PyTorch's log/cos
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
@@ -231,6 +269,17 @@ SSD_640 = SSDConfig(input_shape=(640, 640), patch_sizes=ssd_patch_sizes((640, 64
 SSD_BATCH, SSD_640_BATCH = 24, 8
 SSD_FACES = 4  # boxes an image in phase 15's batches
 SSD_TRAINER_IMAGES = (192, 24)  # two steps a quarter-epoch at b24, one val batch
+# phase 16: the rest of the zoo at 480 px, at the widths their reference
+# configurations train at
+ZOO_SIZE = 480
+ZOO = {
+    "mobilenetv3": DetectorConfig(num_patches=15),  # MobileNetV3-Small, grid 480 / 32 = 15
+    "resnet": DetectorConfig(filters=64, num_patches=15),  # Resnet-64, 10 blocks, grid 15
+    "separable": DetectorConfig(num_patches=16),  # SeparableCNN-128, 10 blocks, grid 10
+}
+ZOO_SERVE_BATCH, ZOO_TRAIN_BATCH = 64, 8
+ZOO_TRAIN_STEPS = {"mobilenetv3": 5, "resnet": 2, "separable": 2}
+ZOO_TRAINER_IMAGES = (48, 16)  # six steps at b8, two val batches
 
 
 def check(ok: bool, what: str) -> None:
@@ -728,28 +777,50 @@ def bench_like_batch(b, size, device):
     return tuple(torch.from_numpy(a).to(device) for a in (images, boxes, masks))
 
 
-def f32_step_card_vs_cpu(make_module, make_batch, what: str) -> str:
+def f32_step_card_vs_cpu(make_module, make_batch, what: str, noise: tuple[str, ...] = ()) -> str:
     """One float32 SAM + SGD step (augmentation off, TF32 off) of
     ``make_module(device)`` on ``make_batch(device)``, on the CPU and on the
     card; checks the loss, the grad norm and the update (params after minus
-    before) at phase 8's tolerances and returns the line's numbers."""
+    before) at phase 8's tolerances and returns the line's numbers.
+
+    Params named with a suffix in ``noise`` have no gradient to match (a
+    MobileNetV3 block's last BatchNorm bias: a later train-mode BatchNorm
+    subtracts any shift it adds, so its gradient is rounding noise); their
+    update must be below 1e-3 of the others' in norm on both devices
+    instead. A module with BatchNorm layers has the batch statistics each
+    folds into its running ones held too: the running statistics start at
+    0, so the step leaves ``(1 - momentum)`` times the batch's mean and
+    variance there, and each channel's mean must agree within ``BN_RTOL``
+    of its standard deviation and its variance within ``BN_RTOL`` relative
+    (BatchNorm's eps added to both). (A relative measure of the change
+    alone would not do: a BatchNorm behind a 1x1 conv of a freshly
+    normalised input sees a batch mean of 0 up to rounding.)"""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tcfg = TrainConfig(optimizer="sgd", learning_rate=1e-2)
     got = {}
     for dev in ("cpu", "cuda"):
         module = make_module(dev)
+        names = [n for n, _ in module.named_parameters()]
         before = [p.detach().cpu().clone() for p in module.parameters()]
+        bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+        for bn in bns:
+            bn.running_mean.zero_()
+            bn.running_var.zero_()
         state = create_train_state(module, tcfg, 100)
         step = make_train_step(module, tcfg, augment=False)
         state, sc = step(state, *make_batch(dev))
         got[dev] = (sc["loss"].item(), sc["grad_norm"].item(),
-                    [p.detach().cpu() - q for p, q in zip(module.parameters(), before)])
-    (l_c, g_c, u_c), (l_g, g_g, u_g) = got["cpu"], got["cuda"]
+                    [p.detach().cpu() - q for p, q in zip(module.parameters(), before)],
+                    [(bn.running_mean.cpu() / (1 - bn.momentum),
+                      bn.running_var.cpu() / (1 - bn.momentum), bn.eps) for bn in bns])
+    (l_c, g_c, u_c, s_c), (l_g, g_g, u_g, s_g) = got["cpu"], got["cuda"]
+    real = [not n.endswith(noise) for n in names] if noise else [True] * len(names)
+    u_c_real = [u for u, r in zip(u_c, real) if r]
     loss_err, gn_err = abs(l_g / l_c - 1), abs(g_g / g_c - 1)
-    diff = [a - b for a, b in zip(u_g, u_c)]
-    upd_err = global_norm(diff).item() / global_norm(u_c).item()
-    tensor_err = max((d.norm() / u.norm()).item() for d, u in zip(diff, u_c))
+    diff = [a - b for a, b, r in zip(u_g, u_c, real) if r]
+    upd_err = global_norm(diff).item() / global_norm(u_c_real).item()
+    tensor_err = max((d.norm() / u.norm()).item() for d, u in zip(diff, u_c_real))
     p_err = max(d.abs().max().item() for d in diff)
     check(np.isfinite([l_g, g_g]).all(), f"non-finite f32 {what} step on the card")
     check(loss_err <= TRAIN_RTOL_LOSS, f"{what} loss card {l_g} vs CPU {l_c}")
@@ -757,10 +828,27 @@ def f32_step_card_vs_cpu(make_module, make_batch, what: str) -> str:
     check(upd_err <= TRAIN_RTOL_UPDATE, f"{what} update differs by {upd_err} in relative L2")
     check(tensor_err <= TRAIN_RTOL_UPDATE_TENSOR,
           f"a {what} tensor's update differs by {tensor_err} in relative L2")
-    return (f"loss {l_g:.6f} vs {l_c:.6f} (rel {loss_err:.3g}, rtol {TRAIN_RTOL_LOSS}); grad norm "
+    line = (f"loss {l_g:.6f} vs {l_c:.6f} (rel {loss_err:.3g}, rtol {TRAIN_RTOL_LOSS}); grad norm "
             f"rel {gn_err:.3g} (rtol {TRAIN_RTOL_GRAD_NORM}); update rel L2 {upd_err:.3g} (rtol "
             f"{TRAIN_RTOL_UPDATE}), worst tensor {tensor_err:.3g} (rtol "
             f"{TRAIN_RTOL_UPDATE_TENSOR}); params max abs err {p_err:.3g}")
+    if noise:
+        ratio = max(global_norm([u for u, r in zip(upd, real) if not r]).item()
+                    / global_norm([u for u, r in zip(upd, real) if r]).item()
+                    for upd in (u_c, u_g))
+        check(ratio <= 1e-3, f"{what} {noise} updates {ratio} of the others' in norm")
+        line += f"; {real.count(False)} {'/'.join(noise)} tensors' update {ratio:.3g} of the rest"
+    if s_c:
+        mean_err = max(((mg - mc).abs() / (vc + eps).sqrt()).max().item()
+                       for (mg, _, _), (mc, vc, eps) in zip(s_g, s_c))
+        var_err = max(((vg - vc).abs() / (vc + eps)).max().item()
+                      for (_, vg, _), (_, vc, eps) in zip(s_g, s_c))
+        check(max(mean_err, var_err) <= BN_RTOL,
+              f"{what} BatchNorm batch statistics differ: means by {mean_err} of the std, "
+              f"variances by {var_err}")
+        line += (f"; the batch statistics {len(s_c)} BatchNorms fold in: means within "
+                 f"{mean_err:.3g} of the std, variances {var_err:.3g} relative (tol {BN_RTOL})")
+    return line
 
 
 def phase_train_f32() -> None:
@@ -848,10 +936,38 @@ def phase_train_timings(card, runs):
     return shear_times(card)
 
 
+def shear_grids(k, center: float, hp: int):
+    """``F.grid_sample`` grids (align_corners, pixel units normalised by
+    ``hp - 1``) of the row shear (sample row ``y`` at ``x + k (y -
+    center)``) and of the column shear (column ``x`` at ``y + k (x -
+    center)``) of ``(K, 3, hp, hp)`` images; the offsets are the plain
+    versions' float32 ``t``, the unsheared coordinate sits on a pixel
+    centre."""
+    pos = torch.arange(hp, device=k.device, dtype=torch.float32)
+    t = k[:, None] * (pos - center)  # (K, hp)
+    along = pos[None, None, :] + t[:, :, None]  # [i, y, x] = x + t_i(y)
+    fixed = pos[None, :, None].expand_as(along)
+    norm = lambda v: v * (2.0 / (hp - 1)) - 1.0  # noqa: E731
+    rows = torch.stack([norm(along), norm(fixed)], dim=-1)  # (x', y)
+    cols = torch.stack([norm(fixed.transpose(1, 2)), norm(along.transpose(1, 2))], dim=-1)
+    return rows.contiguous(), cols.contiguous()
+
+
+def grid_sample(img, grid):
+    return torch.nn.functional.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                           align_corners=True)
+
+
 def shear_times(card, with_plain: bool = True) -> list[dict]:
     """K3a, K3b and K4 on the planes the training path gives them: the
     26-image exact-k subset at b128/320 in bf16, all 8 images at b8/480 in
-    float32; the card's time alone (``device_ms``)."""
+    float32; the card's time alone (``device_ms``). With ``with_plain``, also
+    the library call: one ``F.grid_sample`` (bilinear, zero padding,
+    align_corners) of the same planes seen as ``(K, 3, Hp, Hp)`` images,
+    its time and its largest difference from the plain version. In bfloat16
+    the grid is bfloat16 too (its coordinates, up to 767, in steps of 2 to
+    4), so there it is not the same function: no ``library_ms``, the error
+    is given."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     for b, s, dtype in ((26, 320, torch.bfloat16), (8, 480, torch.float32)):
@@ -861,28 +977,50 @@ def shear_times(card, with_plain: bool = True) -> list[dict]:
         hp = planes.shape[1]
         # K4's layout: channels stacked on rows, a row shear with c = 1
         stacked = planes.reshape(b, hp, hp, 3).permute(0, 3, 1, 2).reshape(b, 3 * hp, hp)
+        image = planes.reshape(b, hp, hp, 3).permute(0, 3, 1, 2)  # a view: channels_last
+        grid_rows, _ = shear_grids(k1, ctr, hp)
+        _, grid_cols = shear_grids(k2, ctr, hp)
         pairs = {
             "shear_rows": (lambda: krot.shear_rows(planes, k1, 3, 0, ctr),
-                           lambda: krot.shear_rows_reference(planes, k1, 3, 0, ctr)),
+                           lambda: krot.shear_rows_reference(planes, k1, 3, 0, ctr),
+                           lambda g: grid_sample(image, g), grid_rows,
+                           lambda o: o.permute(0, 2, 3, 1).reshape(b, hp, 3 * hp)),
             "shear_cols": (lambda: krot.shear_cols(planes, k2, 3, ctr),
-                           lambda: krot.shear_cols_reference(planes, k2, 3, ctr)),
+                           lambda: krot.shear_cols_reference(planes, k2, 3, ctr),
+                           lambda g: grid_sample(image, g), grid_cols,
+                           lambda o: o.permute(0, 2, 3, 1).reshape(b, hp, 3 * hp)),
             "shear_rows, K4 layout": (
                 lambda: krot.shear_rows(stacked, k1, 1, hp, ctr),
-                lambda: krot.shear_rows_reference(stacked, k1, 1, hp, ctr)),
+                lambda: krot.shear_rows_reference(stacked, k1, 1, hp, ctr),
+                lambda g: grid_sample(stacked.view(b, 3, hp, hp), g), grid_rows,
+                lambda o: o.reshape(b, 3 * hp, hp)),
         }
-        for name, (kern, plain) in pairs.items():
+        for name, (kern, plain, library, grid, layout) in pairs.items():
             shape = tuple((stacked if "K4" in name else planes).shape)
             # each pass reads its planes once and writes them once
             row = {"name": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
                    **bound(2 * nbytes(planes), SHEAR_OPS * planes.numel())}
             if with_plain:
                 row["ms"], row["plain_ms"], runs = turns(kern, plain, 50, 5)
+                grid = grid.to(dtype)
+                err = (layout(library(grid)).float() - plain().float()).abs().max().item()
+                row["library_max_abs_err"] = err
+                if dtype == torch.float32:
+                    row["library_ms"], lib_runs = mean_of_two(lambda: library(grid), 50)
+                    lib_txt = (f"; library F.grid_sample {row['library_ms']:.4f} ms ({lib_runs}), "
+                               f"max abs err {err:.3g} against plain on 0-255 planes")
+                else:
+                    row["library_ms"] = None
+                    lib_txt = (f"; F.grid_sample takes a bf16 grid with bf16 planes: max abs err "
+                               f"{err:.3g}, not the same function")
             else:
                 row["ms"], runs = mean_of_two(kern, 50)
+                lib_txt = ""
             rows.append(row)
             plain_txt = f", plain {row['plain_ms']:.4f} ms" if with_plain else ""
             print(f"[10 time] {name} {shape} {dtype}: kernel {row['ms']:.4f} ms{plain_txt} "
-                  f"({runs}); bound {row['bound_ms']:.4f} ms by {row['bound_by']} [{card}]")
+                  f"({runs}); bound {row['bound_ms']:.4f} ms by {row['bound_by']}{lib_txt} "
+                  f"[{card}]")
     return rows
 
 
@@ -1407,8 +1545,8 @@ def phase_trainer(tmp) -> dict:
     os.chdir(tmp)
     try:
         val_out = run_validation_epoch.main([
-            "--data-dir", str(root), "--checkpoint", str(ckpt), "--patches", "10",
-            "--with-ap", "--device", "cuda"])
+            "--data-dir", str(root), "--model", "poolresnet", "--checkpoint", str(ckpt),
+            "--patches", "10", "--with-ap", "--device", "cuda"])
     finally:
         os.chdir(cwd)
     check(set(val_out) == {"loss", "iou", "recall", "precision", "f1", "AP@0.5"}
@@ -1679,6 +1817,294 @@ def phase_ssd(card, tmp):
     return serving_launches + train_launches + trainer_launches, rows
 
 
+# -- the rest of the zoo -------------------------------------------------------------
+
+
+def zoo_module(name: str, device, compute_dtype=None, seed: int = SEED):
+    return build_model(name, ZOO[name], device, torch.Generator().manual_seed(seed),
+                       compute_dtype=compute_dtype)
+
+
+class Holder(torch.nn.Module):
+    """A scriptable module that only carries named tensors."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def mobilenetv3_reference_archive(path, seed: int) -> None:
+    """A TorchScript archive in the reference's layout (timm's stage names,
+    ``num_batches_tracked`` included) of a MobileNetV3 from ``seed`` with
+    random BatchNorm params and running statistics (means in [-0.5, 0.5],
+    variances in [0.5, 1.5])."""
+    port = MobileNetV3Backbone((ZOO_SIZE, ZOO_SIZE), ZOO_SIZE // 32,
+                               generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    # timm's block 0 is a DepthwiseSeparableConv: its conv_pw is the projection
+    to_ref = {v: k for k, v in torch_import.mobilenetv3_prefixes(
+        {"feature_extractor.3.0.0.conv_pw.weight": None}).items()}
+    root = Holder()
+    for name, t in port.state_dict().items():
+        prefix, leaf = name.rsplit(".", 1)
+        t = t.clone()
+        if leaf == "running_mean" or (leaf == "bias" and t.dim() == 1):
+            t.uniform_(-0.5, 0.5, generator=gen)
+        elif leaf == "running_var" or (leaf == "weight" and t.dim() == 1):
+            t.uniform_(0.5, 1.5, generator=gen)
+        mod = root
+        for part in to_ref[prefix].split("."):
+            if not hasattr(mod, part):
+                mod.add_module(part, torch.nn.Module())
+            mod = getattr(mod, part)
+        if leaf.startswith("running"):
+            mod.register_buffer(leaf, t)
+            mod.register_buffer("num_batches_tracked", torch.tensor(1000))
+        else:
+            mod.register_parameter(leaf, torch.nn.Parameter(t, requires_grad=False))
+    torch.jit.script(root).save(str(path))
+
+
+def phase_zoo_forward_f32(tmp) -> None:
+    """Each family's float32 eval forward at 480 px, B=2, card against CPU,
+    TF32 off; MobileNetV3's weights and running statistics imported from a
+    reference-layout TorchScript archive through ``compat.torch_import``."""
+    from pathlib import Path
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    archive = Path(tmp) / "mobilenetv3_reference.pth"
+    mobilenetv3_reference_archive(archive, SEED + 20)
+    u8 = np.random.default_rng(SEED + 21).integers(0, 256, size=(2, ZOO_SIZE, ZOO_SIZE, 3),
+                                                   dtype=np.uint8)
+    x = torch.from_numpy(u8).float() / 255.0
+    for name in ZOO:
+        cpu, gpu = zoo_module(name, "cpu"), zoo_module(name, "cuda")
+        if name == "mobilenetv3":
+            for m in (cpu, gpu):
+                torch_import.load_torchscript_weights(archive, m)
+            check(not torch.equal(gpu.bn_576.running_var.cpu(), torch.ones(576)),
+                  "the archive's running statistics did not load")
+        with torch.inference_mode():
+            want = cpu(x)
+            got = gpu(x.cuda()).cpu()
+        s = cpu.grid_size()
+        check(got.shape == (2, s, s, 5), f"{name} forward shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"non-finite {name} forward output")
+        err = (got - want).abs().max().item()
+        check(err <= FORWARD_ATOL, f"card {name} forward differs from CPU by {err}")
+        live = ((want > 0.01) & (want < 0.99)).float().mean().item()
+        src = " (imported archive)" if has_batch_stats(cpu) else ""
+        print(f"[16 zoo forward f32] {name} {ZOO_SIZE}px grid {s} B=2{src}, card vs CPU max abs "
+              f"err {err:.3g} (atol {FORWARD_ATOL}); {live:.0%} of outputs in (0.01, 0.99)")
+
+
+def phase_zoo_train_f32() -> None:
+    """One float32 SAM + SGD step of MobileNetV3 at 480 px, B=2, card
+    against CPU, at phase 8's tolerances, BatchNorm statistics included."""
+
+    def module(dev):
+        return MobileNetV3Backbone((ZOO_SIZE, ZOO_SIZE), 15,
+                                   generator=torch.Generator().manual_seed(SEED + 5)).to(dev)
+
+    line = f32_step_card_vs_cpu(module, lambda dev: bench_like_batch(2, ZOO_SIZE, dev),
+                                "MobileNetV3", noise=("bn3.bias",))
+    print(f"[16 zoo train f32] SAM + SGD step, MobileNetV3-Small {ZOO_SIZE}px B=2, card vs CPU: "
+          f"{line}")
+
+
+def phase_zoo_serving():
+    """bf16 Detectors of each family on the card: ``predict`` on three
+    odd-sized frames, then the batch path at b64/480; K1 once a call, its
+    boxes equal to the plain version's on the same forward output."""
+    rng = np.random.default_rng(SEED + 22)
+    frames = [rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+              for h, w in ((377, 501), (480, 641), (211, 173))]
+    batch = torch.from_numpy(rng.integers(0, 256, size=(ZOO_SERVE_BATCH, ZOO_SIZE, ZOO_SIZE, 3),
+                                          dtype=np.uint8)).cuda()
+    dets = {name: Detector(zoo_module(name, "cuda")) for name in ZOO}
+    knms.decode_filter_nms_batch.launches = 0
+    outs = {}
+    for name, det in dets.items():
+        start = knms.decode_filter_nms_batch.launches
+        preds = [det.predict(f) for f in frames]
+        out = det.apply(batch.float() / 255.0)
+        boxes, mask = det.non_max_suppression(out)
+        torch.cuda.synchronize()
+        calls = knms.decode_filter_nms_batch.launches - start
+        check(calls == len(frames) + 1, f"{name}: K1 launched {calls} times a frame and a batch")
+        counts = [int(check_boxes(b, m, 128, 0.5, f"{name} predict")) for _, b, m in preds]
+        s = det.module.grid_size()
+        check(out.shape == (ZOO_SERVE_BATCH, s, s, 5) and bool(torch.isfinite(out).all()),
+              f"{name} batch forward")
+        kept = check_boxes(boxes, mask, 128, 0.5, f"{name} batch")
+        wb, wm = knms.decode_filter_nms_reference(
+            out.reshape(ZOO_SERVE_BATCH, -1, 5),
+            knms.grid_tables_on(s, (ZOO_SIZE, ZOO_SIZE), out.device), 0.5, 0.5, 128)
+        check(torch.equal(mask, wm) and torch.equal(boxes, wb), f"{name} boxes differ from plain")
+        outs[name] = out
+        print(f"[16 zoo serving] bf16 {name} Detector on the card: predict x3 -> {counts} boxes; "
+              f"b{ZOO_SERVE_BATCH} at {ZOO_SIZE}px grid {s} (N {s * s}) -> {int(kept.sum())} "
+              f"boxes; K1 launches {calls}; batch decode equals plain")
+    return knms.decode_filter_nms_batch.launches, dets, batch, outs
+
+
+def phase_zoo_train():
+    """bf16 SAM + Adam steps at b8/480 with rotation on the card: five of
+    MobileNetV3, two each of Resnet and SeparableCNN, the last of each with
+    train metrics. Returns the kernels' launches and the runs."""
+    runs = {}
+    for name in ZOO:
+        module = zoo_module(name, "cuda", compute_dtype=torch.bfloat16)
+        tcfg = TrainConfig(rotate_device=True, positional_crop=True, seed=SEED)
+        state = create_train_state(module, tcfg, 100)
+        steps = (make_train_step(module, tcfg), make_train_step(module, tcfg, compute_metrics=True))
+        runs[name] = (state, steps, bench_like_batch(ZOO_TRAIN_BATCH, ZOO_SIZE, "cuda"))
+    before = {name: {k: v.detach().clone() for k, v in st.module.state_dict().items()}
+              for name, (st, _, _) in runs.items()}
+
+    krot.shear_rows.launches = krot.shear_cols.launches = 0
+    knms.decode_filter_nms_batch.launches = 0
+    scalars = {}
+    for name, (state, (step, metrics_step), batch) in runs.items():
+        n = ZOO_TRAIN_STEPS[name]
+        for i in range(n):
+            state, sc = (metrics_step if i == n - 1 else step)(state, *batch)
+            scalars.setdefault(name, []).append(sc)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    calls = sum(ZOO_TRAIN_STEPS.values())  # one rotate_batch a step
+    check(launches["shear_rows"] == 2 * calls and launches["shear_cols"] == calls,
+          f"zoo shear launches {launches}, want {2 * calls} and {calls}")
+    check(launches["decode_filter_nms"] == len(runs), f"zoo K1 launches {launches}")
+    for name, (state, _, _) in runs.items():
+        check(state.step == ZOO_TRAIN_STEPS[name], f"{name} stepped {state.step} times")
+        check(all(np.isfinite(v.item()) for sc in scalars[name] for v in sc.values()),
+              f"{name} non-finite scalars")
+        after = state.module.state_dict()
+        moved = max((after[k] - v).abs().max().item() for k, v in before[name].items()
+                    if "running" not in k)
+        stats = [k for k in after if "running" in k]
+        check(moved > 0, f"{name} params did not move")
+        check(all(not torch.equal(after[k], before[name][k]) for k in stats),
+              f"{name} BatchNorm statistics did not move")
+        check(all(p.dtype == torch.float32 for p in state.module.parameters()),
+              f"{name} params left float32")
+        last = scalars[name][-1]
+        print(f"[16 zoo train] {name} b{ZOO_TRAIN_BATCH} {ZOO_SIZE}px bf16 SAM+Adam rotation on, "
+              f"{ZOO_TRAIN_STEPS[name]} steps: losses "
+              f"{[round(sc['loss'].item(), 3) for sc in scalars[name]]}, grad norm "
+              f"{last['grad_norm'].item():.4f}, metrics iou {last['iou'].item():.4f}; params moved "
+              f"up to {moved:.3g}; {len(stats)} BatchNorm statistics, all moved")
+    print(f"[16 zoo train] launches: shear_rows {launches['shear_rows']}, shear_cols "
+          f"{launches['shear_cols']} ({calls} rotate_batch calls), decode_filter_nms "
+          f"{launches['decode_filter_nms']} ({len(runs)} metrics steps)")
+    return launches, runs
+
+
+def phase_zoo_trainer(tmp) -> dict:
+    """``train_model --model mobilenetv3 --rotate-device`` for one epoch on
+    synthetic data (its defaults otherwise: 480 px, b8, bf16, SAM + Adam),
+    a resume in a new Trainer from another seed (params, BatchNorm
+    statistics, Adam's state and the step bit-equal), and
+    ``run_validation_epoch`` (MobileNetV3, its default) on the checkpoint.
+    Returns the kernels' launches."""
+    from pathlib import Path
+
+    tmp = Path(tmp) / "zoo"
+    n_train, n_val = ZOO_TRAINER_IMAGES
+    root = make_synthetic_widerface(tmp / "data", n_train, split="train", seed=SEED)
+    make_synthetic_widerface(root, n_val, split="val", seed=SEED + 1)
+    flags = ["--data-dir", str(root), "--model", "mobilenetv3", "--input", str(ZOO_SIZE),
+             "--patches", str(ZOO_SIZE // 32), "--epochs", "1", "--rotate-device",
+             "--device", "cuda"]
+    cwd = os.getcwd()
+    os.chdir(tmp)  # checkpoints/, logs/ and imgs/ go here
+    try:
+        start = kernel_counts()
+        trainer = train_model.build_trainer(train_model.parse_args(flags))
+        out = trainer.fit()
+        torch.cuda.synchronize()
+        fit = counts_since(start)
+        steps = len(trainer.train_loader)
+        check(trainer.state.step == steps, f"MobileNetV3 Trainer took {trainer.state.step} steps")
+        check(all(np.isfinite(v) for split in out.values() for v in split.values()),
+              f"non-finite MobileNetV3 epoch metrics {out}")
+        # the first batch's drawing, the metrics step, each val batch
+        want = 2 + len(trainer.val_loader)
+        check(fit["decode_filter_nms"] == want and fit["shear_rows"] == 2 * steps
+              and fit["shear_cols"] == steps, f"MobileNetV3 Trainer launches {fit}")
+        ckpt = latest_checkpoint(tmp / "checkpoints" / trainer.run_name)
+        check(ckpt is not None and ckpt.name == f"step_{steps:08d}.pt", f"checkpoint {ckpt}")
+
+        resumed = train_model.build_trainer(train_model.parse_args([*flags, "--seed", "1"]))
+        check(resumed.maybe_resume() and resumed.state.step == steps, "the MobileNetV3 resume")
+        saved, now = trainer.state.module.state_dict(), resumed.state.module.state_dict()
+        check(saved.keys() == now.keys() and all(torch.equal(saved[k], now[k]) for k in saved),
+              "resumed MobileNetV3 params or BatchNorm statistics differ from the saved ones")
+        for p, q in zip(resumed.state.module.parameters(), trainer.state.module.parameters()):
+            sa, sb = resumed.state.optimizer.state[p], trainer.state.optimizer.state[q]
+            check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa),
+                  "resumed MobileNetV3 Adam state differs from the saved one")
+        val_out = run_validation_epoch.main([
+            "--data-dir", str(root), "--checkpoint", str(ckpt), "--input", str(ZOO_SIZE),
+            "--patches", str(ZOO_SIZE // 32), "--with-ap", "--device", "cuda"])
+    finally:
+        os.chdir(cwd)
+    check(set(val_out) == {"loss", "iou", "recall", "precision", "f1", "AP@0.5"}
+          and all(np.isfinite(v) for v in val_out.values()), f"run_validation_epoch {val_out}")
+    print(f"[16 zoo trainer] train_model --model mobilenetv3 --rotate-device, one epoch of "
+          f"{steps} steps ({ZOO_SIZE}px b8 bf16 SAM+Adam, {n_train} train / {n_val} val synthetic "
+          f"images): train {out['train']}, val {out['val']}; launches {fit}; resume: params, "
+          f"BatchNorm statistics, Adam moments and step bit-equal; run_validation_epoch "
+          f"(--model mobilenetv3 by default) --with-ap on {ckpt.name}: {val_out}")
+    return counts_since(start)
+
+
+def phase_zoo_timings(card, serving, train) -> None:
+    """Per family, CUDA events after warmup: the b1 ``predict`` latency
+    (median and min over 50 calls), forward + decode at b64/480, and the
+    b8/480 train step, three runs of 10 (the step is host-bound: the runs'
+    range is given)."""
+    dets, batch, _ = serving
+    frame = np.random.default_rng(SEED + 23).integers(0, 256, size=(ZOO_SIZE, ZOO_SIZE, 3),
+                                                      dtype=np.uint8)
+    for name, det in dets.items():
+        lat = []
+        for i in range(60):
+            t0 = time.perf_counter()
+            det.predict(frame)
+            torch.cuda.synchronize()
+            if i >= 10:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        ms = event_ms(lambda: det.non_max_suppression(det.apply(batch.float() / 255.0)), 10)
+        state, (step, _), tbatch = train[name]
+        runs = [step_ms(state, step, tbatch, 10) for _ in range(3)]
+        print(f"[16 time] {name}: b1 predict {ZOO_SIZE}px bf16 median "
+              f"{statistics.median(lat):.3f} ms, min {min(lat):.3f} ms over {len(lat)}; "
+              f"b{ZOO_SERVE_BATCH} {ZOO_SIZE}px forward + decode "
+              f"{ms:.3f} ms/batch ({ZOO_SERVE_BATCH * 1e3 / ms:.1f} img/s); train "
+              f"b{ZOO_TRAIN_BATCH} "
+              f"{ZOO_SIZE}px bf16 SAM+Adam rotation on {min(runs):.3f}-{max(runs):.3f} ms/step "
+              f"({ZOO_TRAIN_BATCH * 1e3 / max(runs):.1f}-{ZOO_TRAIN_BATCH * 1e3 / min(runs):.1f} "
+              f"img/s) [{card}]")
+
+
+def phase_zoo(card, tmp) -> dict:
+    """16: the rest of the zoo. Returns the kernels' launches on its paths."""
+    t0 = time.perf_counter()
+    phase_zoo_forward_f32(tmp)
+    phase_zoo_train_f32()
+    serve_k1, *serving = phase_zoo_serving()
+    train_launches, train = phase_zoo_train()
+    trainer_launches = phase_zoo_trainer(tmp)
+    phase_zoo_timings(card, serving, train)
+    launches = {k: train_launches[k] + trainer_launches[k] for k in train_launches}
+    launches["decode_filter_nms"] += serve_k1
+    print(f"[16 zoo] launches on the zoo's paths {launches}; phase 16 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def kernel_times_only() -> None:
     """``--kernel-times``: the card, the build, and K1-K4's device times
     (no plain versions) as one JSON line; ``python -m
@@ -1710,26 +2136,29 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         trainer_launches = phase_trainer(tmp)
         ssd_launches, ssd_rows = phase_ssd(card, tmp)
+        zoo_launches = phase_zoo(card, tmp)
 
-    def entry(meta, launches, err, times):
+    def entry(meta, launches, err, times, library_ms=None):
         ms, plain, bnd = times
         return {**meta, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                **bnd, "library_ms": None}
+                **bnd, "library_ms": library_ms}
 
     def row_times(row):
         return row["ms"], row["plain_ms"], {k: row[k] for k in ("bound_ms", "bound_by")}
 
     # K1 at b128/225 and the shears on the b128 exact-k planes head their
     # entries; every shape timed follows under "shapes"
+    # (library_ms: F.grid_sample on the float32 rows only, see shear_times)
     kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"]
-                        + trainer_launches["decode_filter_nms"] + ssd_launches, worst,
+                        + trainer_launches["decode_filter_nms"] + ssd_launches
+                        + zoo_launches["decode_filter_nms"], worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
     for kname, meta in SHEARS.items():
         rows = [r for r in shear_rows if r["name"].startswith(kname)]
         kernels.append({**entry({"name": kname, **meta},
                                 train_launches[kname] + photo_launches[kname]
-                                + trainer_launches[kname], rot_worst,
-                                row_times(rows[0])), "shapes": rows})
+                                + trainer_launches[kname] + zoo_launches[kname], rot_worst,
+                                row_times(rows[0]), rows[0]["library_ms"]), "shapes": rows})
     kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"], photo_worst,
                          fused_times["photometric"]))
     kernels.append({**entry(RESIDUAL_TAIL, tail_launches, 0.0, fused_times["residual_tail"]),

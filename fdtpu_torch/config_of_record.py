@@ -68,7 +68,8 @@ class Run(NamedTuple):
 
 
 RUNS = {
-    "poolresnet": Run(train_model, DetectorConfig(), 8, 1, 3, ["--patches", "10"]),
+    "poolresnet": Run(train_model, DetectorConfig(), 8, 1, 3,
+                      ["--model", "poolresnet", "--patches", "10"]),
     "ssd": Run(train_model_ssd, SSDConfig(), 24, 4, 120, ["--model", "ssd"]),
 }
 

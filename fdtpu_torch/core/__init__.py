@@ -4,11 +4,19 @@ decoding, decode+filter+NMS."""
 from fdtpu_torch.core.boxes import (  # noqa: F401
     box_area,
     box_iou,
+    cxywh_to_xyxy,
+    cxyxy_to_xywh,
+    masked_box_iou,
     pad_boxes,
     xywh_to_xyxy,
     xyxy_to_xywh,
 )
-from fdtpu_torch.core.grid import decode_grid, encode_grid_targets  # noqa: F401
+from fdtpu_torch.core.grid import (  # noqa: F401
+    decode_grid,
+    encode_grid_targets,
+    fdtpu_fm_to_reference,
+    reference_fm_to_fdtpu,
+)
 from fdtpu_torch.core.nms import (  # noqa: F401
     compact_boxes,
     decode_filter_nms,

@@ -23,6 +23,16 @@ def xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
     return torch.stack([x0, y0, x1 - x0, y1 - y0], dim=-1)
 
 
+def cxywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """``[..., (conf, x, y, w, h)]`` -> ``[..., (conf, x0, y0, x1, y1)]``."""
+    return torch.cat([boxes[..., :1], xywh_to_xyxy(boxes[..., 1:5])], dim=-1)
+
+
+def cxyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`cxywh_to_xyxy`."""
+    return torch.cat([boxes[..., :1], xyxy_to_xywh(boxes[..., 1:5])], dim=-1)
+
+
 def box_area(boxes_xyxy: torch.Tensor) -> torch.Tensor:
     """Area of ``[..., (x0, y0, x1, y1)]`` boxes (clamped at 0)."""
     w = (boxes_xyxy[..., 2] - boxes_xyxy[..., 0]).clamp_min(0.0)
@@ -39,6 +49,15 @@ def box_iou(a_xyxy: torch.Tensor, b_xyxy: torch.Tensor) -> torch.Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = box_area(a_xyxy)[..., :, None] + box_area(b_xyxy)[..., None, :] - inter
     return torch.where(union > 0, inter / union.clamp_min(1e-12), 0.0)
+
+
+def masked_box_iou(a_xyxy: torch.Tensor, a_mask: torch.Tensor, b_xyxy: torch.Tensor,
+                   b_mask: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU with padded rows zeroed out: ``(..., N, 4)`` boxes with
+    an ``(..., N)`` bool mask against ``(..., M, 4)`` and ``(..., M)``;
+    a pair with an invalid row has IoU 0."""
+    pair_mask = a_mask[..., :, None] & b_mask[..., None, :]
+    return torch.where(pair_mask, box_iou(a_xyxy, b_xyxy), 0.0)
 
 
 def pad_boxes(boxes, capacity: int):

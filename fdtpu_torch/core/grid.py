@@ -84,3 +84,14 @@ def decode_grid(
     h = fm[..., 4] * height
     cand = torch.stack([conf, x, y, w, h], dim=-1)
     return cand.reshape(fm.shape[:-3] + (s * s, 5))
+
+
+def reference_fm_to_fdtpu(fm_ref: torch.Tensor) -> torch.Tensor:
+    """A reference-layout map ``(5, S, S)`` (``fm[:, x_cell, y_cell]``) in
+    fdtpu's layout ``(S, S, 5)`` ``[y_cell, x_cell]`` (a view)."""
+    return fm_ref.permute(2, 1, 0)
+
+
+def fdtpu_fm_to_reference(fm: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`reference_fm_to_fdtpu`."""
+    return fm.permute(2, 1, 0)

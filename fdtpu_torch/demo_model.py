@@ -2,12 +2,12 @@
 
 Each image goes through :meth:`Detector.predict` (host resize, ``/255``,
 forward, fused decode+filter+NMS); the boxes are drawn on the resized frame
-and saved. ``--model`` names the family (``poolresnet`` or ``ssd``, whose
-patch sizes follow from ``--input``). The weights come from
-``--checkpoint`` (a checkpoint of the port, as ``train_model`` or
-``train_model_ssd`` writes it), or are random, drawn from seed 0. A
-reference TorchScript ``.pth`` raises: its import is not ported (ROADMAP.md
-queue 1, item 4). Run as::
+and saved. ``--model`` names the family (any of the zoo; the SSD's patch
+sizes follow from ``--input``). The weights come from ``--checkpoint``: a
+checkpoint of the port (as ``train_model`` or ``train_model_ssd`` writes
+it), or a reference TorchScript ``.pth``, imported through
+``compat.load_reference_detector``; without one they are random, drawn
+from seed 0. Run as::
 
     python -m fdtpu_torch.demo_model --images DIR --checkpoint PATH --device cuda
 """
@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from fdtpu_torch.core.nms import compact_boxes
-from fdtpu_torch.models import DTYPES, Detector, build_model
+from fdtpu_torch.compat.torch_import import load_reference_detector
+from fdtpu_torch.models import DTYPES, FAMILIES, Detector, build_model
 from fdtpu_torch.train.checkpoint import restore_variables
 from fdtpu_torch.utils.config import DetectorConfig
 from fdtpu_torch.utils.draw import draw_bbx
@@ -32,8 +33,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--images", default="imgs/test_imgs", help="input image dir")
     p.add_argument("--out", default="imgs/annotated_imgs")
-    p.add_argument("--checkpoint", default=None, help="a checkpoint of the port (.pt)")
-    p.add_argument("--model", default="poolresnet")
+    p.add_argument("--checkpoint", default=None,
+                   help="a checkpoint of the port (.pt) or a reference TorchScript .pth")
+    p.add_argument("--model", default="poolresnet", choices=list(FAMILIES))
     p.add_argument("--input", type=int, default=480)
     p.add_argument("--patches", type=int, default=10)
     p.add_argument("--filters", type=int, default=64)
@@ -53,12 +55,8 @@ def build_detector(args) -> Detector:
     )
     gen = torch.Generator().manual_seed(0)
     module = build_model(args.model, cfg, device=args.device, generator=gen)
-    if args.checkpoint:
-        if str(args.checkpoint).endswith(".pth"):
-            raise NotImplementedError(
-                "reference TorchScript checkpoints are not ported (ROADMAP.md queue 1, item 4)")
-        # before the Detector is built: it serves a copy of the params
-        module.load_state_dict(restore_variables(args.checkpoint, args.device))
+    # before the Detector is built: it serves a copy of the params
+    module = load_weights(module, args.checkpoint, args.device)
     return Detector(
         module,
         probability_threshold=args.prob_threshold,
@@ -66,6 +64,18 @@ def build_detector(args) -> Detector:
         nms_capacity=cfg.nms_capacity,
         dtype=DTYPES[cfg.dtype],
     )
+
+
+def load_weights(module, checkpoint: str | None, device):
+    """``module`` with ``checkpoint``'s weights: a reference ``.pth``
+    through ``load_reference_detector`` (a grid model comes back wrapped),
+    a checkpoint of the port into ``module`` itself; ``module`` as it is
+    without one."""
+    if checkpoint and str(checkpoint).endswith(".pth"):
+        return load_reference_detector(checkpoint, module)
+    if checkpoint:
+        module.load_state_dict(restore_variables(checkpoint, device))
+    return module
 
 
 def run_images(det: Detector, image_dir: str, out_dir: str) -> None:

@@ -14,9 +14,9 @@ VJP: the wrapper raises when autograd would need a backward.
 tensor runs :func:`reference_tail`, a CUDA tensor launches the hand-written
 kernel (``csrc/residual_tail.cu``) or the call raises; ``.launches`` counts
 kernel launches. The kernel is bit-equal to :func:`reference_tail`, the op
-set the port's ``ResidualBlock`` runs at eval. In bfloat16 that may differ
-from fdtpu by one bfloat16 step on negative inputs: PyTorch's leaky ReLU
-multiplies by a float32 0.2, fdtpu by 0.2 rounded to bfloat16.
+set the port's ``ResidualBlock`` runs at eval. In bfloat16 that may
+differ from fdtpu by one bfloat16 step on negative inputs: PyTorch's leaky
+ReLU multiplies by a float32 0.2, fdtpu by 0.2 rounded to bfloat16.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Checkpoint smoke loader, the port's ``load_checkpoint.py``: load a
-checkpoint of the port, fetch one validation sample, decode ground-truth
-and predicted boxes, print both. ``--model ssd`` builds the SSD, its patch
-sizes from ``--input``.
+checkpoint (the port's ``.pt`` or a reference TorchScript ``.pth``), fetch
+one validation sample, decode ground-truth and predicted boxes, print both.
+``--model`` names any family of the zoo; ``ssd`` takes its patch sizes
+from ``--input``.
 
     python -m fdtpu_torch.load_checkpoint --data-dir DIR --checkpoint PATH [--device cuda]
 """
@@ -14,8 +15,8 @@ import torch
 
 from fdtpu_torch.core.nms import compact_boxes
 from fdtpu_torch.data import WIDERFaceDataSource, load_targets
-from fdtpu_torch.models import DTYPES, Detector, build_model
-from fdtpu_torch.train.checkpoint import restore_variables
+from fdtpu_torch.demo_model import load_weights
+from fdtpu_torch.models import DTYPES, FAMILIES, Detector, build_model
 from fdtpu_torch.utils.config import DetectorConfig
 
 
@@ -25,7 +26,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--data-dir", default="data")
     p.add_argument("--checkpoint", default=None)
-    p.add_argument("--model", default="poolresnet")
+    p.add_argument("--model", default="poolresnet", choices=list(FAMILIES))
     p.add_argument("--input", type=int, default=480)
     p.add_argument("--patches", type=int, default=10)
     p.add_argument("--filters", type=int, default=128)
@@ -38,9 +39,8 @@ def main(argv=None):
         num_patches=args.patches, num_residual_blocks=args.blocks,
     )
     module = build_model(args.model, cfg, args.device, torch.Generator().manual_seed(0))
-    if args.checkpoint:
-        # before the Detector is built: it serves a copy of the params
-        module.load_state_dict(restore_variables(args.checkpoint, args.device))
+    # before the Detector is built: it serves a copy of the params
+    module = load_weights(module, args.checkpoint, args.device)
     det = Detector(module, nms_capacity=cfg.nms_capacity, dtype=DTYPES[cfg.dtype])
 
     targets = load_targets(args.data_dir, "val", max_faces=3)

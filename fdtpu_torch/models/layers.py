@@ -68,12 +68,36 @@ class Dropout2d(nn.Module):
         return torch.where(keep, x / (1.0 - self.rate), 0.0)
 
 
-def conv(layer: nn.Conv2d, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
+def conv(layer: nn.Conv2d, x: torch.Tensor, with_bias: bool = True,
+         padding: tuple[int, int] | None = None) -> torch.Tensor:
     """``layer`` applied in ``x``'s dtype: the weights are cast to it (a
     no-op when they already have it), the params stay as they are. Without
-    ``with_bias`` the layer's bias is left for the caller to add."""
+    ``with_bias`` the layer's bias is left for the caller to add;
+    ``padding`` replaces the layer's own."""
     bias = layer.bias.to(x.dtype) if with_bias and layer.bias is not None else None
-    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, layer.padding)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride,
+                    layer.padding if padding is None else padding, layer.dilation, layer.groups)
+
+
+def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """TF/Flax ``"SAME"`` padding of one spatial dim of size ``n`` for a
+    ``k``-tap stride-``s`` convolution: ``ceil(n / s)`` outputs, the total
+    pad split with its smaller half before (``lax.padtype_to_pads``)."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` with ``"SAME"`` padding, as Flax pads it. A strided layer
+    often pads one more row or column after than before (a k3/s2 conv at
+    480 px pads (0, 1)), which ``nn.Conv2d(padding=k // 2)`` gets wrong and
+    ``padding="same"`` refuses: the input is zero-padded first, and the
+    convolution pads nothing. Symmetric pads go to the convolution."""
+    k, s = layer.kernel_size[0], layer.stride[0]
+    (top, bottom), (left, right) = same_pads(x.shape[2], k, s), same_pads(x.shape[3], k, s)
+    if top == bottom and left == right:
+        return conv(layer, x, padding=(top, left))
+    return conv(layer, F.pad(x, (left, right, top, bottom)), padding=(0, 0))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -203,3 +227,76 @@ class ResidualBlock(nn.Module):
         if x.shape[2] > self.pool_until:  # NCHW: dim 2 is the height
             x = max_pool_2x2(x)
         return x
+
+
+class SeparableResidualBlock(nn.Module):
+    """fdtpu's depthwise-separable residual block (SeparableCNN's)::
+
+        pointwise1x1 -> leaky -> depthwise3x3 -> leaky -> pointwise1x1
+        -> dropout2d -> +skip -> maxpool while the spatial height > pool_until
+
+    No conv has a bias. Submodule names follow the reference torch model:
+    ``pointwise_conv1``, ``depthwise_conv`` (one group a channel),
+    ``pointwise_conv2``.
+    """
+
+    def __init__(self, filters: int, pool_until: int, dropout: float = 0.25):
+        super().__init__()
+        self.pool_until = pool_until
+        self.pointwise_conv1 = nn.Conv2d(filters, filters, 1, bias=False)
+        self.depthwise_conv = nn.Conv2d(filters, filters, 3, padding=1, groups=filters, bias=False)
+        self.pointwise_conv2 = nn.Conv2d(filters, filters, 1, bias=False)
+        self.dropout = Dropout2d(dropout)
+
+    def forward(self, x: torch.Tensor, masks: DropoutMasks | None = None) -> torch.Tensor:
+        skip = x
+        x = leaky_relu(conv(self.pointwise_conv1, x))
+        x = leaky_relu(conv(self.depthwise_conv, x))
+        x = self.dropout(conv(self.pointwise_conv2, x), masks) + skip
+        if x.shape[2] > self.pool_until:
+            x = max_pool_2x2(x)
+        return x
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over the channels of an NCHW tensor: params
+    ``weight`` (Flax's ``scale``) and ``bias``, buffers ``running_mean`` and
+    ``running_var`` (Flax's ``batch_stats``), all float32 whatever the
+    input's dtype (a bfloat16 input is normalised in float32 and rounded
+    once, as Flax's ``dtype=bfloat16``).
+
+    ``train`` is an argument, as in fdtpu, not ``nn.Module.training``: with
+    it the layer normalises by the batch's mean and biased variance,
+    without it by the running statistics; both through ``F.batch_norm``
+    (one fused kernel each way on the card). With ``train`` and
+    ``update_stats`` it also folds the batch's statistics into the running
+    ones by Flax's rule, which is not ``nn.BatchNorm2d``'s: ``running =
+    momentum * running + (1 - momentum) * batch`` with ``momentum`` 0.99 on
+    the running side, and Flax's variance ``E[x^2] - E[x]^2`` (clipped at
+    0, reduced in float32). ``nn.BatchNorm2d`` would fold in the unbiased
+    variance (1% larger at 100 values a channel) and count
+    ``num_batches_tracked``, which this layer has not.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.99):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
+        if train and update_stats:
+            with torch.no_grad():
+                xf = x.float()
+                mean = xf.mean((0, 2, 3))
+                var = (xf.square().mean((0, 2, 3)) - mean.square()).clamp_min(0.0)
+                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        if train:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            False, 0.0, self.eps)

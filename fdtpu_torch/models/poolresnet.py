@@ -31,7 +31,12 @@ class PoolResnet(nn.Module):
     :class:`~fdtpu_torch.models.layers.DropoutMasks` (fdtpu's ``train=True``).
     ``fused_tail`` (eval only) gives every residual block the fused tail
     kernel (:class:`~fdtpu_torch.models.layers.ResidualBlock`).
+
+    Resnet and SeparableCNN share this body (``models/resnet.py``,
+    ``models/separable.py``): they set ``POOL_FACTOR`` and ``_block``.
     """
+
+    POOL_FACTOR = 2  # the blocks pool while the height exceeds POOL_FACTOR * num_patches
 
     def __init__(
         self,
@@ -62,8 +67,7 @@ class PoolResnet(nn.Module):
         pad = input_kernel_size - input_stride
         self.conv1 = nn.Conv2d(3, filters, input_kernel_size, stride=input_stride, padding=pad)
         self.residual_blocks = nn.ModuleList(
-            ResidualBlock(filters, pool_until=2 * num_patches, dropout=dropout,
-                          fused_tail=fused_tail)
+            self._block(filters, self.POOL_FACTOR * num_patches, dropout, fused_tail)
             for _ in range(num_residual_blocks)
         )
         self.head_dropout = Dropout2d(head_dropout)
@@ -72,12 +76,17 @@ class PoolResnet(nn.Module):
             if isinstance(m, nn.Conv2d):
                 lecun_normal_(m, generator)
 
+    @staticmethod
+    def _block(filters: int, pool_until: int, dropout: float, fused_tail: bool) -> nn.Module:
+        return ResidualBlock(filters, pool_until=pool_until, dropout=dropout,
+                             fused_tail=fused_tail)
+
     def grid_size(self) -> int:
         """Static output grid arithmetic (conv/pool floor semantics)."""
         pad = self.input_kernel_size - self.input_stride
         dim = (self.input_shape[0] + 2 * pad - self.input_kernel_size) // self.input_stride + 1
         for _ in range(self.num_residual_blocks):
-            if dim > 2 * self.num_patches:
+            if dim > self.POOL_FACTOR * self.num_patches:
                 dim //= 2
         return dim + 2 * self.output_padding - self.output_kernel_size + 1
 
@@ -89,3 +98,9 @@ class PoolResnet(nn.Module):
             x = block(x, masks)
         x = conv(self.out, self.head_dropout(x, masks))
         return torch.sigmoid(x.float()).permute(0, 2, 3, 1).contiguous()
+
+
+if __name__ == "__main__":  # smoke benchmark
+    from fdtpu_torch.models.smoke import smoke_main
+
+    smoke_main(lambda gen: PoolResnet(64, (320, 320), 15, 10, generator=gen))

@@ -4,14 +4,18 @@
                                         [--no-rotate] [--fused-photometric]
                                         [--steps 10]
     python -m fdtpu_torch.profile_train --model ssd [--batch 24] [--size 480]
+    python -m fdtpu_torch.profile_train --model mobilenetv3 [--batch 8] [--size 480]
 
 Drives ``make_train_step`` at ``bench.py``'s train shape by default
 (PoolResnet-128, 10 blocks, bf16 compute with float32 params, SAM + Adam,
 device augmentation with positional crop and rotation; ``--fused-photometric``
 takes the float32 route through the fused photometric kernel); with
 ``--model ssd`` at ``train_model_ssd``'s (SSD-16, 480 px, 4,774 priors,
-b24, SAM + Adam, augmentation off); random weights and u8 frames from seed
-0, one face per image. Prints, beside the card's nvidia-smi name and power
+b24, SAM + Adam, augmentation off); with ``--model resnet | separable |
+mobilenetv3`` at ``train_model``'s shape for that family (b8, 480 px, grid
+15, or 16 patches for SeparableCNN, device augmentation with rotation;
+MobileNetV3 with its BatchNorm state); random weights and u8 frames from
+seed 0, one face per image. Prints, beside the card's nvidia-smi name and power
 limit:
 
 * ms per step by CUDA events over ``--steps`` steps after warmup, with no
@@ -39,7 +43,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from fdtpu_torch.models import build_model, ssd_patch_sizes
+from fdtpu_torch.models import FAMILIES, build_model, ssd_patch_sizes
 from fdtpu_torch.train import create_train_state, make_train_step
 from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 
@@ -100,18 +104,21 @@ def setup(batch: int, size: int, grid: int, rotate: bool, fused_photometric: boo
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", default="poolresnet", choices=["poolresnet", "ssd"])
-    ap.add_argument("--batch", type=int, default=None, help="default 128 (24 for ssd)")
-    ap.add_argument("--size", type=int, default=None, help="default 320 (480 for ssd)")
-    ap.add_argument("--grid", type=int, default=15)
+    ap.add_argument("--model", default="poolresnet", choices=list(FAMILIES))
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 128 (24 for ssd, 8 for the rest of the zoo)")
+    ap.add_argument("--size", type=int, default=None, help="default 320 (480 but poolresnet)")
+    ap.add_argument("--grid", type=int, default=None, help="default 15 (16 for separable)")
     ap.add_argument("--no-rotate", action="store_true")
     ap.add_argument("--fused-photometric", action="store_true")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
     ssd = args.model == "ssd"
-    args.batch = args.batch or (24 if ssd else 128)
-    args.size = args.size or (480 if ssd else 320)
+    zoo = args.model not in ("poolresnet", "ssd")
+    args.batch = args.batch or (24 if ssd else 8 if zoo else 128)
+    args.size = args.size or (320 if args.model == "poolresnet" else 480)
+    args.grid = args.grid or (16 if args.model == "separable" else 15)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     card = subprocess.run(
@@ -164,7 +171,8 @@ def main() -> None:
                  f"({sum(p * p for p in ssd_patch_sizes((args.size,) * 2))} priors) bf16 "
                  "SAM+Adam, augmentation off")
     else:
-        shape = (f"train b{args.batch} {args.size}px grid {args.grid} bf16 SAM+Adam, rotation "
+        shape = (f"train {args.model} b{args.batch} {args.size}px grid {args.grid} bf16 SAM+Adam, "
+                 f"rotation "
                  f"{'off' if args.no_rotate else 'on'}, photometric "
                  f"{'fused (float32)' if args.fused_photometric else 'default chain (bfloat16)'}")
     print(f"== {shape} [{card}]")

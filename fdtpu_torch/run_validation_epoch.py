@@ -1,22 +1,23 @@
 """Validation-only runner, the port's ``run_validation_epoch.py``: build a
-model (PoolResnet or the SSD), load a checkpoint of the port, run one
-evaluation epoch over the val split and print loss/IoU/recall/precision/F1
-(and AP@0.5 with ``--with-ap``, or the official easy/medium/hard mAP with
-``--widerface-gt-dir``).
+model of any family of the zoo, load a checkpoint (the port's ``.pt`` or a
+reference TorchScript ``.pth``), run one evaluation epoch over the val split
+and print loss/IoU/recall/precision/F1 (and AP@0.5 with ``--with-ap``, or
+the official easy/medium/hard mAP with ``--widerface-gt-dir``).
 
     python -m fdtpu_torch.run_validation_epoch --data-dir DIR \\
-        --model poolresnet --patches 10 --checkpoint checkpoints/RUN/step_N.pt
+        --checkpoint checkpoints/RUN/step_N.pt          # MobileNetV3, 480 px, grid 15
 
-    python -m fdtpu_torch.run_validation_epoch --data-dir DIR --model ssd \\
-        --checkpoint checkpoints/ssd_16_480x480/step_N.pt --with-ap
+    python -m fdtpu_torch.run_validation_epoch --data-dir DIR --model poolresnet \\
+        --patches 10 --checkpoint checkpoints/RUN/step_N.pt --with-ap
 
-The same flags as ``run_validation_epoch.py``, but ``--model`` defaults to
-``poolresnet`` and ``--device`` (default ``cuda``) replaces ``--platform``.
-``--model ssd`` validates under the SSD pipeline's constants, as the
-original does: ``SSDConfig`` (16 filters by default, the patch sizes of
-the input size), the <120-face filter, box capacity 128 and NMS capacity
-128. The other families and a reference TorchScript ``.pth`` checkpoint
-raise (ROADMAP.md queue 1, item 4).
+The same flags and defaults as ``run_validation_epoch.py`` (``--model``
+defaults to ``mobilenetv3``), with ``--device`` (default ``cuda``) in place
+of ``--platform``. ``--model ssd`` validates under the SSD pipeline's
+constants, as the original does: ``SSDConfig`` (16 filters by default, the
+patch sizes of the input size), the <120-face filter, box capacity 128 and
+NMS capacity 128. A ``.pth`` checkpoint goes through
+``compat.load_reference_detector``: a grid model is wrapped so that its
+reference-layout output decodes to the reference's boxes.
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ import numpy as np
 import torch
 
 from fdtpu_torch.data import BatchLoader, DevicePrefetcher, WIDERFaceDataSource, load_targets
-from fdtpu_torch.models import DTYPES, build_model, ssd_patch_sizes
-from fdtpu_torch.train import Trainer
+from fdtpu_torch.compat.torch_import import load_reference_detector
+from fdtpu_torch.models import DTYPES, FAMILIES, build_model, ssd_patch_sizes
+from fdtpu_torch.train import Trainer, make_eval_step
 from fdtpu_torch.train.checkpoint import restore_checkpoint
 from fdtpu_torch.train.metrics import average_precision, f1_score
 from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
@@ -37,9 +39,9 @@ from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--data-dir", default="data")
-    p.add_argument("--model", default="poolresnet",
-                   choices=["poolresnet", "resnet", "separable", "mobilenetv3", "ssd"])
-    p.add_argument("--checkpoint", default=None, help="a checkpoint of the port (.pt)")
+    p.add_argument("--model", default="mobilenetv3", choices=list(FAMILIES))
+    p.add_argument("--checkpoint", default=None,
+                   help="a checkpoint of the port (.pt) or a reference TorchScript .pth")
     p.add_argument("--input", type=int, default=480)
     p.add_argument("--patches", type=int, default=15)
     p.add_argument("--filters", type=int, default=None, help="default 128 (16 for ssd)")
@@ -67,9 +69,6 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Runs the epoch and returns what it printed, as one dict."""
     args = parse_args(argv)
-    if args.checkpoint and str(args.checkpoint).endswith(".pth"):
-        raise NotImplementedError(
-            "reference TorchScript checkpoints are not ported (ROADMAP.md queue 1, item 4)")
     shape = (args.input, args.input)
     if args.model == "ssd":
         cfg = SSDConfig(
@@ -103,7 +102,14 @@ def main(argv=None) -> dict:
                          args.batch_size)
     trainer = Trainer(module, TrainConfig(visualize_first_batch=False), loader, loader,
                       nms_params=nms_params, run_name="validation", device=args.device)
-    if args.checkpoint:
+    if args.checkpoint and str(args.checkpoint).endswith(".pth"):
+        # a reference TorchScript checkpoint: the eval step serves the
+        # (wrapped) imported model
+        trainer.module = load_reference_detector(args.checkpoint, module)
+        trainer.state.module = trainer.module
+        trainer.eval_step = make_eval_step(trainer.module, nms_params=nms_params,
+                                           return_boxes=True)
+    elif args.checkpoint:
         trainer.state = restore_checkpoint(args.checkpoint, trainer.state)
 
     if args.widerface_gt_dir:

@@ -13,9 +13,11 @@ The Trainer owns configuration, the train state, step construction,
 checkpointing and the fit loop; the per-feed-mode epoch bodies (streamed,
 device-resident) live in :mod:`fdtpu_torch.train.drivers`. It runs on the
 ``device`` it is given (default ``"cuda"``; the CPU only when asked),
-moves the module there, and never probes for a card. It trains PoolResnet
-and the SSD (whose loss takes ``neg_pos_ratio`` and ``bg_push``, passed to
-every step it builds); fdtpu's data-parallel step builders are not ported
+moves the module there, and never probes for a card. It trains every
+family of the zoo (the SSD's loss takes ``neg_pos_ratio`` and ``bg_push``,
+passed to every step it builds; MobileNetV3's BatchNorm trains on batch
+statistics and its eval epochs run on the running ones, which its
+checkpoints carry); fdtpu's data-parallel step builders are not ported
 (ROADMAP.md queue 1, item 5).
 """
 

@@ -1,5 +1,6 @@
-"""Train and eval steps (``fdtpu/train/step.py``), for the PoolResnet
-YOLO-grid family and the SSD.
+"""Train and eval steps (``fdtpu/train/step.py``), for every family of the
+zoo: the YOLO-grid models (PoolResnet, Resnet, SeparableCNN, MobileNetV3)
+and the SSD.
 
 One train step::
 
@@ -21,14 +22,21 @@ here it runs eagerly and updates the state in place. Every random choice of
 a step (augmentation and dropout) is drawn from the state's generator
 reseeded from ``(config.seed, step)``, so a step repeats exactly.
 
+BatchNorm state (MobileNetV3): the train step's forwards normalise by the
+batch's statistics and the eval step's by the running ones, whatever
+``nn.Module.training`` says. The running statistics are updated once a
+step, from the forward at the unperturbed point: fdtpu takes the new
+``batch_stats`` from the first evaluation (``sam_gradients``' ``aux``) and
+drops the perturbed forward's.
+
 The train step's phases run under ``torch.profiler.record_function`` spans
 (``train/augment``, ``train/targets``, ``train/gradients``,
 ``train/optimizer``, ``train/metrics``), which ``fdtpu_torch.profile_train``
 reads for device time by phase.
 
-Not ported: the SPMD ``axis_name`` body with its cross-shard loss and
-gradient reductions (ROADMAP.md queue 1, item 5), and the rest of the zoo
-(item 4); both raise ``NotImplementedError``.
+Not ported: the SPMD ``axis_name`` body with its cross-shard loss, gradient
+and BatchNorm-statistics reductions (ROADMAP.md queue 1, item 5); it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,8 +53,10 @@ from fdtpu_torch.core.priors import apply_priors, encode_ssd_targets, priors_on
 from fdtpu_torch.data.augment import augment_batch_fast, resize_only_batch
 from fdtpu_torch.losses.ssd import ssd_loss
 from fdtpu_torch.losses.yolo import yolo_loss
-from fdtpu_torch.models.detector import is_ssd
+from fdtpu_torch.compat.torch_import import ReferenceLayoutGrid
+from fdtpu_torch.models.detector import has_batch_stats, is_ssd
 from fdtpu_torch.models.layers import DropoutMasks
+from fdtpu_torch.models.mobilenetv3 import MobileNetV3Backbone
 from fdtpu_torch.models.poolresnet import PoolResnet
 from fdtpu_torch.models.ssd import SSD
 from fdtpu_torch.train.metrics import detection_metrics
@@ -56,11 +66,9 @@ from fdtpu_torch.utils.config import TrainConfig
 
 
 def _check_supported(module, axis_name) -> None:
-    if not isinstance(module, (PoolResnet, SSD)):
-        raise NotImplementedError(
-            f"{type(module).__name__}: only PoolResnet and the SSD are ported "
-            "(the rest of the zoo: ROADMAP.md queue 1, item 4)"
-        )
+    inner = module.inner if isinstance(module, ReferenceLayoutGrid) else module
+    if not isinstance(inner, (PoolResnet, MobileNetV3Backbone, SSD)):  # Resnet, SeparableCNN
+        raise ValueError(f"{type(module).__name__} is not a detector of the zoo")
     if axis_name is not None:
         raise NotImplementedError("data-parallel steps are not ported (ROADMAP.md queue 1, item 5)")
 
@@ -108,12 +116,22 @@ def _loss_norm(sample_mask) -> torch.Tensor:
     return sample_mask.sum().clamp_min(1)
 
 
+def _forward(module, images, masks: DropoutMasks | None, train: bool, update_stats: bool):
+    """The model's forward: a BatchNorm model's in ``train`` mode or not
+    (``update_stats``: fold the batch's statistics into the running ones),
+    the others' with dropout when given ``masks``."""
+    if has_batch_stats(module):
+        return module(images, train=train, update_stats=update_stats)
+    return module(images, masks)
+
+
 def _loss_and_out(module, images, enc, sample_mask, masks: DropoutMasks | None = None,
-                  gt_locs=None, neg_pos_ratio: int = 10, bg_push: float = 0.0):
+                  gt_locs=None, neg_pos_ratio: int = 10, bg_push: float = 0.0,
+                  train: bool = False, update_stats: bool = False):
     """-> ``(gradient loss, (reported loss, model out))``. ``sample_mask``
     drops padded samples from both: their YOLO losses are masked out, their
     SSD labels zeroed (no positives, so no mined negatives either)."""
-    out = module(images, masks)
+    out = _forward(module, images, masks, train, update_stats)
     if is_ssd(module):
         enc = enc * sample_mask[:, None, None]
         loss = ssd_loss(out[..., 0], out[..., 1:5], enc[..., 0], gt_locs, neg_pos_ratio, bg_push)
@@ -167,11 +185,16 @@ def make_train_step(
         with record_function("train/targets"):
             enc, gt_locs = _encode_targets(net, bx, bm, image_size)
         masks = DropoutMasks(gen)
+        evaluations = 0
 
         def loss_fn():
+            nonlocal evaluations
             masks.rewind()  # both SAM points see the same dropout masks
+            # BatchNorm's running statistics come from the first evaluation
+            # only, the unperturbed point
+            evaluations += 1
             return _loss_and_out(net, imgs, enc, sample_mask, masks, gt_locs, neg_pos_ratio,
-                                 bg_push)
+                                 bg_push, train=True, update_stats=evaluations == 1)
 
         params = [p for p in net.parameters() if p.requires_grad]
         with record_function("train/gradients"):
@@ -215,7 +238,8 @@ def make_eval_step(
     decoded boxes with ``return_boxes``.
 
     ``step(state, images_u8, boxes, box_mask, sample_mask=None) -> scalars``
-    (or ``(scalars, (pred_boxes, pred_mask))``); no augmentation, no dropout.
+    (or ``(scalars, (pred_boxes, pred_mask))``); no augmentation, no dropout,
+    BatchNorm on the running statistics.
     ``neg_pos_ratio`` and ``bg_push`` are the SSD loss's, as in training.
     """
     _check_supported(module, axis_name)

@@ -1,21 +1,25 @@
 """YOLO-grid detector training, the port's ``train_model.py``.
 
-    python -m fdtpu_torch.train_model --data-dir DIR [--device cuda]
+    python -m fdtpu_torch.train_model --data-dir DIR [--model mobilenetv3] [--device cuda]
 
 The same flags and defaults as ``train_model.py`` for what is ported:
 PoolResnet-128 @480px, 10x10 grid, 10 blocks, batch 8, lr 1e-4, 70 epochs,
-SAM + Adam, MultiStepLR@40 x0.1, bf16 compute with float32 params; plus
-``--device`` (default ``cuda``; ``cpu`` only when asked). Logs go to
-``logs/out_<run>.log`` (+ ``.jsonl``, ``logs/tb/``), checkpoints to
-``checkpoints/<run>/step_*.pt``, both under the working directory.
+SAM + Adam, MultiStepLR@40 x0.1, bf16 compute with float32 params; every
+grid family of the zoo (``--model poolresnet | resnet | separable |
+mobilenetv3``; MobileNetV3 trains with its BatchNorm state, and the grid
+follows from ``--input``: 480 px gives 15); ``--pretrained-backbone PTH``
+(MobileNetV3 only: the backbone of a reference TorchScript checkpoint under
+a fresh head); plus ``--device`` (default ``cuda``; ``cpu`` only when
+asked). Logs go to ``logs/out_<run>.log`` (+ ``.jsonl``, ``logs/tb/``),
+checkpoints to ``checkpoints/<run>/step_*.pt``, both under the working
+directory.
 
 Left out, with their ROADMAP.md queue-1 items: ``--data-parallel`` and
 ``--multihost`` (item 5, data parallelism), ``--steps-per-dispatch`` (not
-ported by design: it amortizes the TPU's dispatch cost), and
-``--pretrained-backbone`` (item 4, MobileNetV3 and the TorchScript import);
+ported by design: it amortizes the TPU's dispatch cost);
 ``--no-fast-stem`` (the port runs the plain stem, whose math the fast stem
-shares) and ``--platform`` (``--device`` names the device). ``--model``
-other than ``poolresnet`` raises through ``build_model`` (item 4); the SSD
+shares), ``--platform`` (``--device`` names the device) and
+``--pretrained-backbone official`` (name the checkpoint's path). The SSD
 trains through ``fdtpu_torch.train_model_ssd``.
 """
 
@@ -25,6 +29,7 @@ import argparse
 
 import torch
 
+from fdtpu_torch.compat.torch_import import pretrained_backbone_variables
 from fdtpu_torch.data import (
     BatchLoader,
     WIDERFaceDataSource,
@@ -52,6 +57,10 @@ def parse_args(argv=None):
                    help="plain Adam (the reference's effective behavior)")
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--pretrained-backbone", default=None, metavar="PTH",
+                   help="mobilenetv3 only: initialize the backbone from a reference "
+                        "TorchScript checkpoint (fresh head), the timm pretrained=True "
+                        "analogue")
     p.add_argument("--box-capacity", type=int, default=8)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--max-train-images", type=int, default=0,
@@ -66,8 +75,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def build_trainer(args) -> Trainer:
+    """The data, the model (with ``--pretrained-backbone``'s weights) and
+    the Trainer that ``main`` fits, from parsed flags."""
     if args.device_data and not (args.no_augment or args.rotate_device):
         # Staged frames can't carry host rotation (one frozen angle per image
         # forever), and silently dropping the reference's Rotate(p=0.2) would
@@ -126,10 +136,21 @@ def main(argv=None):
     module = build_model(args.model, model_cfg, args.device,
                          torch.Generator().manual_seed(args.seed),
                          compute_dtype=DTYPES[model_cfg.dtype])
-    trainer = Trainer(
+    if args.pretrained_backbone:
+        if args.model != "mobilenetv3":
+            raise SystemExit("--pretrained-backbone requires --model mobilenetv3")
+        module.load_state_dict(pretrained_backbone_variables(args.pretrained_backbone, module))
+        print(f"backbone initialized from {args.pretrained_backbone} (fresh head)")
+    return Trainer(
         module, train_cfg, train_loader, val_loader,
         augment=not args.no_augment, run_name=run_name, device=args.device,
     )
+
+
+def main(argv=None):
+    """Trains, saves, and returns the last checkpoint's path."""
+    args = parse_args(argv)
+    trainer = build_trainer(args)
     if args.resume:
         trainer.maybe_resume()
     out = trainer.fit()

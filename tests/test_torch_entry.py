@@ -1,9 +1,12 @@
 """The port's entry points on the CPU at 160 px, 16 filters, 2 blocks, b4,
 on 8 synthetic train and 8 val images: ``train_model`` trains an epoch and
 writes a checkpoint, which ``run_validation_epoch``, ``load_checkpoint`` and
-``demo_model`` read; ``bench``'s measuring functions give ``bench.py``'s
-keys, and its FLOP count equals ``bench.py``'s; the copy of the official
-WIDERFace evaluator equals fdtpu's (exactly: the same numpy code)."""
+``demo_model`` read (``run_validation_epoch`` given ``--model poolresnet``:
+its default is fdtpu's, MobileNetV3); the zoo's other families and reference
+TorchScript ``.pth`` checkpoints go through the same entry points;
+``bench``'s measuring functions give ``bench.py``'s keys, and its FLOP count
+equals ``bench.py``'s; the copy of the official WIDERFace evaluator equals
+fdtpu's (exactly: the same numpy code)."""
 
 import ast
 import importlib.util
@@ -17,7 +20,13 @@ from fdtpu.train import widerface_eval as jwe
 from fdtpu_torch import bench, demo_model, load_checkpoint, run_validation_epoch, train_model
 from fdtpu_torch.data import make_synthetic_widerface
 from fdtpu_torch.train import widerface_eval as twe
+from fdtpu_torch.models import PoolResnet
 from fdtpu_torch.train.checkpoint import restore_variables
+from test_torch_torch_import import (
+    reference_grid_state_dict,
+    reference_mobilenetv3_state_dict,
+    save_archive,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = ["--input", "160", "--patches", "5", "--filters", "16", "--blocks", "2",
@@ -52,7 +61,8 @@ def test_train_model_writes_a_checkpoint_and_logs(trained):
 def test_run_validation_epoch_reads_the_checkpoint(trained, monkeypatch):
     work, ckpt = trained
     monkeypatch.chdir(work)
-    args = ["--data-dir", "data", "--checkpoint", str(ckpt), "--batch-size", "4", *SMALL]
+    args = ["--data-dir", "data", "--checkpoint", str(ckpt), "--batch-size", "4",
+            "--model", "poolresnet", *SMALL]
     plain = run_validation_epoch.main(args)
     with_ap = run_validation_epoch.main([*args, "--with-ap"])
     assert set(plain) == {"loss", "iou", "precision", "recall", "f1"}
@@ -65,9 +75,20 @@ def test_run_validation_epoch_reads_the_checkpoint(trained, monkeypatch):
 
 @pytest.mark.parametrize("extra,item", [(["--model", "resnet"], "item 4"),
                                         (["--checkpoint", "model.pth"], "item 4")])
-def test_run_validation_epoch_unported_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_validation_epoch.main([*SMALL, *extra])
+def test_run_validation_epoch_unported_raise(extra, item, trained, tmp_path, monkeypatch):
+    """What ROADMAP.md queue 1 ``item`` left out of this entry point runs
+    now: another family (``--model resnet``) and a reference TorchScript
+    checkpoint (``model.pth``, for MobileNetV3, the default family); a
+    ``.pth`` that does not fit the model raises."""
+    work, _ = trained
+    monkeypatch.chdir(tmp_path)
+    save_archive(reference_mobilenetv3_state_dict(), tmp_path / "model.pth")
+    base = ["--data-dir", str(work / "data"), "--batch-size", "4", *SMALL]
+    metrics = run_validation_epoch.main([*base, *extra])
+    assert set(metrics) == {"loss", "iou", "precision", "recall", "f1"}
+    assert all(np.isfinite(v) for v in metrics.values())
+    with pytest.raises(ValueError, match="does not fit PoolResnet"):
+        run_validation_epoch.main([*base, "--model", "poolresnet", "--checkpoint", "model.pth"])
 
 
 def test_load_checkpoint_and_demo_read_the_checkpoint(trained, monkeypatch):
@@ -79,16 +100,27 @@ def test_load_checkpoint_and_demo_read_the_checkpoint(trained, monkeypatch):
     demo_model.main(["--images", str(images), "--out", "annotated", "--checkpoint", str(ckpt),
                      *SMALL])
     assert len(list((work / "annotated").glob("*.png"))) == 8
-    with pytest.raises(NotImplementedError, match="item 4"):
-        demo_model.main(["--images", str(images), "--checkpoint", "model.pth", *SMALL])
+    # a reference TorchScript checkpoint of the same PoolResnet (ROADMAP.md
+    # queue 1, item 4): served through ReferenceLayoutGrid
+    save_archive(reference_grid_state_dict(PoolResnet(16, (160, 160), 5, 2)), work / "model.pth")
+    demo_model.main(["--images", str(images), "--out", "annotated_pth", "--checkpoint",
+                     "model.pth", *SMALL])
+    assert len(list((work / "annotated_pth").glob("*.png"))) == 8
 
 
 def test_train_model_unported_model_raises(tmp_path, monkeypatch):
+    """``--model resnet`` (ROADMAP.md queue 1, item 4) trains now; a
+    pretrained backbone is MobileNetV3's only, and with another family the
+    entry point exits."""
     monkeypatch.chdir(tmp_path)
     make_synthetic_widerface(tmp_path / "data", 2, split="train")
     make_synthetic_widerface(tmp_path / "data", 2, split="val")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train_model.main(["--data-dir", "data", "--model", "resnet", *SMALL])
+    ckpt = train_model.main(["--data-dir", "data", "--model", "resnet", "--epochs", "1",
+                             "--batch-size", "2", *SMALL])
+    assert Path(ckpt).parent.name == "resnet_16_5x5_160x160"
+    with pytest.raises(SystemExit, match="mobilenetv3"):
+        train_model.main(["--data-dir", "data", "--model", "resnet", "--pretrained-backbone",
+                          "model.pth", *SMALL])
 
 
 def load_reference_bench():

@@ -61,11 +61,17 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "fdtpu"}
                                     "fdtpu_torch.models.ssd",
                                     "fdtpu_torch.core.priors",
                                     "fdtpu_torch.losses.ssd",
-                                    "fdtpu_torch.compat.from_fdtpu"])
+                                    "fdtpu_torch.compat.from_fdtpu",
+                                    "fdtpu_torch.models.resnet",
+                                    "fdtpu_torch.models.separable",
+                                    "fdtpu_torch.models.mobilenetv3",
+                                    "fdtpu_torch.models.smoke",
+                                    "fdtpu_torch.compat.torch_import"])
 def test_kernel_modules_import_alone_without_jax(module):
     """Each module of the fused kernels, each entry point, the Trainer
-    with its loader and the SSD's modules, imported on its own: no JAX, no
-    fdtpu, and no build until a kernel launches."""
+    with its loader, the SSD's modules and the rest of the zoo's (with the
+    TorchScript import), imported on its own: no JAX, no fdtpu, and no
+    build until a kernel launches."""
     proc = subprocess.run(
         [sys.executable, "-c", ALONE, module], cwd=REPO, capture_output=True, text=True,
         timeout=120,

@@ -132,8 +132,9 @@ def test_build_model_families():
     assert ssd.heads[0].bias.abs().max() <= 1 / ssd.heads[0].in_features ** 0.5
     scores = ssd.eval()(torch.zeros(1, *SIZE, 3))[0, :, 0]
     assert scores.std() > 1e-3
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_model("resnet", cfg)
+    # the rest of the zoo (ROADMAP.md queue 1, item 4) builds too, on the CPU when asked
+    resnet = build_model("resnet", cfg, "cpu", torch.Generator().manual_seed(0))
+    assert type(resnet).__name__ == "Resnet" and resnet.grid_size() == 40  # 80 -> 40, one block
     with pytest.raises(ValueError):
         build_model("nope", cfg)
 

@@ -292,7 +292,7 @@ def test_unported_branches_raise():
     cfg = TrainConfig()
     with pytest.raises(NotImplementedError, match="item 5"):
         make_train_step(torch_model(), cfg, axis_name="data")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="not a detector"):
         make_eval_step(torch.nn.Conv2d(3, 5, 1))
     with pytest.raises(ValueError):
         create_train_state(torch_model(), TrainConfig(optimizer="lamb"))
