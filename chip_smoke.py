@@ -151,10 +151,30 @@ non-zero; without a CUDA card it fails at once and prints no result):
     (params, statistics, Adam moments and step bit-equal) and
     ``run_validation_epoch`` (MobileNetV3 by default) on its checkpoint;
     timings with CUDA events: b1 ``predict``, b64 forward + decode and the
-    b8 train step (three runs: a range) of each family.
+    b8 train step (three runs: a range) of each family;
+17. data parallelism on the one card (``fdtpu_torch.parallel``), each rank
+    a spawned process that loads the kernels phase 2 built: (a) NCCL at
+    world size 1 on the flagship at b128/320 (bf16 compute, SAM + Adam):
+    one step through the DP step against the plain step from the same
+    state, augmentation and dropout off, deterministic algorithms (loss
+    rtol 1e-6, update rel. L2 1e-4), then three DP steps with rotation on
+    the card and train metrics (K1 once, the shears three times a step);
+    the plain and the DP step timed in turns, three runs, and the gradient
+    reduction alone; (b) two gloo ranks on the card (CUDA tensors staged
+    through the host), float32 SAM + SGD, against the one-process step on
+    the global batch at phase 8's tolerances: PoolResnet-128 at b128/320
+    (64 + 64, one padded sample) and SSD-16 at b24/480 (12 + 12, uneven
+    positives); MobileNetV3-Small's params and statistics identical on both
+    ranks and the statistics the mean of each rank's own update; the DP
+    step's time, gloo's staging included (not a scaling number); (c)
+    ``Trainer(data_parallel=2)`` at ``DetectorConfig()`` in float32 over
+    gloo: one streamed and one resident epoch, bit-equal, each with its
+    per-rank eval through K1, and a resume from rank 0's checkpoint. A rank
+    that fails or outlives its timeout fails the script.
 
 The line before the last is a JSON object with each kernel's launches (from
-the serving, training, fused, Trainer, SSD and zoo paths), error, times, and its bound: the
+the serving, training, fused, Trainer, SSD, zoo and data-parallel paths), error, times, and
+its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
 outside the tensor cores (H100 SXM data sheet). ``library_ms`` is the time
@@ -185,6 +205,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fdtpu_torch import bench as fbench
 from fdtpu_torch import bench_pool_fusion as bpf
@@ -208,6 +229,13 @@ from fdtpu_torch.models import (
     build_model,
     has_batch_stats,
     ssd_patch_sizes,
+)
+from fdtpu_torch.parallel import (
+    grad_all_reduce,
+    initialize_multihost,
+    launch_local_ranks,
+    make_dp_train_step,
+    shutdown,
 )
 from fdtpu_torch.train import Trainer, create_train_state, make_train_step
 from fdtpu_torch.train import step as tstep
@@ -280,6 +308,15 @@ ZOO = {
 ZOO_SERVE_BATCH, ZOO_TRAIN_BATCH = 64, 8
 ZOO_TRAIN_STEPS = {"mobilenetv3": 5, "resnet": 2, "separable": 2}
 ZOO_TRAINER_IMAGES = (48, 16)  # six steps at b8, two val batches
+# phase 17: data parallelism
+DP_RANK_TIMEOUT_S = 300  # a rank that runs longer fails the script
+DP_LOSS_RTOL, DP_UPDATE_RTOL = 1e-6, 1e-4  # 17a, world 1: g * w / w may round by an ulp
+DP_BN_RTOL = 1e-5  # 17b: MobileNetV3's statistics against the mean of the ranks' own updates
+DP_BATCH = 128  # 17a's batch and 17b's global batch (64 + 64), at the bench shape
+DP_STEPS, DP_TIMED_STEPS = 3, 10
+DP_MOBILENET_BATCH = 8  # a rank's
+DP_TRAINER_BATCH = 8  # global: 4 + 4
+DP_TRAINER_IMAGES = (16, 8)  # two steps an epoch, one val batch
 
 
 def check(ok: bool, what: str) -> None:
@@ -2105,6 +2142,363 @@ def phase_zoo(card, tmp) -> dict:
     return launches
 
 
+# -- data parallelism ------------------------------------------------------------------
+
+
+def dp_require_library() -> None:
+    """A rank loads the library its parent built (phase 2); it never starts
+    nvcc itself, and never falls back to a plain version."""
+    check(build.library_path().exists(), "the kernels' library was not built before the ranks")
+    build.load_library()
+
+
+def dp_slice(batch, rank: int, world: int):
+    lb = batch[0].shape[0] // world
+    return [t[rank * lb:(rank + 1) * lb] for t in batch]
+
+
+def dp_params_identical(module) -> bool:
+    """Rank 0's params and buffers broadcast and compared bit for bit."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in module.state_dict().values()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    return torch.equal(flat, ref)
+
+
+def update_errors(before, got, want) -> tuple[float, float]:
+    """``got``'s update (params after minus ``before``) against ``want``'s,
+    in relative L2 over all params and for the worst tensor."""
+    du = [g - b for g, b in zip(got, before)]
+    dw = [w - b for w, b in zip(want, before)]
+    diff = [a - c for a, c in zip(du, dw)]
+    total = (global_norm(diff) / global_norm(dw)).item()
+    worst = max((d.norm() / w.norm()).item() for d, w in zip(diff, dw) if w.norm() > 0)
+    return total, worst
+
+
+def dp_flagship(device, dropout: bool, seed: int = SEED):
+    """PoolResnet-128 at the bench shape (320 px, grid 15), bf16 compute."""
+    cfg = BENCH_CFG
+    rate = 0.25 if dropout else 0.0
+    return PoolResnet(cfg.filters, cfg.input_shape, cfg.num_patches, cfg.num_residual_blocks,
+                      dropout=rate, head_dropout=2 * rate, compute_dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(seed)).to(device)
+
+
+def dp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """17a: NCCL at world size 1, in a spawned rank, on the flagship at
+    b128/320 (bf16 compute, float32 params, SAM + Adam)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    dp_require_library()
+    device = torch.device("cuda", 0)
+    initialize_multihost(rank=rank, world_size=world, init_method=init_method, device=device)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"17a wants NCCL at world size 1, got {dist.get_backend()}")
+        batch = bench_like_batch(DP_BATCH, BENCH_CFG.input_shape[0], device)
+        # the DP step against the plain step, augmentation and dropout off
+        tcfg = TrainConfig(seed=SEED)
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs = {}
+            for name, make in (("plain", make_train_step), ("dp", make_dp_train_step)):
+                module = dp_flagship(device, dropout=False)
+                before = [p.detach().clone() for p in module.parameters()]
+                state = create_train_state(module, tcfg, 100)
+                state, sc = make(module, tcfg, augment=False)(state, *batch)
+                runs[name] = (sc["loss"].item(), before,
+                              [p.detach().clone() for p in module.parameters()])
+                del module, state
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (l_p, before, after_p), (l_d, _, after_d) = runs["plain"], runs["dp"]
+        loss_err = abs(l_d / l_p - 1)
+        upd_err, worst = update_errors(before, after_d, after_p)
+        check(np.isfinite(l_d) and loss_err <= DP_LOSS_RTOL,
+              f"17a DP loss {l_d} vs plain {l_p} (rel {loss_err})")
+        check(upd_err <= DP_UPDATE_RTOL, f"17a DP update differs by {upd_err} in relative L2")
+        del runs, before, after_p, after_d
+
+        # three steps with rotation on the card and train metrics: the
+        # path's launches
+        tcfg = TrainConfig(rotate_device=True, positional_crop=True, seed=SEED)
+        module = dp_flagship(device, dropout=True)
+        state = create_train_state(module, tcfg, 100)
+        metrics_step = make_dp_train_step(module, tcfg, compute_metrics=True)
+        start = [p.detach().clone() for p in module.parameters()]
+        krot.shear_rows.launches = krot.shear_cols.launches = 0
+        knms.decode_filter_nms_batch.launches = 0
+        scalars = [metrics_step(state, *batch)[1] for _ in range(DP_STEPS)]
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        check(launches == {"decode_filter_nms": DP_STEPS, "shear_rows": 2 * DP_STEPS,
+                           "shear_cols": DP_STEPS}, f"17a launches {launches}")
+        check(all(np.isfinite(v.item()) for sc in scalars for v in sc.values()),
+              "17a non-finite scalars")
+        check(max((p - q).abs().max().item() for p, q in zip(module.parameters(), start)) > 0,
+              "17a params did not move")
+
+        # timings: the plain and the DP step in turns, three runs each; the
+        # reduction alone on the flagship's gradients (one flat buffer of
+        # 3,013,253 floats, 12.05 MB)
+        plain, dp = make_train_step(module, tcfg), make_dp_train_step(module, tcfg)
+        times = {"plain": [], "dp": []}
+        grads = [torch.randn_like(p) for p in module.parameters()]
+        reduce = grad_all_reduce(dist.group.WORLD, torch.tensor(DP_BATCH, device=device))
+        for _ in range(3):
+            for name, step in (("plain", plain), ("dp", dp)):
+                times[name].append(step_ms(state, step, batch, DP_TIMED_STEPS))
+        reduce_ms = event_ms(lambda: reduce(grads), 20)
+        with open(os.path.join(out_dir, "dp_nccl.json"), "w") as f:
+            json.dump({"loss": [l_p, l_d], "loss_err": loss_err, "update_err": upd_err,
+                       "worst_tensor": worst, "launches": launches,
+                       "metrics": {k: v.item() for k, v in scalars[-1].items()},
+                       "times": times, "reduce_ms": reduce_ms,
+                       "grad_floats": sum(g.numel() for g in grads)}, f)
+    finally:
+        shutdown()
+
+
+def dp_against_global(make_module, batch, rank: int, world: int, what: str) -> dict:
+    """17b: one float32 SAM + SGD step on this rank's slice of ``batch``
+    through the DP step; the ranks' params must come out identical, and
+    (rank 0) equal the one-process step on the global batch at phase 8's
+    tolerances. Two more DP steps time the step."""
+    tcfg = TrainConfig(optimizer="sgd", learning_rate=1e-2)
+    module = make_module()
+    before = [p.detach().clone() for p in module.parameters()]
+    state = create_train_state(module, tcfg, 100)
+    step = make_dp_train_step(module, tcfg, augment=False)
+    mine = dp_slice(batch, rank, world)
+    state, sc = step(state, *mine)
+    check(dp_params_identical(module), f"17b {what}: params differ between the ranks")
+    out = {"loss": sc["loss"].item(), "grad_norm": sc["grad_norm"].item()}
+    after = [p.detach().clone() for p in module.parameters()]
+    step_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *mine)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    out["step_ms"] = [1e3 * t for t in step_s]
+    if rank == 0:
+        ref = make_module()
+        ref_state = create_train_state(ref, tcfg, 100)
+        ref_state, ref_sc = make_train_step(ref, tcfg, augment=False)(ref_state, *batch)
+        want = [p.detach() for p in ref.parameters()]
+        out["loss_err"] = abs(out["loss"] / ref_sc["loss"].item() - 1)
+        out["grad_norm_err"] = abs(out["grad_norm"] / ref_sc["grad_norm"].item() - 1)
+        out["update_err"], out["worst_tensor"] = update_errors(before, after, want)
+        check(out["loss_err"] <= TRAIN_RTOL_LOSS, f"17b {what} loss rel err {out['loss_err']}")
+        check(out["grad_norm_err"] <= TRAIN_RTOL_GRAD_NORM,
+              f"17b {what} grad norm rel err {out['grad_norm_err']}")
+        check(out["update_err"] <= TRAIN_RTOL_UPDATE,
+              f"17b {what} update rel L2 {out['update_err']}")
+        check(out["worst_tensor"] <= TRAIN_RTOL_UPDATE_TENSOR,
+              f"17b {what} worst tensor's update rel L2 {out['worst_tensor']}")
+    return out
+
+
+def dp_mobilenetv3_statistics(rank: int, world: int, device) -> dict:
+    """17b: MobileNetV3's per-rank batch statistics make the DP step differ
+    from the global batch's by design (fdtpu's pmean); after one step the
+    params and running statistics must be identical on both ranks, and the
+    statistics the mean of each rank's own update."""
+    tcfg = TrainConfig(optimizer="sgd", learning_rate=1e-2)
+    module = MobileNetV3Backbone((ZOO_SIZE, ZOO_SIZE), ZOO_SIZE // 32,
+                                 generator=torch.Generator().manual_seed(SEED + 5)).to(device)
+    images, boxes, masks = dp_slice(bench_like_batch(2 * DP_MOBILENET_BATCH, ZOO_SIZE, device),
+                                    rank, world)
+    own = MobileNetV3Backbone((ZOO_SIZE, ZOO_SIZE), ZOO_SIZE // 32).to(device)
+    own.load_state_dict(module.state_dict())
+    own = own.to(memory_format=torch.channels_last)  # as the train state holds it
+    with torch.no_grad():  # this rank's own update, as the step's first forward makes it
+        imgs, _, _ = tstep._prepare_inputs(images, boxes, masks, None)
+        own(imgs, train=True, update_stats=True)
+    want = [t.clone() for t in tstep._batch_stats(own)]
+    for t in want:
+        dist.all_reduce(t)
+        t.div_(world)
+    state = create_train_state(module, tcfg, 100)
+    make_dp_train_step(module, tcfg, augment=False)(state, images, boxes, masks)
+    check(dp_params_identical(module), "17b MobileNetV3: params or statistics differ between ranks")
+    got = tstep._batch_stats(module)
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    # each mean within DP_BN_RTOL of its channel's std, each variance relative
+    err = max(max(((g_m - w_m).abs() / (w_v + bn.eps).sqrt()).max().item(),
+                  ((g_v - w_v).abs() / (w_v + bn.eps)).max().item())
+              for bn, g_m, g_v, w_m, w_v in zip(bns, got[::2], got[1::2], want[::2], want[1::2]))
+    check(err <= DP_BN_RTOL, f"17b MobileNetV3 running statistics {err} from the ranks' mean")
+    return {"bn_err": err, "buffers": len(got)}
+
+
+def dp_trainer(rank: int, world: int, device, root: str, tmp: str) -> dict:
+    """17c: ``Trainer(data_parallel=2)`` at ``DetectorConfig()`` in float32,
+    augmentation and shuffle off, deterministic algorithms: one epoch
+    streamed and one resident (bit-equal), each with its per-rank eval
+    through K1; then a resume from rank 0's checkpoint."""
+    from pathlib import Path
+
+    shape = trainer_module(SEED, dtype=None).input_shape
+    srcs = [WIDERFaceDataSource(load_targets(root, split, 3), shape, 8, error_log=None)
+            for split in ("train", "val")]
+    shard = (rank, world)
+    out, trainers = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for resident in (False, True):
+            train = BatchLoader(srcs[0], DP_TRAINER_BATCH, process_shard=shard)
+            val = BatchLoader(srcs[1], DP_TRAINER_BATCH, process_shard=shard)
+            cfg = TrainConfig(max_epochs=1, seed=SEED, visualize_first_batch=False,
+                              data_parallel=world, device_data=resident,
+                              checkpoint_dir=str(Path(tmp) / f"dp_ckpt_{resident}"),
+                              log_path=str(Path(tmp) / f"dp_logs_{resident}" / "out.log"))
+            t = Trainer(trainer_module(SEED + rank, dtype=None), cfg, train, val, augment=False,
+                        run_name="dp", device=device)
+            knms.decode_filter_nms_batch.launches = 0
+            fit = t.fit()
+            torch.cuda.synchronize()
+            k1 = knms.decode_filter_nms_batch.launches
+            check(k1 == 1 + len(val), f"17c K1 launched {k1} times, want {1 + len(val)}")
+            check(all(np.isfinite(v) for split in fit.values() for v in split.values()),
+                  f"17c non-finite metrics {fit}")
+            out["resident" if resident else "streamed"] = {"metrics": fit, "k1": k1,
+                                                            "steps": t.state.step}
+            trainers[resident] = t
+        (ts, tr) = trainers[False], trainers[True]
+        check(out["streamed"]["metrics"] == out["resident"]["metrics"],
+              f"17c streamed {out['streamed']['metrics']} != resident {out['resident']['metrics']}")
+        for p, q in zip(ts.state.module.parameters(), tr.state.module.parameters()):
+            check(torch.equal(p, q), "17c resident params differ from streamed")
+        check(dp_params_identical(ts.state.module), "17c params differ between the ranks")
+        # resume from rank 0's checkpoint in a new Trainer from other params
+        resumed = Trainer(trainer_module(SEED + 7, dtype=None), ts.config, ts.train_loader,
+                          ts.val_loader, augment=False, run_name="dp", device=device)
+        check(resumed.maybe_resume() and resumed.state.step == ts.state.step, "17c resume")
+        for p, q in zip(resumed.state.module.parameters(), ts.state.module.parameters()):
+            check(torch.equal(p, q), "17c resumed params differ from the saved ones")
+            sa, sb = resumed.state.optimizer.state[p], ts.state.optimizer.state[q]
+            check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa),
+                  "17c resumed Adam state differs from the saved one")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["ckpts"] = sorted(p.name for p in (Path(tmp) / "dp_ckpt_False" / "dp").glob("step_*.pt"))
+    return out
+
+
+def dp_gloo_rank(rank: int, world: int, init_method: str, out_dir: str, root: str) -> None:
+    """17b and 17c: two ranks on the one card, gloo on CUDA tensors
+    (staged through the host)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    dp_require_library()
+    device = torch.device("cuda", 0)
+    initialize_multihost(rank=rank, world_size=world, init_method=init_method, device=device,
+                         backend="gloo")
+    try:
+        check(dist.get_backend() == "gloo" and dist.get_world_size() == 2, "17b wants 2 gloo ranks")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        result = {}
+        cfg = BENCH_CFG
+        images, boxes, masks = bench_like_batch(DP_BATCH, cfg.input_shape[0], device)
+        sm = torch.ones(DP_BATCH, dtype=torch.bool, device=device)
+        sm[-1] = False  # one padded sample: the ranks weigh 64 and 63
+
+        def pool():
+            return PoolResnet(cfg.filters, cfg.input_shape, cfg.num_patches,
+                              cfg.num_residual_blocks, dropout=0.0, head_dropout=0.0,
+                              generator=torch.Generator().manual_seed(SEED + 5)).to(device)
+
+        result["poolresnet"] = dp_against_global(pool, (images, boxes, masks, sm), rank, world,
+                                                 "PoolResnet")
+        images, boxes, masks = ssd_batch(SSD_BATCH, SSD_CFG.input_shape[0], device)
+        masks[SSD_BATCH // 2:, 1:] = False  # 4 faces an image on rank 0, 1 on rank 1
+
+        def ssd():
+            return SSD(SSD_CFG.filters, SSD_CFG.input_shape, SSD_CFG.patch_sizes, dropout=0.0,
+                       generator=torch.Generator().manual_seed(SEED + 5)).to(device)
+
+        with torch.no_grad():
+            enc, _ = tstep._encode_targets(ssd(), boxes, masks, SSD_CFG.image_size)
+        result["ssd_positives"] = [int((enc[part, :, 0] > 0).sum()) for part in
+                                   (slice(0, SSD_BATCH // 2), slice(SSD_BATCH // 2, None))]
+        check(result["ssd_positives"][0] != result["ssd_positives"][1],
+              f"17b SSD positives {result['ssd_positives']} are even")
+        result["ssd"] = dp_against_global(ssd, (images, boxes, masks), rank, world, "SSD")
+        result["mobilenetv3"] = dp_mobilenetv3_statistics(rank, world, device)
+        result["trainer"] = dp_trainer(rank, world, device, root, out_dir)
+        with open(os.path.join(out_dir, f"dp_gloo_rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        shutdown()
+
+
+def phase_dp(card, tmp) -> dict:
+    """17: data parallelism on the card. Returns the kernels' launches."""
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    n_train, n_val = DP_TRAINER_IMAGES
+    root = make_synthetic_widerface(Path(tmp) / "dp_data", n_train, split="train", seed=SEED)
+    make_synthetic_widerface(root, n_val, split="val", seed=SEED + 1)
+    launch_local_ranks(dp_nccl_rank, 1, args=(tmp,), timeout=DP_RANK_TIMEOUT_S)
+    with open(os.path.join(tmp, "dp_nccl.json")) as f:
+        a = json.load(f)
+    (p_lo, p_hi), (d_lo, d_hi) = ((min(v), max(v)) for v in (a["times"]["plain"],
+                                                            a["times"]["dp"]))
+    print(f"[17a dp nccl] world 1, PoolResnet-128x10 320px b{DP_BATCH} bf16 SAM+Adam: DP step "
+          f"vs plain step, augmentation and dropout off, deterministic: loss {a['loss'][1]:.6f} vs "
+          f"{a['loss'][0]:.6f} (rel {a['loss_err']:.3g}, rtol {DP_LOSS_RTOL}), update rel L2 "
+          f"{a['update_err']:.3g} (tol {DP_UPDATE_RTOL}), worst tensor {a['worst_tensor']:.3g}; "
+          f"{DP_STEPS} DP steps with rotation on the card and train metrics: launches "
+          f"{a['launches']}, last metrics {a['metrics']}")
+    print(f"[17a time] plain step {p_lo:.3f}-{p_hi:.3f} ms, DP step (NCCL, world 1) "
+          f"{d_lo:.3f}-{d_hi:.3f} ms (three runs of {DP_TIMED_STEPS} steps each, in turns, "
+          f"rotation on); the gradient reduction alone (flatten of {a['grad_floats']:,} "
+          f"floats, all_reduce, divide) {a['reduce_ms']:.4f} ms [{card}]")
+
+    launch_local_ranks(dp_gloo_rank, 2, args=(tmp, str(root)), timeout=DP_RANK_TIMEOUT_S)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"dp_gloo_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    b = ranks[0]
+    for what, key in ((f"PoolResnet-128x10 320px b{DP_BATCH} ({DP_BATCH // 2} + "
+                       f"{DP_BATCH // 2}, one padded sample)", "poolresnet"),
+                      (f"SSD-16 480px b{SSD_BATCH} ({SSD_BATCH // 2} + {SSD_BATCH // 2}, "
+                       f"positive priors {b['ssd_positives']})", "ssd")):
+        r = b[key]
+        print(f"[17b dp gloo] 2 ranks on one card, f32 SAM + SGD, {what} vs one process on the "
+              f"global batch: loss rel {r['loss_err']:.3g} (rtol {TRAIN_RTOL_LOSS}), grad norm "
+              f"rel {r['grad_norm_err']:.3g} (rtol {TRAIN_RTOL_GRAD_NORM}), update rel L2 "
+              f"{r['update_err']:.3g} (rtol {TRAIN_RTOL_UPDATE}), worst tensor "
+              f"{r['worst_tensor']:.3g} (rtol {TRAIN_RTOL_UPDATE_TENSOR}); params identical on "
+              f"both ranks")
+    m = b["mobilenetv3"]
+    print(f"[17b dp gloo] MobileNetV3-Small {ZOO_SIZE}px b{2 * DP_MOBILENET_BATCH} f32 SAM + SGD: "
+          f"params and statistics identical on both ranks; {m['buffers']} running-statistics "
+          f"tensors within {m['bn_err']:.3g} of the mean of each rank's own update "
+          f"(rtol {DP_BN_RTOL})")
+    print(f"[17b time] the DP step, gloo staging through the host (two ranks on one card, not "
+          f"a scaling number): PoolResnet b{DP_BATCH // 2} a rank "
+          f"{min(b['poolresnet']['step_ms']):.1f}-{max(b['poolresnet']['step_ms']):.1f} ms, SSD "
+          f"b{SSD_BATCH // 2} a rank {min(b['ssd']['step_ms']):.1f}-"
+          f"{max(b['ssd']['step_ms']):.1f} ms [{card}]")
+    c = b["trainer"]
+    print(f"[17c dp trainer] data_parallel=2 over gloo on the card, DetectorConfig() f32, "
+          f"{n_train} / {n_val} images, b{DP_TRAINER_BATCH}: streamed = resident bit for bit "
+          f"(train {c['streamed']['metrics']['train']}, val {c['streamed']['metrics']['val']}); "
+          f"K1 {c['streamed']['k1']} + {c['resident']['k1']} launches on each rank; resume from "
+          f"rank 0's {c['ckpts']} bit-equal")
+    launches = dict(a["launches"])
+    launches["decode_filter_nms"] += sum(r["trainer"]["streamed"]["k1"]
+                                         + r["trainer"]["resident"]["k1"] for r in ranks)
+    print(f"[17 dp] launches on the DP paths {launches}; phase 17 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def kernel_times_only() -> None:
     """``--kernel-times``: the card, the build, and K1-K4's device times
     (no plain versions) as one JSON line; ``python -m
@@ -2137,6 +2531,7 @@ def main() -> None:
         trainer_launches = phase_trainer(tmp)
         ssd_launches, ssd_rows = phase_ssd(card, tmp)
         zoo_launches = phase_zoo(card, tmp)
+        dp_launches = phase_dp(card, tmp)
 
     def entry(meta, launches, err, times, library_ms=None):
         ms, plain, bnd = times
@@ -2151,13 +2546,15 @@ def main() -> None:
     # (library_ms: F.grid_sample on the float32 rows only, see shear_times)
     kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"]
                         + trainer_launches["decode_filter_nms"] + ssd_launches
-                        + zoo_launches["decode_filter_nms"], worst,
+                        + zoo_launches["decode_filter_nms"] + dp_launches["decode_filter_nms"],
+                        worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
     for kname, meta in SHEARS.items():
         rows = [r for r in shear_rows if r["name"].startswith(kname)]
         kernels.append({**entry({"name": kname, **meta},
                                 train_launches[kname] + photo_launches[kname]
-                                + trainer_launches[kname] + zoo_launches[kname], rot_worst,
+                                + trainer_launches[kname] + zoo_launches[kname]
+                                + dp_launches[kname], rot_worst,
                                 row_times(rows[0]), rows[0]["library_ms"]), "shapes": rows})
     kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"], photo_worst,
                          fused_times["photometric"]))

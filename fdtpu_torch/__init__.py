@@ -2,7 +2,8 @@
 
 The JAX package ``fdtpu`` is the reference; this package sits beside it and
 mirrors its layout (``core/``, ``kernels/``, ``models/``, ``compat/``,
-``utils/``) so each module's counterpart is found under the same name. It
+``data/``, ``losses/``, ``train/``, ``parallel/``, ``utils/``) so each
+module's counterpart is found under the same name. It
 imports torch, numpy and PIL, never jax, flax, optax or fdtpu.
 
 Conventions kept from fdtpu at every public function:

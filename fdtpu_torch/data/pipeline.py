@@ -12,12 +12,14 @@ the counterpart of ``fdtpu/data/pipeline.py``.
 
 :class:`WIDERFaceDataSource`, :class:`BatchLoader`,
 :func:`rotate_image_and_boxes` and :func:`make_synthetic_widerface` are
-fdtpu's numpy code, so the same seed gives the same bytes. Not ported: the
-native libjpeg-turbo decoder (``fdtpu/native/fast_loader.cpp``, ROADMAP.md
-queue 1, item 6; the source decodes with PIL) and the multi-process feed
-``BatchLoader(process_shard=...)`` (item 5). :class:`DevicePrefetcher` takes
-an explicit device: on a CUDA device it stages each batch in pinned host
-memory and copies it on a side stream one batch ahead.
+fdtpu's numpy code, so the same seed gives the same bytes, and
+``BatchLoader(process_shard=(rank, world))`` gives a data-parallel rank its
+slice of every global batch, as fdtpu's multi-process feed does. Not ported:
+the native libjpeg-turbo decoder (``fdtpu/native/fast_loader.cpp``,
+ROADMAP.md queue 1, item 6; the source decodes with PIL).
+:class:`DevicePrefetcher` takes an explicit device (each rank its own): on a
+CUDA device it stages each batch in pinned host memory and copies it on a
+side stream one batch ahead.
 """
 
 from __future__ import annotations
@@ -203,6 +205,12 @@ class BatchLoader:
 
     ``epoch_fraction=4`` reproduces the SSD dataset's quarter-epoch
     ``__len__`` (``dataset_ssd.py:32-34``).
+
+    ``process_shard=(rank, world)`` is the data-parallel feed: every rank
+    derives the **same** global index order (seeded by epoch), and each
+    yields only its ``batch_size / world`` slice of every global batch
+    (``batch_size`` is the global batch). Partial final batches are dropped
+    in this mode (their split across ranks would be uneven).
     """
 
     def __init__(
@@ -214,6 +222,7 @@ class BatchLoader:
         drop_last: bool = False,
         epoch_fraction: int = 1,
         prefetch: int = 2,
+        process_shard: tuple[int, int] | None = None,
     ):
         self.source = source
         self.batch_size = batch_size
@@ -222,11 +231,21 @@ class BatchLoader:
         self.drop_last = drop_last
         self.epoch_fraction = epoch_fraction
         self.prefetch = prefetch
+        self.process_shard = process_shard
+        if process_shard is not None:
+            rank, world = process_shard
+            if not 0 <= rank < world:
+                raise ValueError(f"bad process_shard {process_shard}")
+            if batch_size % world:
+                raise ValueError(f"global batch_size {batch_size} not divisible by {world} ranks")
+            self._local_batch = batch_size // world
+        else:
+            self._local_batch = batch_size
         self._epoch = 0
 
     def __len__(self) -> int:
         n = len(self.source) // self.epoch_fraction
-        if self.drop_last:
+        if self.drop_last or self.process_shard is not None:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
@@ -244,8 +263,8 @@ class BatchLoader:
             imgs.append(im)
             boxes.append(bx)
             masks.append(mk)
-        sample_mask = np.ones((self.batch_size,), dtype=bool)
-        pad = self.batch_size - len(imgs)
+        sample_mask = np.ones((self._local_batch,), dtype=bool)
+        pad = self._local_batch - len(imgs)
         if pad:
             sample_mask[len(imgs):] = False
             imgs += [imgs[-1]] * pad
@@ -263,7 +282,10 @@ class BatchLoader:
         self._epoch += 1
         nb = len(idx) // self.batch_size
         chunks = [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(nb)]
-        if not self.drop_last and len(idx) % self.batch_size:
+        if self.process_shard is not None:
+            rank, lb = self.process_shard[0], self._local_batch
+            chunks = [ch[rank * lb : (rank + 1) * lb] for ch in chunks]
+        elif not self.drop_last and len(idx) % self.batch_size:
             chunks.append(idx[nb * self.batch_size :])
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

@@ -5,6 +5,7 @@
                                         [--steps 10]
     python -m fdtpu_torch.profile_train --model ssd [--batch 24] [--size 480]
     python -m fdtpu_torch.profile_train --model mobilenetv3 [--batch 8] [--size 480]
+    python -m fdtpu_torch.profile_train --data-parallel [...]
 
 Drives ``make_train_step`` at ``bench.py``'s train shape by default
 (PoolResnet-128, 10 blocks, bf16 compute with float32 params, SAM + Adam,
@@ -15,8 +16,10 @@ b24, SAM + Adam, augmentation off); with ``--model resnet | separable |
 mobilenetv3`` at ``train_model``'s shape for that family (b8, 480 px, grid
 15, or 16 patches for SeparableCNN, device augmentation with rotation;
 MobileNetV3 with its BatchNorm state); random weights and u8 frames from
-seed 0, one face per image. Prints, beside the card's nvidia-smi name and power
-limit:
+seed 0, one face per image. ``--data-parallel`` profiles the data-parallel
+step instead (``make_dp_train_step`` in a one-rank NCCL group): the same
+step plus its reductions, what data parallelism costs a step on one card.
+Prints, beside the card's nvidia-smi name and power limit:
 
 * ms per step by CUDA events over ``--steps`` steps after warmup, with no
   profiler attached;
@@ -34,7 +37,9 @@ Fails without a CUDA card.
 from __future__ import annotations
 
 import argparse
+import shutil
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 
@@ -44,6 +49,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from fdtpu_torch.models import FAMILIES, build_model, ssd_patch_sizes
+from fdtpu_torch.parallel import initialize_multihost, make_dp_train_step, shutdown
 from fdtpu_torch.train import create_train_state, make_train_step
 from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 
@@ -82,7 +88,7 @@ def busy_us(spans) -> float:
 
 
 def setup(batch: int, size: int, grid: int, rotate: bool, fused_photometric: bool = False,
-          model: str = "poolresnet"):
+          model: str = "poolresnet", data_parallel: bool = False):
     if model == "ssd":
         cfg = SSDConfig(input_shape=(size, size), patch_sizes=ssd_patch_sizes((size, size)))
     else:
@@ -99,7 +105,8 @@ def setup(batch: int, size: int, grid: int, rotate: bool, fused_photometric: boo
     masks = np.tile([True, False, False, False], (batch, 1))
     data = tuple(torch.from_numpy(a).cuda() for a in (images, boxes, masks))
     # the SSD trains without augmentation, as train_model_ssd does by default
-    return state, make_train_step(module, tcfg, augment=model != "ssd"), data
+    make = make_dp_train_step if data_parallel else make_train_step
+    return state, make(module, tcfg, augment=model != "ssd"), data
 
 
 def main() -> None:
@@ -111,6 +118,8 @@ def main() -> None:
     ap.add_argument("--grid", type=int, default=None, help="default 15 (16 for separable)")
     ap.add_argument("--no-rotate", action="store_true")
     ap.add_argument("--fused-photometric", action="store_true")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="the data-parallel step, in a one-rank NCCL group")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
@@ -125,8 +134,20 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    rendezvous = tempfile.mkdtemp(prefix="fdtpu_profile_")
+    try:
+        if args.data_parallel:
+            initialize_multihost(rank=0, world_size=1, device="cuda:0",
+                                 init_method=f"file://{rendezvous}/store")
+        profile_step(args, card, ssd)
+    finally:
+        shutdown()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def profile_step(args, card: str, ssd: bool) -> None:
     state, step, data = setup(args.batch, args.size, args.grid, not args.no_rotate,
-                              args.fused_photometric, args.model)
+                              args.fused_photometric, args.model, args.data_parallel)
     n = args.steps
 
     for _ in range(5):
@@ -175,6 +196,8 @@ def main() -> None:
                  f"rotation "
                  f"{'off' if args.no_rotate else 'on'}, photometric "
                  f"{'fused (float32)' if args.fused_photometric else 'default chain (bfloat16)'}")
+    if args.data_parallel:
+        shape += ", the data-parallel step (NCCL, world size 1)"
     print(f"== {shape} [{card}]")
     print(f"step {step_ms:.3f} ms by CUDA events, unprofiled ({args.batch * 1e3 / step_ms:.1f} "
           f"img/s); under the profiler {host_ms:.3f} ms by host clock")

@@ -20,14 +20,17 @@ import torch
 from fdtpu_torch.train.state import TrainState
 
 
+def checkpoint_path(ckpt_dir: str | Path, step: int) -> Path:
+    """Where the checkpoint of ``step`` lives: ``<ckpt_dir>/step_<step>.pt``."""
+    return Path(ckpt_dir).absolute() / f"step_{step:08d}.pt"
+
+
 def save_checkpoint(ckpt_dir: str | Path, state: TrainState, step: int | None = None) -> Path:
     """Write ``state`` to ``<ckpt_dir>/step_<step>.pt`` (the state's step by
     default) and return the path. The file is written under a temporary
     name and renamed into place."""
-    ckpt_dir = Path(ckpt_dir).absolute()
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    step = int(state.step) if step is None else step
-    path = ckpt_dir / f"step_{step:08d}.pt"
+    path = checkpoint_path(ckpt_dir, int(state.step) if step is None else step)
+    path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(path.name + ".tmp")
     torch.save(
         {"step": int(state.step), "module": state.module.state_dict(),

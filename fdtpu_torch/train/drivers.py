@@ -8,13 +8,22 @@
   a permutation on the device and batches are gathered by index.
 
 Drivers read and write training state through the owning ``Trainer``
-(``state``, ``epoch``, the step functions, ``config``, ``device``); the
-Trainer keeps checkpointing, step construction, logging and the fit loop.
+(``state``, ``epoch``, the step functions, ``config``, ``device``, and
+``rank``/``world`` under data parallelism); the Trainer keeps checkpointing,
+step construction, logging and the fit loop.
+
+Under ``data_parallel`` every rank runs the same driver on its slice of
+each global batch, through the data-parallel steps (their reductions make
+the state, the losses and the metrics the same on every rank): streamed, the
+rank's ``BatchLoader(process_shard=...)``; resident, the rank stages its
+slice of every global batch (fdtpu's ``_stage_from_source_multihost``) and
+draws its own real-first permutation of it each epoch (fdtpu's
+``_device_epoch_sharded``: a stratified shuffle, every global batch taking
+``B / world`` rows from each rank's pool). Only rank 0 draws.
 
 Not ported: ``ScanDispatchDriver`` (``steps_per_dispatch`` batches in one
 ``lax.scan``, for the TPU's dispatch cost; the port runs eagerly, one step
-a batch), and the ``data_parallel`` mesh and multihost branches of staging
-and the resident epoch (ROADMAP.md queue 1, item 5).
+a batch).
 """
 
 from __future__ import annotations
@@ -95,18 +104,21 @@ class EpochDriver:
         return t._metrics_train_step() if (last and t.config.train_metrics) else t.train_step
 
     def _visualize_batch(self, batch_args, save_name: str):
-        """Render sample 0's predictions (ModelMeta.py:144-157)."""
+        """Render sample 0's predictions (ModelMeta.py:144-157), on rank 0
+        alone, through the eval step without collectives."""
         t = self.t
-        _, (pred_boxes, pred_mask) = t.eval_step(t.state, *batch_args)
+        if not t.primary:
+            return
+        _, (pred_boxes, pred_mask) = t.local_eval_step(t.state, *batch_args)
         draw_bbx(batch_args[0][0].cpu().numpy(), pred_boxes[0].cpu().numpy(),
                  mask=pred_mask[0].cpu().numpy(), save_name=save_name)
 
     def _log_step(self, bi: int, scalars: dict) -> None:
         """Per-step progress line (the reference's step_loss prog-bar
         logging, ModelMeta.py:226), throttled: each line waits for the
-        device."""
+        device. Rank 0 prints."""
         every = self.t.config.log_every_steps
-        if every and bi % every == 0:
+        if every and self.t.primary and bi % every == 0:
             print(f"epoch {self.t.epoch} step {bi}: step_loss={float(scalars['loss']):.4f}",
                   flush=True)
 
@@ -140,7 +152,7 @@ class StreamedDriver(EpochDriver):
                 t.state, batch.images, batch.boxes, batch.box_mask, batch.sample_mask)
             for k, v in scalars.items():
                 agg.setdefault(k, []).append(v)
-            if first and t.config.visualize_first_batch:
+            if first and t.config.visualize_first_batch and t.primary:
                 # ModelMeta.py:144-157: render the first sample's predictions
                 draw_bbx(batch.images[0].cpu().numpy(), pred_boxes[0].cpu().numpy(),
                          mask=pred_mask[0].cpu().numpy(), save_name=f"{split}_epoch_{t.epoch}")
@@ -183,23 +195,28 @@ class ResidentDriver(EpochDriver):
         of the last sample (masked via ``sample_mask``); the loader's
         ``drop_last``/``epoch_fraction`` truncation is applied per epoch
         after the permutation, so dropped samples rotate across epochs like
-        the streamed ``BatchLoader._indices``. Copies go chunk by chunk
-        from pinned memory."""
+        the streamed ``BatchLoader._indices``. A data-parallel rank stages
+        only its ``[rank * lb, (rank + 1) * lb)`` rows of every global
+        batch (``lb = B / world``), the rows its ``process_shard`` feed
+        yields. Copies go chunk by chunk from pinned memory."""
+        t = self.t
         src = loader.source
         batch = loader.batch_size
+        lb = batch // t.world
+        rows = slice(t.rank * lb, (t.rank + 1) * lb)
         n = len(src)
         n_total = ((n + batch - 1) // batch) * batch
-        dev = self.t.device
+        dev = t.device
         parts: list[list] = [[], [], []]
         for start in range(0, n_total, batch):
             idx = np.minimum(np.arange(start, start + batch), n - 1)  # BatchLoader padding
-            samples = [src.get(int(i)) for i in idx]
+            samples = [src.get(int(i)) for i in idx[rows]]
             for i in range(3):
                 host = torch.from_numpy(np.stack([s[i] for s in samples]))
                 if dev.type == "cuda":
                     host = host.pin_memory()
                 parts[i].append(host.to(dev, non_blocking=True))
-        sample_mask = torch.arange(n_total, device=dev) < n
+        sample_mask = (torch.arange(n_total, device=dev) < n).view(-1, batch)[:, rows].reshape(-1)
         return (
             torch.cat(parts[0]),
             torch.cat(parts[1]).float(),
@@ -210,13 +227,15 @@ class ResidentDriver(EpochDriver):
 
     def _epoch_batches(self, loader, n_real: int) -> int:
         """Batches per resident epoch, matching ``BatchLoader.__len__``:
-        ``epoch_fraction`` then ``drop_last`` truncation (ceil otherwise:
-        the padded tail rows sort last in the epoch permutation, so the
-        final batch is exactly the streamed padded tail)."""
+        ``epoch_fraction`` then ``drop_last``/``process_shard`` truncation
+        (ceil otherwise: the padded tail rows sort last in the epoch
+        permutation, so the final batch is exactly the streamed padded
+        tail)."""
         batch = loader.batch_size
         ef = getattr(loader, "epoch_fraction", 1) or 1
         n_eff = n_real // ef
-        if bool(getattr(loader, "drop_last", False)):
+        if (bool(getattr(loader, "drop_last", False))
+                or getattr(loader, "process_shard", None) is not None):
             return max(1, n_eff // batch)
         return max(1, (n_eff + batch - 1) // batch)
 
@@ -225,10 +244,12 @@ class ResidentDriver(EpochDriver):
     def train_epoch(self) -> dict:
         t = self.t
         imgs, boxes, bm, sm, n_real = self._stage_device_dataset()
-        batch = t.train_loader.batch_size
+        batch = t.train_loader.batch_size // t.world  # the rank's rows of each global batch
         nb = self._epoch_batches(t.train_loader, n_real)
         shuffle = bool(getattr(t.train_loader, "shuffle", False))
-        gen = torch.Generator(device=t.device).manual_seed(step_seed(t.config.seed + 2, t.epoch))
+        rank = t.rank if t.group is not None else None  # each rank its own permutation
+        gen = torch.Generator(device=t.device).manual_seed(
+            step_seed(t.config.seed + 2, t.epoch, rank))
         perm = _epoch_perm(gen, sm, shuffle)
 
         def rows(i):
@@ -254,7 +275,7 @@ class ResidentDriver(EpochDriver):
         if loader not in self._device_val:
             self._device_val[loader] = self._stage_from_source(loader)
         imgs, boxes, bm, sm, n_real = self._device_val[loader]
-        batch = loader.batch_size
+        batch = loader.batch_size // t.world
         agg: dict[str, list] = {}
         for i in range(self._epoch_batches(loader, n_real)):
             sl = slice(i * batch, (i + 1) * batch)
@@ -262,7 +283,7 @@ class ResidentDriver(EpochDriver):
             scalars, (pred_boxes, pred_mask) = t.eval_step(t.state, *args)
             for k, v in scalars.items():
                 agg.setdefault(k, []).append(v)
-            if i == 0 and t.config.visualize_first_batch:
+            if i == 0 and t.config.visualize_first_batch and t.primary:
                 draw_bbx(args[0][0].cpu().numpy(), pred_boxes[0].cpu().numpy(),
                          mask=pred_mask[0].cpu().numpy(), save_name=f"{split}_epoch_{t.epoch}")
         return _finalize_eval_metrics(t, agg, split)

@@ -17,8 +17,16 @@ moves the module there, and never probes for a card. It trains every
 family of the zoo (the SSD's loss takes ``neg_pos_ratio`` and ``bg_push``,
 passed to every step it builds; MobileNetV3's BatchNorm trains on batch
 statistics and its eval epochs run on the running ones, which its
-checkpoints carry); fdtpu's data-parallel step builders are not ported
-(ROADMAP.md queue 1, item 5).
+checkpoints carry).
+
+Data parallelism (``config.data_parallel``, fdtpu's mesh step builders):
+each rank of an initialised ``torch.distributed`` group of that size builds
+its own Trainer on its own device, with loaders built with
+``process_shard=(rank, world)``, and takes the data-parallel train and eval
+steps (``fdtpu_torch/parallel/dp.py``). The Trainer broadcasts rank 0's
+initial params and buffers; rank 0 writes the logs, drawings and
+checkpoints, and every rank waits for each checkpoint before it goes on;
+every rank reads the checkpoint on ``maybe_resume``.
 """
 
 from __future__ import annotations
@@ -27,9 +35,16 @@ import dataclasses
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from fdtpu_torch.data.pipeline import BatchLoader
-from fdtpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+from fdtpu_torch.parallel.dp import barrier, broadcast_module
+from fdtpu_torch.train.checkpoint import (
+    checkpoint_path,
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from fdtpu_torch.train.drivers import make_driver
 from fdtpu_torch.train.state import create_train_state
 from fdtpu_torch.train.step import make_eval_step, make_train_step
@@ -75,8 +90,15 @@ class Trainer:
                 config, positional_crop=bool(getattr(train_loader, "shuffle", False)))
             self.config = config
 
+        self.group = self._data_parallel_group(config, train_loader, val_loader)
+        self.rank = dist.get_rank(self.group) if self.group is not None else 0
+        self.world = dist.get_world_size(self.group) if self.group is not None else 1
+        self.primary = self.rank == 0  # writes logs, drawings and checkpoints
+
         self.state = create_train_state(
             self.module, config, steps_per_epoch=max(len(train_loader), 1))
+        if self.group is not None:
+            broadcast_module(self.module, self.group)  # every rank starts from rank 0's
         self._augment = augment
         self._nms_params = nms_params
         # the SSD loss's knobs, the same for every step (train/val objectives aligned)
@@ -84,13 +106,41 @@ class Trainer:
         self._train_step_metrics = None  # built on first use
         self.train_step = make_train_step(
             self.module, config, augment=augment, compute_metrics=False, nms_params=nms_params,
-            **self._loss_kw)
+            group=self.group, **self._loss_kw)
         self.eval_step = make_eval_step(self.module, nms_params=nms_params, return_boxes=True,
-                                        **self._loss_kw)
+                                        group=self.group, **self._loss_kw)
+        # the first-batch drawings: rank 0's own rows, no collective
+        self.local_eval_step = self.eval_step if self.group is None else make_eval_step(
+            self.module, nms_params=nms_params, return_boxes=True, **self._loss_kw)
         self.epoch = 0
         self.profile_dir: str | None = None  # set to trace the next train epoch
         # feed mode (streamed / resident) -> one driver
         self.driver = make_driver(self)
+
+    @staticmethod
+    def _data_parallel_group(config: TrainConfig, train_loader, val_loader):
+        """The process group of ``config.data_parallel`` ranks (fdtpu's
+        mesh), or None for one process. -1 is the default group's size (one
+        process without a group). The global batch must divide among the
+        ranks, the default group must have that many, and each loader must
+        give this rank its slice (``process_shard``)."""
+        n = config.data_parallel
+        if n == -1:
+            n = dist.get_world_size() if dist.is_initialized() else 1
+        if n in (None, 0, 1):
+            return None
+        if train_loader.batch_size % n:
+            raise ValueError(f"data_parallel={n} requires batch_size divisible by the number of "
+                             f"ranks (got batch_size={train_loader.batch_size})")
+        if not dist.is_initialized() or dist.get_world_size() != n:
+            raise ValueError(f"data_parallel={n} needs an initialised process group of {n} ranks "
+                             "(fdtpu_torch.parallel.initialize_multihost)")
+        shard = (dist.get_rank(), n)
+        for loader in (train_loader, val_loader):
+            if loader is not None and getattr(loader, "process_shard", None) != shard:
+                raise ValueError(f"data_parallel={n}: build each loader with "
+                                 f"process_shard={shard} on this rank")
+        return dist.group.WORLD
 
     def _metrics_train_step(self):
         """Train step that also decodes predictions (K1) and computes the
@@ -99,7 +149,7 @@ class Trainer:
         if self._train_step_metrics is None:
             self._train_step_metrics = make_train_step(
                 self.module, self.config, augment=self._augment, compute_metrics=True,
-                nms_params=self._nms_params, **self._loss_kw)
+                nms_params=self._nms_params, group=self.group, **self._loss_kw)
         return self._train_step_metrics
 
     def profile(self, trace_dir: str = "profiles"):
@@ -112,7 +162,16 @@ class Trainer:
     # -- checkpointing -------------------------------------------------------
 
     def save(self) -> Path:
-        return save_checkpoint(Path(self.config.checkpoint_dir) / self.run_name, self.state)
+        """Write the state's checkpoint (rank 0; every rank waits for it)
+        and return its path."""
+        ckpt_dir = Path(self.config.checkpoint_dir) / self.run_name
+        if self.primary:
+            path = save_checkpoint(ckpt_dir, self.state)
+        else:
+            path = checkpoint_path(ckpt_dir, int(self.state.step))
+        if self.group is not None:
+            barrier(self.group, self.device)
+        return path
 
     def maybe_resume(self) -> bool:
         path = latest_checkpoint(Path(self.config.checkpoint_dir) / self.run_name)

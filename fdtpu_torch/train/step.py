@@ -29,14 +29,21 @@ step, from the forward at the unperturbed point: fdtpu takes the new
 ``batch_stats`` from the first evaluation (``sam_gradients``' ``aux``) and
 drops the perturbed forward's.
 
+Data parallelism: with a ``group`` (a ``torch.distributed`` process group)
+each rank runs the step on its slice of the global batch, and the step is
+fdtpu's per-shard ``axis_name`` body: the gradients are all-reduced by
+fdtpu's weighted form inside both SAM points, the reported loss is summed
+(the SSD's re-weighted by its positives), the BatchNorm running statistics
+(updated once, from the unperturbed forward) are averaged across the ranks,
+and the metrics are weighted by each rank's real samples. The reductions are
+in ``fdtpu_torch/parallel/dp.py``. The rank folds into the step's seed, as
+fdtpu folds ``axis_index`` into its key, so every rank draws its own
+augmentation and dropout.
+
 The train step's phases run under ``torch.profiler.record_function`` spans
 (``train/augment``, ``train/targets``, ``train/gradients``,
 ``train/optimizer``, ``train/metrics``), which ``fdtpu_torch.profile_train``
 reads for device time by phase.
-
-Not ported: the SPMD ``axis_name`` body with its cross-shard loss, gradient
-and BatchNorm-statistics reductions (ROADMAP.md queue 1, item 5); it raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from fdtpu_torch.core.grid import encode_grid_targets
@@ -55,27 +63,33 @@ from fdtpu_torch.losses.ssd import ssd_loss
 from fdtpu_torch.losses.yolo import yolo_loss
 from fdtpu_torch.compat.torch_import import ReferenceLayoutGrid
 from fdtpu_torch.models.detector import has_batch_stats, is_ssd
-from fdtpu_torch.models.layers import DropoutMasks
+from fdtpu_torch.models.layers import BatchNorm, DropoutMasks
 from fdtpu_torch.models.mobilenetv3 import MobileNetV3Backbone
 from fdtpu_torch.models.poolresnet import PoolResnet
 from fdtpu_torch.models.ssd import SSD
+from fdtpu_torch.parallel.dp import (
+    grad_all_reduce,
+    mean_buffers,
+    reduce_loss_sum,
+    weighted_metric_reduce,
+)
 from fdtpu_torch.train.metrics import detection_metrics
 from fdtpu_torch.train.sam import global_norm, sam_gradients
 from fdtpu_torch.train.state import TrainState
 from fdtpu_torch.utils.config import TrainConfig
 
 
-def _check_supported(module, axis_name) -> None:
+def _check_supported(module) -> None:
     inner = module.inner if isinstance(module, ReferenceLayoutGrid) else module
     if not isinstance(inner, (PoolResnet, MobileNetV3Backbone, SSD)):  # Resnet, SeparableCNN
         raise ValueError(f"{type(module).__name__} is not a detector of the zoo")
-    if axis_name is not None:
-        raise NotImplementedError("data-parallel steps are not ported (ROADMAP.md queue 1, item 5)")
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The generator seed of one step: a hash of ``(seed, step)``."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
+def step_seed(seed: int, step: int, rank: int | None = None) -> int:
+    """The generator seed of one step: a hash of ``(seed, step)``, and of
+    the rank for a rank of a data-parallel group."""
+    entropy = [seed, step] if rank is None else [seed, step, rank]
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
 
 def _prepare_inputs(images, boxes, box_mask, gen: torch.Generator | None,
@@ -110,10 +124,20 @@ def _decode_predictions(module, out, image_size, prob, iou, capacity):
     return decode_filter_nms(out, module.grid_size(), image_size, prob, iou, capacity)
 
 
-def _loss_norm(sample_mask) -> torch.Tensor:
-    """The divisor from the summed loss to the gradient loss: the number of
-    real samples, at least 1."""
-    return sample_mask.sum().clamp_min(1)
+def _loss_norm(module, enc, sample_mask) -> torch.Tensor:
+    """The count the gradient loss is divided by, before its clamp at 1:
+    the real samples (YOLO), or the positive priors of the real samples
+    (the SSD, ``SSDLoss.py:85-86``); the data-parallel reductions weigh
+    each rank by it."""
+    if is_ssd(module):
+        return ((enc[..., 0] > 0) & sample_mask[:, None]).sum()
+    return sample_mask.sum()
+
+
+def _batch_stats(module) -> list[torch.Tensor]:
+    """The running statistics of every BatchNorm (fdtpu's ``batch_stats``)."""
+    return [t for m in module.modules() if isinstance(m, BatchNorm)
+            for t in (m.running_mean, m.running_var)]
 
 
 def _forward(module, images, masks: DropoutMasks | None, train: bool, update_stats: bool):
@@ -138,7 +162,7 @@ def _loss_and_out(module, images, enc, sample_mask, masks: DropoutMasks | None =
         return loss, (loss, out)
     per_sample = yolo_loss(out, enc)
     loss_sum = torch.sum(per_sample * sample_mask)
-    return loss_sum / _loss_norm(sample_mask), (loss_sum, out)
+    return loss_sum / sample_mask.sum().clamp_min(1), (loss_sum, out)
 
 
 def _image_size(module) -> tuple[int, int]:
@@ -152,12 +176,15 @@ def make_train_step(
     augment: bool = True,
     compute_metrics: bool = False,
     nms_params: tuple[float, float, int] = (0.5, 0.5, 64),
-    axis_name: str | None = None,
+    group=None,
     neg_pos_ratio: int = 10,
     bg_push: float = 0.0,
 ) -> Callable:
     """Build the train step for ``module`` (the state's module);
-    ``neg_pos_ratio`` and ``bg_push`` are the SSD loss's.
+    ``neg_pos_ratio`` and ``bg_push`` are the SSD loss's. With ``group``
+    (a process group; None for one process) the step is a rank's of
+    data-parallel training (module docstring): each rank passes its slice
+    of the global batch and gets the same state and scalars back.
 
     ``step(state, images_u8, boxes, box_mask, sample_mask=None) -> (state,
     scalars)``: ``images_u8`` ``(B, H, W, 3)``, ``boxes`` ``(B, N, 5)``
@@ -166,16 +193,17 @@ def make_train_step(
     device. ``scalars`` holds ``loss`` and ``grad_norm`` (and ``iou``,
     ``recall``, ``precision`` with ``compute_metrics``) as 0-d tensors.
     """
-    _check_supported(module, axis_name)
+    _check_supported(module)
     image_size = _image_size(module)
     prob, iou_thr, capacity = nms_params
+    rank = None if group is None else dist.get_rank(group)
 
     def step(state: TrainState, images, boxes, box_mask, sample_mask=None):
         net = state.module
         if sample_mask is None:
             sample_mask = torch.ones(images.shape[:1], dtype=torch.bool, device=images.device)
         gen = state.generator
-        gen.manual_seed(step_seed(config.seed, state.step))
+        gen.manual_seed(step_seed(config.seed, state.step, rank))
         with record_function("train/augment"):
             imgs, bx, bm = _prepare_inputs(
                 images, boxes, box_mask, gen if augment else None,
@@ -197,18 +225,27 @@ def make_train_step(
                                  bg_push, train=True, update_stats=evaluations == 1)
 
         params = [p for p in net.parameters() if p.requires_grad]
+        norm = grad_reduce = None
+        if group is not None:
+            norm = _loss_norm(net, enc, sample_mask)
+            grad_reduce = grad_all_reduce(group, norm)
         with record_function("train/gradients"):
             if config.use_sam:
-                _, aux, grads = sam_gradients(loss_fn, params, config.sam_rho)
+                _, aux, grads = sam_gradients(loss_fn, params, config.sam_rho, grad_reduce)
             else:
                 loss, aux = loss_fn()
                 grads = torch.autograd.grad(loss, params)
+                if grad_reduce is not None:
+                    grads = grad_reduce(grads)
         loss_sum, out = aux
+        if group is not None:
+            loss_sum = reduce_loss_sum(group, loss_sum, norm, is_ssd(net))
+            mean_buffers(group, _batch_stats(net))
 
         with record_function("train/optimizer"):
             opt = state.optimizer
-            for group in opt.param_groups:
-                group["lr"] = state.schedule(state.step)
+            for param_group in opt.param_groups:
+                param_group["lr"] = state.schedule(state.step)
             for p, g in zip(params, grads):
                 p.grad = g
             opt.step()
@@ -220,7 +257,10 @@ def make_train_step(
             with record_function("train/metrics"):
                 pred_boxes, pred_mask = _decode_predictions(
                     net, out.detach(), image_size, prob, iou_thr, capacity)
-                scalars.update(detection_metrics(pred_boxes, pred_mask, bx, bm, sample_mask))
+                det = detection_metrics(pred_boxes, pred_mask, bx, bm, sample_mask)
+                if group is not None:
+                    det = weighted_metric_reduce(group, det, sample_mask)
+                scalars.update(det)
         return state, scalars
 
     return step
@@ -230,7 +270,7 @@ def make_eval_step(
     module,
     nms_params: tuple[float, float, int] = (0.5, 0.5, 64),
     return_boxes: bool = False,
-    axis_name: str | None = None,
+    group=None,
     neg_pos_ratio: int = 10,
     bg_push: float = 0.0,
 ) -> Callable:
@@ -241,8 +281,10 @@ def make_eval_step(
     (or ``(scalars, (pred_boxes, pred_mask))``); no augmentation, no dropout,
     BatchNorm on the running statistics.
     ``neg_pos_ratio`` and ``bg_push`` are the SSD loss's, as in training.
+    With ``group`` each rank passes its slice of the batch: the loss and the
+    metrics come back reduced across the ranks, the boxes are the rank's.
     """
-    _check_supported(module, axis_name)
+    _check_supported(module)
     image_size = _image_size(module)
 
     @torch.no_grad()
@@ -253,22 +295,29 @@ def make_eval_step(
         enc, gt_locs = _encode_targets(state.module, bx, bm, image_size)
         _, (loss_sum, out) = _loss_and_out(state.module, imgs, enc, sample_mask, None, gt_locs,
                                            neg_pos_ratio, bg_push)
+        norm = None if group is None else _loss_norm(state.module, enc, sample_mask)
         return eval_scalars(state.module, out, loss_sum, bx, bm, sample_mask, nms_params,
-                            return_boxes)
+                            return_boxes, group, norm)
 
     return step
 
 
 def eval_scalars(module, out, loss_sum, boxes, box_mask, sample_mask,
-                 nms_params=(0.5, 0.5, 64), return_boxes: bool = False):
+                 nms_params=(0.5, 0.5, 64), return_boxes: bool = False, group=None, norm=None):
     """The eval step after its forward: decode ``out`` through the NMS
-    kernel and score it against ``boxes``. Split out so that a forward
-    output can be shared with fdtpu's step in the tests."""
+    kernel and score it against ``boxes``; with ``group``, reduce the loss
+    (weighted by ``norm``, :func:`_loss_norm`) and the metrics across the
+    ranks. Split out so that a forward output can be shared with fdtpu's
+    step in the tests."""
     prob, iou_thr, capacity = nms_params
     pred_boxes, pred_mask = _decode_predictions(
         module, out, _image_size(module), prob, iou_thr, capacity)
+    det = detection_metrics(pred_boxes, pred_mask, boxes, box_mask, sample_mask)
+    if group is not None:
+        loss_sum = reduce_loss_sum(group, loss_sum, norm, is_ssd(module))
+        det = weighted_metric_reduce(group, det, sample_mask)
     scalars = {"loss": loss_sum}
-    scalars.update(detection_metrics(pred_boxes, pred_mask, boxes, box_mask, sample_mask))
+    scalars.update(det)
     if return_boxes:
         return scalars, (pred_boxes, pred_mask)
     return scalars

@@ -14,18 +14,25 @@ asked). Logs go to ``logs/out_<run>.log`` (+ ``.jsonl``, ``logs/tb/``),
 checkpoints to ``checkpoints/<run>/step_*.pt``, both under the working
 directory.
 
-Left out, with their ROADMAP.md queue-1 items: ``--data-parallel`` and
-``--multihost`` (item 5, data parallelism), ``--steps-per-dispatch`` (not
-ported by design: it amortizes the TPU's dispatch cost);
-``--no-fast-stem`` (the port runs the plain stem, whose math the fast stem
-shares), ``--platform`` (``--device`` names the device) and
-``--pretrained-backbone official`` (name the checkpoint's path). The SSD
-trains through ``fdtpu_torch.train_model_ssd``.
+Data parallelism: ``--data-parallel N`` trains on N ranks, one a card: run
+alone, the command starts them itself (gloo ranks on the CPU with
+``--device cpu``); under ``torchrun --nproc-per-node N`` each rank joins
+torchrun's group, and N must be its world size (-1 takes it).
+``--multihost`` joins the group torchrun describes and implies
+``--data-parallel -1``. ``--batch-size`` is the global batch; rank 0 writes
+the logs and checkpoints.
+
+Left out: ``--steps-per-dispatch`` (not ported by design: it amortizes the
+TPU's dispatch cost); ``--no-fast-stem`` (the port runs the plain stem,
+whose math the fast stem shares), ``--platform`` (``--device`` names the
+device) and ``--pretrained-backbone official`` (name the checkpoint's
+path). The SSD trains through ``fdtpu_torch.train_model_ssd``.
 """
 
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 
 import torch
 
@@ -37,7 +44,14 @@ from fdtpu_torch.data import (
     load_targets,
 )
 from fdtpu_torch.models import DTYPES, build_model
+from fdtpu_torch.parallel.multihost import (
+    entry_process_shard,
+    join_entry_rank,
+    shutdown,
+    start_entry_ranks,
+)
 from fdtpu_torch.train import Trainer
+from fdtpu_torch.train.checkpoint import latest_checkpoint
 from fdtpu_torch.utils.config import DetectorConfig, TrainConfig
 
 
@@ -71,8 +85,19 @@ def parse_args(argv=None):
     p.add_argument("--rotate-device", action="store_true",
                    help="run the Rotate augmentation on the device (the three-shear "
                         "kernels) instead of host-side PIL")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="ranks (0 = one process, -1 = torchrun's world size or every visible "
+                        "card); the batch size must divide")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group torchrun describes (RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR/PORT); implies --data-parallel -1")
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     return p.parse_args(argv)
+
+
+def run_name(args) -> str:
+    """The run-identity string, like the reference's train_model.py:21-25."""
+    return f"{args.model}_{args.filters}_{args.patches}x{args.patches}_{args.input}x{args.input}"
 
 
 def build_trainer(args) -> Trainer:
@@ -90,10 +115,7 @@ def build_trainer(args) -> Trainer:
             flush=True,
         )
         args.rotate_device = True
-    run_name = (
-        f"{args.model}_{args.filters}_{args.patches}x{args.patches}_"
-        f"{args.input}x{args.input}"
-    )  # run-identity string like the reference's train_model.py:21-25
+    name = run_name(args)
     model_cfg = DetectorConfig(
         filters=args.filters,
         input_shape=(args.input, args.input),
@@ -107,10 +129,11 @@ def build_trainer(args) -> Trainer:
         box_capacity=args.box_capacity,
         use_sam=not args.no_sam,
         seed=args.seed,
-        log_path=f"logs/out_{run_name}.log",
+        log_path=f"logs/out_{name}.log",
         checkpoint_dir="checkpoints",
         rotate_device=args.rotate_device,
         device_data=args.device_data,
+        data_parallel=args.data_parallel,
     )
 
     download_dataset_files(args.data_dir)
@@ -129,9 +152,10 @@ def build_trainer(args) -> Trainer:
         seed=args.seed,
     )
     val_src = WIDERFaceDataSource(val_targets, shape, args.box_capacity)
+    shard = entry_process_shard(args)
     train_loader = BatchLoader(train_src, args.batch_size, shuffle=True, seed=args.seed,
-                               drop_last=True)
-    val_loader = BatchLoader(val_src, args.batch_size)
+                               drop_last=True, process_shard=shard)
+    val_loader = BatchLoader(val_src, args.batch_size, process_shard=shard)
 
     module = build_model(args.model, model_cfg, args.device,
                          torch.Generator().manual_seed(args.seed),
@@ -143,21 +167,44 @@ def build_trainer(args) -> Trainer:
         print(f"backbone initialized from {args.pretrained_backbone} (fresh head)")
     return Trainer(
         module, train_cfg, train_loader, val_loader,
-        augment=not args.no_augment, run_name=run_name, device=args.device,
+        augment=not args.no_augment, run_name=name, device=args.device,
     )
 
 
-def main(argv=None):
-    """Trains, saves, and returns the last checkpoint's path."""
-    args = parse_args(argv)
+def train(args):
+    """Trains (resuming with ``--resume``), saves, and returns the last
+    checkpoint's path."""
     trainer = build_trainer(args)
     if args.resume:
         trainer.maybe_resume()
     out = trainer.fit()
-    print(f"final: {out}")
     ckpt = trainer.save()
-    print(f"saved: {ckpt}")
+    if trainer.primary:
+        print(f"final: {out}")
+        print(f"saved: {ckpt}")
     return ckpt
+
+
+def _rank_main(rank: int, world: int, init_method: str, argv) -> None:
+    """One of the ranks ``--data-parallel N`` launches."""
+    args = parse_args(argv)
+    join_entry_rank(args, rank, world, init_method)
+    try:
+        train(args)
+    finally:
+        shutdown()
+
+
+def main(argv=None):
+    """Trains, saves, and returns the last checkpoint's path (rank 0's
+    under data parallelism)."""
+    args = parse_args(argv)
+    if not start_entry_ranks(args, _rank_main, argv):
+        return latest_checkpoint(Path("checkpoints") / run_name(args))
+    try:
+        return train(args)
+    finally:
+        shutdown()  # the group torchrun's ranks joined, if any
 
 
 if __name__ == "__main__":

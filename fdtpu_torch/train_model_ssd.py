@@ -13,14 +13,16 @@ only when asked). ``--device-data`` stages the train split on the card
 permutation). Logs go to ``logs/out_<run>.log`` (+ ``.jsonl``,
 ``logs/tb/``), checkpoints to ``checkpoints/<run>/step_*.pt``.
 
-Left out, as in ``fdtpu_torch.train_model``: ``--data-parallel`` (ROADMAP.md
-queue 1, item 5), ``--steps-per-dispatch`` (it amortizes the TPU's dispatch
-cost) and ``--platform`` (``--device`` names the device).
+``--data-parallel N`` and ``--multihost`` as in ``fdtpu_torch.train_model``
+(fdtpu's SSD entry point has ``--data-parallel`` only; the port gives it
+both). Left out, as there: ``--steps-per-dispatch`` (it amortizes the TPU's
+dispatch cost) and ``--platform`` (``--device`` names the device).
 """
 
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 
 import torch
 
@@ -31,7 +33,14 @@ from fdtpu_torch.data import (
     load_targets,
 )
 from fdtpu_torch.models import DTYPES, build_model, ssd_patch_sizes
+from fdtpu_torch.parallel.multihost import (
+    entry_process_shard,
+    join_entry_rank,
+    shutdown,
+    start_entry_ranks,
+)
 from fdtpu_torch.train import Trainer
+from fdtpu_torch.train.checkpoint import latest_checkpoint
 from fdtpu_torch.utils.config import SSDConfig, TrainConfig
 
 
@@ -59,14 +68,24 @@ def parse_args(argv=None):
     p.add_argument("--device-data", action="store_true",
                    help="stage the training set on the device once; each quarter-epoch is "
                         "drawn there from a fresh permutation")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="ranks (0 = one process, -1 = torchrun's world size or every visible "
+                        "card); the batch size must divide")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group torchrun describes; implies "
+                        "--data-parallel -1")
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     return p.parse_args(argv)
+
+
+def run_name(args) -> str:
+    return f"ssd_{args.filters}_{args.input}x{args.input}"
 
 
 def build_trainer(args) -> Trainer:
     """The data, the model and the Trainer that ``main`` fits, from parsed
     flags."""
-    run_name = f"ssd_{args.filters}_{args.input}x{args.input}"
+    name = run_name(args)
     shape = (args.input, args.input)
     cfg = SSDConfig(
         filters=args.filters,
@@ -82,9 +101,10 @@ def build_trainer(args) -> Trainer:
         box_capacity=args.box_capacity,
         use_sam=not args.no_sam,
         seed=args.seed,
-        log_path=f"logs/out_{run_name}.log",
+        log_path=f"logs/out_{name}.log",
         checkpoint_dir="checkpoints",
         device_data=args.device_data,
+        data_parallel=args.data_parallel,
     )
 
     download_dataset_files(args.data_dir)
@@ -96,30 +116,54 @@ def build_trainer(args) -> Trainer:
 
     train_src = WIDERFaceDataSource(train_targets, shape, args.box_capacity, seed=args.seed)
     val_src = WIDERFaceDataSource(val_targets, shape, args.box_capacity)
+    shard = entry_process_shard(args)
     train_loader = BatchLoader(train_src, args.batch_size, shuffle=True, seed=args.seed,
-                               drop_last=True, epoch_fraction=4)
-    val_loader = BatchLoader(val_src, args.batch_size)
+                               drop_last=True, epoch_fraction=4, process_shard=shard)
+    val_loader = BatchLoader(val_src, args.batch_size, process_shard=shard)
 
     module = build_model("ssd", cfg, args.device, torch.Generator().manual_seed(args.seed),
                          compute_dtype=DTYPES[cfg.dtype])
     return Trainer(
         module, train_cfg, train_loader, val_loader,
-        augment=args.augment, run_name=run_name, device=args.device,
+        augment=args.augment, run_name=name, device=args.device,
         neg_pos_ratio=cfg.neg_pos_ratio, bg_push=cfg.bg_push,
     )
 
 
-def main(argv=None):
-    """Trains, saves, and returns the last checkpoint's path."""
-    args = parse_args(argv)
+def train(args):
+    """Trains (resuming with ``--resume``), saves, and returns the last
+    checkpoint's path."""
     trainer = build_trainer(args)
     if args.resume:
         trainer.maybe_resume()
     out = trainer.fit()
-    print(f"final: {out}")
     ckpt = trainer.save()
-    print(f"saved: {ckpt}")
+    if trainer.primary:
+        print(f"final: {out}")
+        print(f"saved: {ckpt}")
     return ckpt
+
+
+def _rank_main(rank: int, world: int, init_method: str, argv) -> None:
+    """One of the ranks ``--data-parallel N`` launches."""
+    args = parse_args(argv)
+    join_entry_rank(args, rank, world, init_method)
+    try:
+        train(args)
+    finally:
+        shutdown()
+
+
+def main(argv=None):
+    """Trains, saves, and returns the last checkpoint's path (rank 0's
+    under data parallelism)."""
+    args = parse_args(argv)
+    if not start_entry_ranks(args, _rank_main, argv):
+        return latest_checkpoint(Path("checkpoints") / run_name(args))
+    try:
+        return train(args)
+    finally:
+        shutdown()  # the group torchrun's ranks joined, if any
 
 
 if __name__ == "__main__":

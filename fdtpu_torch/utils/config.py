@@ -67,8 +67,9 @@ class TrainConfig:
     """The fields of ``fdtpu/utils/config.py:TrainConfig``, with the same
     defaults (the reference's config of record), but ``steps_per_dispatch``:
     it exists for the TPU's dispatch cost, and the port runs one step a
-    batch. ``data_parallel`` other than None, 0 or 1 raises: data
-    parallelism is not ported (ROADMAP.md queue 1, item 5)."""
+    batch. ``data_parallel``: None, 0 or 1 for one process, ``n > 1`` for
+    ``n`` ranks of a ``torch.distributed`` group, -1 for the group's size
+    (the Trainer checks the group and the batch)."""
 
     learning_rate: float = 1e-4
     optimizer: str = "adam"  # "adam" (reference SAMSGD base) or "sgd"
@@ -102,8 +103,6 @@ class TrainConfig:
     fused_photometric: bool = False
 
     def __post_init__(self):
-        if self.data_parallel not in (None, 0, 1):
-            raise NotImplementedError(
-                f"data_parallel={self.data_parallel}: data parallelism is not ported "
-                "(ROADMAP.md queue 1, item 5)"
-            )
+        if self.data_parallel is not None and self.data_parallel < -1:
+            raise ValueError(f"data_parallel={self.data_parallel}: want None, -1 (the world "
+                             "size), 0 or 1 (one process), or a number of ranks")

@@ -63,12 +63,13 @@ def reference_defaults() -> dict:
 def test_flags_and_defaults_match_train_model_ssd_py():
     got = vars(train_model_ssd.parse_args([]))
     want = reference_defaults()
-    left_out = {"data_parallel", "platform", "steps_per_dispatch"}
-    assert set(got) == set(want) - left_out | {"device"}
+    left_out = {"platform", "steps_per_dispatch"}
+    assert set(got) == set(want) - left_out | {"device", "multihost"}
     assert {k: got[k] for k in want if k not in left_out} == {
         k: v for k, v in want.items() if k not in left_out}
     assert (got["filters"], got["input"], got["batch_size"], got["box_capacity"]) == (16, 480, 24, 128)
     assert got["device"] == "cuda" and got["augment"] is False
+    assert got["data_parallel"] == 0 and got["multihost"] is False
 
 
 def test_train_model_ssd_writes_checkpoints_logs_and_resumes(work, trained):

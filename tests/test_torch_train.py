@@ -41,6 +41,7 @@ from fdtpu.utils.config import TrainConfig as JaxTrainConfig
 from fdtpu_torch.compat import poolresnet_state_dict, train_state_from_fdtpu
 from fdtpu_torch.models import PoolResnet
 from fdtpu_torch.models.layers import DropoutMasks
+from fdtpu_torch.parallel import make_dp_eval_step, make_dp_train_step
 from fdtpu_torch.train import (
     average_precision,
     create_train_state,
@@ -289,9 +290,13 @@ def test_whole_slice_on_cpu():
 
 
 def test_unported_branches_raise():
+    """The data-parallel step builds over a process group and needs one;
+    what is not a detector of the zoo, or not an optimizer, raises."""
     cfg = TrainConfig()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_train_step(torch_model(), cfg, axis_name="data")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_dp_train_step(torch_model(), cfg)
+    with pytest.raises(RuntimeError, match="process group"):
+        make_dp_eval_step(torch_model())
     with pytest.raises(ValueError, match="not a detector"):
         make_eval_step(torch.nn.Conv2d(3, 5, 1))
     with pytest.raises(ValueError):

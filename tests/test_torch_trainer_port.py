@@ -8,7 +8,8 @@
   shuffled feed included;
 * ``positional_crop`` resolves from the loader's shuffle flag, as fdtpu's
   ``test_trainer_resolves_positional_crop_from_shuffle`` checks it;
-* what is not ported or not allowed raises.
+* what is not allowed raises: a data-parallel Trainer without its process
+  group, or with a batch its ranks do not divide.
 """
 
 import numpy as np
@@ -127,11 +128,27 @@ def test_device_data_with_host_rotation_raises(root, tmp_path):
 
 
 @pytest.mark.parametrize("dp", [2, -1])
-def test_data_parallel_raises(dp):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TrainConfig(data_parallel=dp)
-    for ok in (None, 0, 1):
+def test_data_parallel_raises(dp, root, tmp_path):
+    """``data_parallel`` builds: -1 without a process group is one process;
+    n ranks need a global batch that n divides and a group of n ranks
+    (tests/test_torch_parallel.py runs them)."""
+    for ok in (None, 0, 1, dp):
         TrainConfig(data_parallel=ok)
+    with pytest.raises(ValueError, match="data_parallel"):
+        TrainConfig(data_parallel=-2)
+    train, val = loaders(root)
+    if dp == -1:
+        t = Trainer(model(), config(tmp_path, data_parallel=-1), train, val, device="cpu")
+        assert (t.group, t.rank, t.world, t.primary) == (None, 0, 1, True)
+        with pytest.raises(ValueError, match="process group of 2 ranks"):
+            Trainer(model(), config(tmp_path, data_parallel=2), train, val, device="cpu")
+        return
+    odd = BatchLoader(train.source, 3, drop_last=True)
+    with pytest.raises(ValueError, match="divisible"):
+        Trainer(model(), config(tmp_path, data_parallel=dp, batch_size=3), odd, val,
+                device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        BatchLoader(train.source, 3, process_shard=(0, dp))
 
 
 def test_profile_visualize_and_nan_check(root, tmp_path, monkeypatch):

@@ -1,0 +1,121 @@
+"""The ranks of ``tests/test_torch_parallel.py``: one process a rank, gloo on
+the CPU, torch and fdtpu_torch only (no JAX).
+
+    python tests/torch_parallel_ranks.py TASK RANK WORLD INIT_METHOD WORK
+
+``WORK/inputs.pt`` holds what the test prepared (converted params, numpy
+batches, the synthetic dataset's path); the rank writes
+``WORK/<TASK>_rank<RANK>.pt``. Tasks:
+
+* ``steps``: each case of ``inputs["steps"]``, one data-parallel train step
+  (or eval step) on the rank's slice of the case's global batch, from the
+  case's params;
+* ``trainer``: ``Trainer(data_parallel=WORLD)`` for one epoch and an eval,
+  streamed and then resident, from the same params.
+"""
+
+from __future__ import annotations
+
+import datetime
+import sys
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets  # noqa: E402
+from fdtpu_torch.models import SSD, MobileNetV3Backbone, PoolResnet  # noqa: E402
+from fdtpu_torch.parallel import (  # noqa: E402
+    initialize_multihost,
+    make_dp_eval_step,
+    make_dp_train_step,
+    shutdown,
+)
+from fdtpu_torch.train import Trainer, create_train_state  # noqa: E402
+from fdtpu_torch.utils.config import TrainConfig  # noqa: E402
+
+FAMILIES = {"poolresnet": PoolResnet, "ssd": SSD, "mobilenetv3": MobileNetV3Backbone}
+
+
+def build(case: dict) -> torch.nn.Module:
+    module = FAMILIES[case["family"]](**case["ctor"])
+    module.load_state_dict(case["state_dict"])
+    return module
+
+
+def rank_slice(batch, rank: int, world: int):
+    lb = batch[0].shape[0] // world
+    return [torch.from_numpy(a[rank * lb:(rank + 1) * lb].copy()) for a in batch]
+
+
+def steps(rank: int, world: int, inputs: dict) -> dict:
+    out = {}
+    for name, case in inputs["steps"].items():
+        module = build(case)
+        state = create_train_state(module, TrainConfig(**case["config"]), 10)
+        batch = rank_slice(case["batch"], rank, world)
+        if case["kind"] == "eval":
+            step = make_dp_eval_step(module, nms_params=case["nms"])
+            scalars = step(state, *batch)
+        else:
+            step = make_dp_train_step(module, TrainConfig(**case["config"]), augment=False)
+            state, scalars = step(state, *batch)
+        out[name] = {"scalars": {k: v.item() for k, v in scalars.items()},
+                     "state_dict": {k: v.clone() for k, v in module.state_dict().items()},
+                     "step": state.step}
+    return out
+
+
+def trainer(rank: int, world: int, inputs: dict) -> dict:
+    spec = inputs["trainer"]
+    out = {}
+    for resident in (False, True):
+        shard = (rank, world)
+        srcs = [WIDERFaceDataSource(load_targets(spec["root"], split, 3), spec["size"],
+                                    box_capacity=4, error_log=None) for split in ("train", "val")]
+        train = BatchLoader(srcs[0], spec["batch"], process_shard=shard)
+        val = BatchLoader(srcs[1], spec["batch"], process_shard=shard)
+        work = Path(spec["work"]) / f"{'resident' if resident else 'streamed'}"
+        config = TrainConfig(**spec["config"], device_data=resident, data_parallel=world,
+                             checkpoint_dir=str(work / "ckpt"), log_path=str(work / "out.log"))
+        module = build(spec)
+        if rank:  # rank 1 starts elsewhere: the Trainer broadcasts rank 0's params
+            with torch.no_grad():
+                for p in module.parameters():
+                    p.add_(1.0)
+        t = Trainer(module, config, train, val, augment=False, nms_params=spec["nms"],
+                    run_name="dp", device="cpu")
+        metrics = t.fit()
+        out["resident" if resident else "streamed"] = {
+            "metrics": metrics, "step": t.state.step, "driver": type(t.driver).__name__,
+            "state_dict": {k: v.clone() for k, v in t.state.module.state_dict().items()},
+            "ckpt": str(t.save()),
+        }
+        # every rank reads rank 0's checkpoint
+        resumed = Trainer(build(spec), config, train, val, augment=False, nms_params=spec["nms"],
+                          run_name="dp", device="cpu")
+        assert resumed.maybe_resume() and resumed.state.step == t.state.step
+        for k, v in resumed.state.module.state_dict().items():
+            assert torch.equal(v, out["resident" if resident else "streamed"]["state_dict"][k]), k
+    return out
+
+
+def main() -> None:
+    task, rank, world, init_method, work = sys.argv[1:]
+    rank, world, work = int(rank), int(world), Path(work)
+    torch.set_num_threads(2)
+    initialize_multihost(rank=rank, world_size=world, init_method=init_method, device="cpu",
+                         timeout=datetime.timedelta(seconds=60))
+    try:
+        assert dist.get_backend() == "gloo"
+        inputs = torch.load(work / "inputs.pt", weights_only=False)
+        result = {"steps": steps, "trainer": trainer}[task](rank, world, inputs)
+        torch.save(result, work / f"{task}_rank{rank}.pt")
+    finally:
+        shutdown()
+
+
+if __name__ == "__main__":
+    main()
