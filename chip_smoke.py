@@ -170,10 +170,30 @@ non-zero; without a CUDA card it fails at once and prints no result):
     ``Trainer(data_parallel=2)`` at ``DetectorConfig()`` in float32 over
     gloo: one streamed and one resident epoch, bit-equal, each with its
     per-rank eval through K1, and a resume from rank 0's checkpoint. A rank
-    that fails or outlives its timeout fails the script.
+    that fails or outlives its timeout fails the script;
+18. deployment (``fdtpu_torch.export``, ``fdtpu_torch.native``,
+    ``compat/pruning.py``) at 480 px on PoolResnet-128x10 grid 10 and
+    SSD-16, bf16, thresholds 0.7 / 0.01 and capacity 64 (each head's score
+    column set up so that some candidates pass and float32 noise decides no
+    pick, see ``deploy_models``): (a) the predict program exported at b1
+    and b8, saved, loaded back: one K1 node in its graph, one K1 launch a
+    call, masks equal to the eager program's and boxes within 1e-3 px;
+    (b) ``aot_compile_predict`` at b1 (the exported program in a CUDA
+    graph) against eager the same way, then the b1 latency by CUDA events,
+    median of 3 loops of 2,000, of ``Detector.predict``, the eager program
+    and the graph replay; (c) float32 and int8 ``.fdn`` artifacts through
+    the port's C++ engine on the host, 8 frames, against the card's float32
+    predict (TF32 off): counts equal and boxes within atol 2e-3 / rtol
+    1e-4 for float32, the int8 counts and matches printed, the engine's ms
+    a frame; (d) PoolResnet-128 L1-pruned to 102 channels and, with
+    ``align`` 64, to 64: forwards finite, b64 forward + decode img/s at
+    128, 102 and 64 channels. ``--deployment`` runs phases 1, 2 and 18
+    alone.
 
 The line before the last is a JSON object with each kernel's launches (from
-the serving, training, fused, Trainer, SSD, zoo and data-parallel paths), error, times, and
+the serving, training, fused, Trainer, SSD, zoo, data-parallel and deployment
+paths; a CUDA graph's replays, which launch K1 without its wrapper, are
+counted by the script), error, times, and
 its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
@@ -317,6 +337,16 @@ DP_STEPS, DP_TIMED_STEPS = 3, 10
 DP_MOBILENET_BATCH = 8  # a rank's
 DP_TRAINER_BATCH = 8  # global: 4 + 4
 DP_TRAINER_IMAGES = (16, 8)  # two steps an epoch, one val batch
+# phase 18: deployment
+DEPLOY_SIZE = 480
+DEPLOY_BATCHES = (1, 8)
+DEPLOY_THRESHOLDS = (0.7, 0.01, 64)  # the reference converter's, fdtpu's export defaults
+DEPLOY_PASS = {"poolresnet": 0.5, "ssd": 48 / 4774}  # candidates over the threshold, a frame
+EXPORT_ATOL = 1e-3  # px, fdtpu's export round trip (tests/test_compat.py)
+NATIVE_ATOL, NATIVE_RTOL = 2e-3, 1e-4  # the engine against the float32 predict (test_native_infer)
+LATENCY_LOOPS, LATENCY_ITERS = 3, 2000
+NATIVE_FRAMES = 8
+PRUNE_BATCH = 64
 
 
 def check(ok: bool, what: str) -> None:
@@ -721,17 +751,24 @@ def phase_timings(card, det480, det320, batch):
     print(f"[6 time] b128 320px bf16 forward + decode: {ms:.3f} ms/batch, "
           f"{128e3 / ms:.1f} img/s [{card}]")
 
+    b1 = predict_b1_ms(det480)
+    print(f"[6 time] b1 predict 480px bf16 (H2D + /255 + forward + decode): median "
+          f"{b1['median_ms']:.3f} ms, min {b1['min_ms']:.3f} ms over {b1['n']} [{card}]")
+    return rows
+
+
+def predict_b1_ms(det) -> dict:
+    """``det.predict`` of one seeded 480 px u8 frame, host clock to the
+    card's end: the median and least ms of 50 calls after 10 warm ones."""
     frame = np.random.default_rng(SEED + 4).integers(0, 256, size=(480, 480, 3), dtype=np.uint8)
     lat = []
     for i in range(60):
         t0 = time.perf_counter()
-        _, _, m = det480.predict(frame)
+        det.predict(frame)
         torch.cuda.synchronize()
         if i >= 10:
             lat.append((time.perf_counter() - t0) * 1e3)
-    print(f"[6 time] b1 predict 480px bf16 (H2D + /255 + forward + decode): median "
-          f"{statistics.median(lat):.3f} ms, min {min(lat):.3f} ms over {len(lat)} [{card}]")
-    return rows
+    return {"median_ms": statistics.median(lat), "min_ms": min(lat), "n": len(lat)}
 
 
 # -- training -------------------------------------------------------------------
@@ -2499,14 +2536,279 @@ def phase_dp(card, tmp) -> dict:
     return launches
 
 
+# -- deployment ------------------------------------------------------------------------
+
+
+def deploy_models() -> dict:
+    """PoolResnet-128x10 grid 10 (``DetectorConfig()``) and SSD-16, 480 px,
+    float32 masters on the card, random weights from the seed, with the
+    score column of each head set up so that the comparisons see boxes
+    whose order float32 noise does not decide: random weights alone put no
+    PoolResnet cell above 0.7, and thousands of SSD priors within 1e-4 of
+    each other (the first run of this phase saturated capacity 64 with
+    them, and the engine and the card kept a different box at a near tie).
+    The SSD heads' score weights are scaled by 4, as
+    ``tests/test_native_infer.py`` spreads them, and each head's score bias
+    is shifted so that ``DEPLOY_PASS`` of a seeded frame's candidates pass
+    the export threshold."""
+    gen = torch.Generator().manual_seed(SEED + 40)
+    models = {"poolresnet": build_model("poolresnet", DetectorConfig(), "cuda", gen),
+              "ssd": build_model("ssd", SSD_CFG, "cuda", gen)}
+    frame = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+        0, 256, size=(1, DEPLOY_SIZE, DEPLOY_SIZE, 3)).astype(np.float32)).cuda()
+    prob = DEPLOY_THRESHOLDS[0]
+    with torch.no_grad():
+        for head in models["ssd"].heads:
+            head.weight[0] *= 4.0
+        for name, model in models.items():
+            score = model(frame / 255.0)[..., 0].double().clamp(1e-9, 1 - 1e-9)
+            logit = torch.quantile(torch.logit(score).flatten(), 1 - DEPLOY_PASS[name])
+            shift = math.log(prob / (1 - prob)) - float(logit)
+            for head in ([model.out] if isinstance(model, PoolResnet) else model.heads):
+                head.bias[0] += shift
+    return models
+
+
+def deploy_frames(rng, b: int) -> torch.Tensor:
+    """``(b, 480, 480, 3)`` float32 frames of whole values in [0, 255] on the card."""
+    return torch.from_numpy(rng.integers(0, 256, size=(b, DEPLOY_SIZE, DEPLOY_SIZE, 3))
+                            .astype(np.float32)).cuda()
+
+
+def same_boxes(got, want, what: str) -> float:
+    """Masks equal and boxes within fdtpu's export tolerance; the largest
+    box difference."""
+    (gb, gm), (wb, wm) = got, want
+    err = (gb - wb).abs().max().item()
+    check(torch.equal(gm, wm), f"{what}: masks differ")
+    check(err <= EXPORT_ATOL, f"{what}: boxes differ by {err} px (atol {EXPORT_ATOL})")
+    return err
+
+
+def phase_deploy_export(models, programs, tmp) -> None:
+    """18a: each model's predict program exported at b1 and b8 on the card,
+    saved, loaded back and run on seeded frames against the eager program
+    (the same net, ``decode_filter_nms_batch``): one K1 node in each
+    graph, one K1 launch a call."""
+    from fdtpu_torch.export import export_predict, load_exported
+
+    rng = np.random.default_rng(SEED + 42)
+    prob, iou, cap = DEPLOY_THRESHOLDS
+    for name, model in models.items():
+        for b in DEPLOY_BATCHES:
+            t0 = time.perf_counter()
+            path = export_predict(model, os.path.join(tmp, f"{name}_b{b}.pt2"), b, prob, iou, cap)
+            export_s = time.perf_counter() - t0
+            loaded = load_exported(path)
+            nodes = sum(n.target is torch.ops.fdtpu_torch.decode_filter_nms.default
+                        for n in loaded.graph.nodes)
+            check(nodes == 1, f"{name} b{b}: {nodes} K1 nodes in the exported graph")
+            frames = deploy_frames(rng, b)
+            start = knms.decode_filter_nms_batch.launches
+            got = loaded(frames)
+            torch.cuda.synchronize()
+            calls = knms.decode_filter_nms_batch.launches - start
+            check(calls == 1, f"{name} b{b}: the loaded program launched K1 {calls} times")
+            with torch.no_grad():
+                want = programs[name](frames)
+            err = same_boxes(got, want, f"{name} b{b} loaded .pt2")
+            kept = check_boxes(*got, cap, prob, f"{name} b{b} loaded")
+            print(f"[18a export] {name} b{b} {DEPLOY_SIZE}px bf16: exported and saved in "
+                  f"{export_s:.1f} s ({path.stat().st_size / 1e6:.1f} MB), one K1 node; the "
+                  f"loaded program against eager: masks equal, {int(kept.sum())} boxes, largest "
+                  f"difference {err:.3g} px (atol {EXPORT_ATOL}); K1 launched {calls} time")
+
+
+def phase_deploy_graph(card, models, programs) -> int:
+    """18b: ``aot_compile_predict`` at b1 (the exported program captured in a
+    CUDA graph) against the eager program, then the b1 latency by CUDA
+    events, median of three loops: ``Detector.predict`` (a u8 host frame),
+    the eager program and the graph replay (a float frame on the card).
+    Returns K1's launches by the graphs' replays, which pass no wrapper:
+    each graph counts its replays and the K1 launches captured in it."""
+    from fdtpu_torch.export import aot_compile_predict
+
+    rng = np.random.default_rng(SEED + 43)
+    prob, iou, cap = DEPLOY_THRESHOLDS
+    replays = 0
+    for name, model in models.items():
+        graph = aot_compile_predict(model, 1, prob, iou, cap)
+        check(graph.k1_per_replay == 1, f"{name}: {graph.k1_per_replay} K1 launches captured")
+        frame = deploy_frames(rng, 1)
+        got = graph(frame)
+        program = programs[name]
+        with torch.no_grad():
+            want = program(frame)
+        err = same_boxes(got, want, f"{name} CUDA graph")
+        det = Detector(model, prob, iou, cap)
+        u8 = frame[0].to(torch.uint8).cpu().numpy()
+
+        def eager():
+            with torch.no_grad():
+                return program(frame)
+
+        arms = {"Detector.predict": lambda: det.predict(u8), "eager program": eager,
+                "graph replay": lambda: graph(frame)}
+        ms = {k: statistics.median(event_ms(fn, LATENCY_ITERS) for _ in range(LATENCY_LOOPS))
+              for k, fn in arms.items()}
+        replays += graph.replays * graph.k1_per_replay
+        print(f"[18b graph] {name} b1 {DEPLOY_SIZE}px bf16: CUDA-graph predict against eager: "
+              f"masks equal, {int(got[1].sum())} boxes, largest difference {err:.3g} px; b1 "
+              f"latency (median of {LATENCY_LOOPS} loops of {LATENCY_ITERS}): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]")
+    return replays
+
+
+def iou_matched(boxes, others) -> int:
+    """How many of ``boxes`` (``[score, x, y, w, h]`` rows) have a row of
+    ``others`` at IoU > 0.5."""
+    if not len(boxes) or not len(others):
+        return 0
+    a, o = boxes[:, None, 1:], others[None, :, 1:]
+    ix = np.clip(np.minimum(a[..., 0] + a[..., 2], o[..., 0] + o[..., 2])
+                 - np.maximum(a[..., 0], o[..., 0]), 0, None)
+    iy = np.clip(np.minimum(a[..., 1] + a[..., 3], o[..., 1] + o[..., 3])
+                 - np.maximum(a[..., 1], o[..., 1]), 0, None)
+    inter = ix * iy
+    union = a[..., 2] * a[..., 3] + o[..., 2] * o[..., 3] - inter
+    iou = np.where(union > 0, inter / np.where(union > 0, union, 1), 0)
+    return int((iou > 0.5).any(axis=1).sum())
+
+
+def phase_deploy_native(models, tmp) -> None:
+    """18c: float32 and int8 ``.fdn`` artifacts of both models through the
+    port's engine on the host, 8 frames, against the port's float32 predict
+    on the card (TF32 off): counts equal and boxes within the engine's
+    tolerance for float32; the int8 artifact's agreement; the engine's ms a
+    frame."""
+    from fdtpu_torch.export import export_native
+    from fdtpu_torch.native import NativeDetector
+
+    rng = np.random.default_rng(SEED + 44)
+    prob, iou, cap = DEPLOY_THRESHOLDS
+    frames = rng.integers(0, 256, size=(NATIVE_FRAMES, DEPLOY_SIZE, DEPLOY_SIZE, 3),
+                          dtype=np.uint8)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, model in models.items():
+            det = Detector(model, prob, iou, cap, dtype=torch.float32)
+            with torch.inference_mode():
+                tb, tm = det.non_max_suppression(
+                    det.apply(torch.from_numpy(frames).cuda().float() / 255.0))
+            tb, tm = tb.cpu().numpy(), tm.cpu().numpy()
+            got, line = {}, []
+            for quant in (None, "int8"):
+                path = export_native(model, os.path.join(tmp, f"{name}_{quant}.fdn"), prob, iou,
+                                     cap, weight_quant=quant)
+                engine = NativeDetector(path)
+                t0 = time.perf_counter()
+                got[quant] = engine.predict(frames)
+                batch_ms = (time.perf_counter() - t0) * 1e3 / NATIVE_FRAMES
+                one = []
+                for i in range(3):
+                    t0 = time.perf_counter()
+                    engine.predict(frames[i])
+                    one.append((time.perf_counter() - t0) * 1e3)
+                line.append(f"{quant or 'f32'} {path.stat().st_size / 1e6:.2f} MB: "
+                            f"{batch_ms:.1f} ms a frame at b{NATIVE_FRAMES} "
+                            f"({os.cpu_count()} threads), b1 median {statistics.median(one):.1f} ms")
+            nb, nm = got[None]
+            worst, total = 0.0, 0
+            for i in range(NATIVE_FRAMES):
+                cn, ct = nb[i][nm[i]], tb[i][tm[i]]
+                check(len(cn) == len(ct), f"{name} .fdn frame {i}: {len(cn)} boxes, card {len(ct)}")
+                if len(cn):
+                    np.testing.assert_allclose(cn, ct, atol=NATIVE_ATOL, rtol=NATIVE_RTOL,
+                                               err_msg=f"{name} .fdn frame {i}")
+                    worst = max(worst, float(np.abs(cn - ct).max()))
+                total += len(cn)
+            check(total > 0, f"{name}: no boxes to compare")
+            qb, qm = got["int8"]
+            q_counts = [int(qm[i].sum()) for i in range(NATIVE_FRAMES)]
+            f_counts = [int(nm[i].sum()) for i in range(NATIVE_FRAMES)]
+            matched = sum(iou_matched(nb[i][nm[i]], qb[i][qm[i]]) for i in range(NATIVE_FRAMES))
+            print(f"[18c native] {name} {DEPLOY_SIZE}px: the engine's float32 artifact against "
+                  f"the card's float32 predict on {NATIVE_FRAMES} frames: counts equal "
+                  f"({total} boxes), largest difference {worst:.3g} (atol {NATIVE_ATOL}, rtol "
+                  f"{NATIVE_RTOL}); int8 counts {q_counts} against float32 {f_counts}, "
+                  f"{matched} of {total} float32 boxes matched in int8 (IoU > 0.5); "
+                  + "; ".join(line))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def phase_deploy_prune(card, model) -> None:
+    """18d: PoolResnet-128 pruned to 102 channels (amount 0.2) and to 64
+    (``align`` 64); each bf16 forward at b64/480 finite and of the grid's
+    shape, then b64 forward + decode img/s for 128, 102 and 64 channels
+    (CUDA events, median of three loops of 20)."""
+    from fdtpu_torch.compat.pruning import prune_l1_structured
+
+    pruned = {128: model, 102: prune_l1_structured(model, 0.2),
+              64: prune_l1_structured(model, 0.2, align=64)}
+    batch = torch.from_numpy(np.random.default_rng(SEED + 45).integers(
+        0, 256, size=(PRUNE_BATCH, DEPLOY_SIZE, DEPLOY_SIZE, 3), dtype=np.uint8)).cuda()
+    line = []
+    for width, m in pruned.items():
+        check(m.conv1.out_channels == width, f"pruned to {m.conv1.out_channels}, want {width}")
+        det = Detector(m)
+        out = det.apply(batch.float() / 255.0)
+        check(out.shape == (PRUNE_BATCH, 10, 10, 5) and bool(torch.isfinite(out).all()),
+              f"pruned {width} forward")
+
+        def infer():
+            return det.non_max_suppression(det.apply(batch.float() / 255.0))
+
+        ms = statistics.median(event_ms(infer, 20) for _ in range(3))
+        line.append(f"{width} channels {ms:.3f} ms/batch ({PRUNE_BATCH * 1e3 / ms:.1f} img/s)")
+    print(f"[18d prune] PoolResnet-128x10 {DEPLOY_SIZE}px bf16 L1-pruned by amount 0.2 -> 102 "
+          f"and with align 64 -> 64, forwards finite; b{PRUNE_BATCH} forward + decode: "
+          + ", ".join(line) + f" [{card}]")
+
+
+def phase_deploy(card, tmp) -> int:
+    """18: deployment. Returns K1's launches on its paths: the wrapper's
+    count and the CUDA graphs' replays. The deployment modules are imported
+    in phase 18's functions, so that ``--kernel-times`` also runs on a tree
+    that predates them (``fdtpu_torch.compare_parent``)."""
+    from fdtpu_torch.export import PredictProgram
+
+    t0 = time.perf_counter()
+    models = deploy_models()
+    prob, iou, cap = DEPLOY_THRESHOLDS
+    programs = {name: PredictProgram(m, prob, iou, cap) for name, m in models.items()}
+    knms.decode_filter_nms_batch.launches = 0
+    phase_deploy_export(models, programs, tmp)
+    replays = phase_deploy_graph(card, models, programs)
+    phase_deploy_native(models, tmp)
+    phase_deploy_prune(card, models["poolresnet"])
+    launches = knms.decode_filter_nms_batch.launches + replays
+    print(f"[18 deploy] K1 launches on the deployment paths {launches} ({replays} of them CUDA "
+          f"graph replays); phase 18 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def deployment_only() -> None:
+    """``--deployment``: the card, the build and phase 18 alone."""
+    card, _ = phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_deploy(card, tmp)
+
+
 def kernel_times_only() -> None:
-    """``--kernel-times``: the card, the build, and K1-K4's device times
-    (no plain versions) as one JSON line; ``python -m
+    """``--kernel-times``: the card, the build, K1-K4's device times (no
+    plain versions, K1's wrapper host time a call) and the b1 480 px
+    ``Detector.predict`` of phase 6 as one JSON line; ``python -m
     fdtpu_torch.compare_parent`` runs this in turns on two trees."""
     card, _ = phase_card()
     phase_build()
+    det480 = Detector(build_model("poolresnet", DetectorConfig(), "cuda",
+                                  torch.Generator().manual_seed(SEED)))
     print(json.dumps({"kernel_times": {"card": card, "decode_filter_nms": nms_times(card, False),
-                                       "shears": shear_times(card, False)}}))
+                                       "shears": shear_times(card, False),
+                                       "predict_b1": predict_b1_ms(det480)}}))
 
 
 def main() -> None:
@@ -2532,6 +2834,7 @@ def main() -> None:
         ssd_launches, ssd_rows = phase_ssd(card, tmp)
         zoo_launches = phase_zoo(card, tmp)
         dp_launches = phase_dp(card, tmp)
+        deploy_launches = phase_deploy(card, tmp)
 
     def entry(meta, launches, err, times, library_ms=None):
         ms, plain, bnd = times
@@ -2546,7 +2849,8 @@ def main() -> None:
     # (library_ms: F.grid_sample on the float32 rows only, see shear_times)
     kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"]
                         + trainer_launches["decode_filter_nms"] + ssd_launches
-                        + zoo_launches["decode_filter_nms"] + dp_launches["decode_filter_nms"],
+                        + zoo_launches["decode_filter_nms"] + dp_launches["decode_filter_nms"]
+                        + deploy_launches,
                         worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
     for kname, meta in SHEARS.items():
@@ -2569,5 +2873,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--kernel-times"]:
         kernel_times_only()
+    elif sys.argv[1:] == ["--deployment"]:
+        deployment_only()
     else:
         main()

@@ -1,5 +1,6 @@
 """Interop with fdtpu (its Flax params and train state carried across) and
-with the reference (its TorchScript checkpoints imported)."""
+with the reference (its TorchScript checkpoints imported), and L1
+structured pruning (the reference's ``pruner.py``)."""
 
 from fdtpu_torch.compat.from_fdtpu import (  # noqa: F401
     mobilenetv3_state_dict,
@@ -10,6 +11,7 @@ from fdtpu_torch.compat.from_fdtpu import (  # noqa: F401
     state_dict_from_fdtpu,
     train_state_from_fdtpu,
 )
+from fdtpu_torch.compat.pruning import prune_l1_structured  # noqa: F401
 from fdtpu_torch.compat.torch_import import (  # noqa: F401
     ReferenceLayoutGrid,
     load_reference_detector,

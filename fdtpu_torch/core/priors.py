@@ -16,11 +16,10 @@ to fdtpu's on the CPU.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from fdtpu_torch.core.grid import _scatter_last_wins
+from fdtpu_torch.utils.device_cache import device_cache
 
 DEFAULT_PATCH_SIZES: tuple[int, ...] = (60, 30, 15, 7)
 
@@ -55,7 +54,7 @@ def prior_scales(
                       for ps in patch_sizes])
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache
 def priors_on(patch_sizes: tuple[int, ...], device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`calculate_priors` and :func:`prior_scales` in float32 on
     ``device``, made once per ``(patch_sizes, device)``. The tensors are

@@ -14,9 +14,11 @@ the counterpart of ``fdtpu/data/pipeline.py``.
 :func:`rotate_image_and_boxes` and :func:`make_synthetic_widerface` are
 fdtpu's numpy code, so the same seed gives the same bytes, and
 ``BatchLoader(process_shard=(rank, world))`` gives a data-parallel rank its
-slice of every global batch, as fdtpu's multi-process feed does. Not ported:
-the native libjpeg-turbo decoder (``fdtpu/native/fast_loader.cpp``,
-ROADMAP.md queue 1, item 6; the source decodes with PIL).
+slice of every global batch, as fdtpu's multi-process feed does. The source
+decodes with PIL. The C++ libjpeg-turbo decoder is ported
+(``fdtpu_torch/native/loader.py``) but not wired in here: fdtpu's
+``use_native`` option, ``get_batch`` and the loader's batch path wait until
+the host decode time of both decoders is measured (ROADMAP.md).
 :class:`DevicePrefetcher` takes an explicit device (each rank its own): on a
 CUDA device it stages each batch in pinned host memory and copies it on a
 side stream one batch ahead.

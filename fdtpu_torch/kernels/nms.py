@@ -23,6 +23,10 @@ same rows by one sort of the eligible candidates and a resolve in chunks of
 against fdtpu's kernel on the CPU). Thresholds are rounded to
 float32 once here, and those values go to either version, as JAX compares a
 float32 plane against a weakly typed Python float in float32.
+
+Both versions sit behind one registered op, ``fdtpu_torch::decode_filter_nms``
+(:data:`decode_filter_nms_op`), so that ``torch.export`` records K1 as one
+node of an exported predict program and a CUDA graph captures its launch.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import functools
 
 import numpy as np
 import torch
+
+from fdtpu_torch.utils.device_cache import device_cache
 
 # -- decode tables --------------------------------------------------------------
 
@@ -89,25 +95,26 @@ def _on(tables, device: torch.device):
 
 
 # The ``*_tables_on`` functions give the tables as float32 tensors on
-# ``device``, made once per argument tuple. The tensors are shared by every
+# ``device``, made once per argument tuple (not while ``torch.export``
+# traces, when they would be fake). The tensors are shared by every
 # caller and never written; they are made outside inference mode, whoever
 # asks first.
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache
 def grid_tables_on(num_patches: int, image_size: tuple[int, int], device: torch.device):
     """:func:`grid_decode_tables` on ``device``."""
     return _on(grid_decode_tables(num_patches, image_size), device)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache
 def ssd_tables_on(patch_sizes: tuple[int, ...], image_size: tuple[int, int],
                   device: torch.device):
     """:func:`ssd_decode_tables` on ``device``."""
     return _on(ssd_decode_tables(patch_sizes, image_size), device)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache
 def ssd_output_tables_on(num_priors: int, image_size: tuple[int, int], device: torch.device):
     """:func:`ssd_output_decode_tables` on ``device``."""
     return _on(ssd_output_decode_tables(num_priors, image_size), device)
@@ -182,60 +189,52 @@ def decode_filter_nms_reference(
     return boxes, mask
 
 
-# -- the dispatching wrapper --------------------------------------------------------
+# -- the registered op ---------------------------------------------------------------
+
+# ``fdtpu_torch::decode_filter_nms``: K1 as an op that ``torch.export``
+# records as one node and a CUDA graph captures. ``values`` ``(B, N, 5)``
+# float32, the tables ``(N,)`` float32 on its device, the scalars already
+# rounded to float32 (the schema's ``float`` is a double) -> ``boxes``
+# ``(B, capacity, 5)`` float32 and ``mask`` ``(B, capacity)`` bool. The
+# implementation is chosen by the tensors' device alone: on the CPU the
+# plain version, on a card the kernel (:func:`_launch`); any other device
+# has none and raises. It is registered with the dispatcher directly
+# (``torch.library.Library``), not through ``torch.library.custom_op``,
+# whose Python layer in front of the dispatcher costs each call more.
+_LIB = torch.library.Library("fdtpu_torch", "DEF")
+_LIB.define(
+    "decode_filter_nms(Tensor values, Tensor sx, Tensor ox, Tensor sy, Tensor oy, "
+    "float w_scale, float h_scale, float prob, float iou, int capacity) -> (Tensor, Tensor)"
+)
 
 
-def decode_filter_nms_batch(
-    values: torch.Tensor,
-    tables,
-    probability_threshold: float,
-    iou_threshold: float,
-    capacity: int = 128,
-):
-    """Batched fused decode+filter+NMS; the counterpart of
-    ``pallas_decode_filter_nms_batch`` (and, at ``B = 1``, of
-    ``pallas_decode_filter_nms``).
+def _plain(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
+    return decode_filter_nms_reference(values, (sx, ox, sy, oy, w_scale, h_scale), prob, iou,
+                                       capacity)
 
-    ``values``: ``(B, N, 5)`` float32; ``tables``: from one of the
-    ``*_decode_tables`` functions (numpy) or :func:`grid_tables_on` (tensors).
-    Returns ``(boxes (B, capacity, 5) [score, x, y, w, h] pixels, mask)``.
 
-    A CPU tensor runs the plain version. A CUDA tensor launches the kernel,
-    and :attr:`decode_filter_nms_batch.launches` counts each launch; anything
-    the kernel does not take raises. Up to :func:`max_candidates` rows an
-    image the kernel keeps its working set in shared memory; above that the
-    same kernel works in a scratch tensor allocated here, ``B`` times the
-    planes and the sort list of the padded ``N``.
-    """
-    if values.dim() != 3 or values.shape[-1] != 5:
-        raise ValueError(f"values must be (B, N, 5), got {tuple(values.shape)}")
-    if values.dtype != torch.float32:
-        raise TypeError(f"values must be float32, got {values.dtype}")
-    b, n, _ = values.shape
-    if b < 1 or n < 1 or capacity < 1:
-        raise ValueError(f"empty problem: B={b}, N={n}, capacity={capacity}")
-    sx, ox, sy, oy, w_scale, h_scale = tables
-    cols = tuple(
-        torch.as_tensor(t, dtype=torch.float32, device=values.device)
-        for t in (sx, ox, sy, oy)
-    )
-    if any(c.shape != (n,) for c in cols):
-        raise ValueError(f"decode tables must each be ({n},)")
-    scalars = tuple(_f32(v) for v in (w_scale, h_scale, probability_threshold, iou_threshold))
-    w_scale, h_scale, prob, iou = scalars
+@torch.library.register_fake("fdtpu_torch::decode_filter_nms", lib=_LIB)
+def _fake(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
+    b = values.shape[0]
+    return (values.new_empty((b, capacity, 5)),
+            values.new_empty((b, capacity), dtype=torch.bool))
 
-    if values.device.type == "cpu":
-        return decode_filter_nms_reference(
-            values, (*cols, w_scale, h_scale), prob, iou, capacity
-        )
-    if values.device.type != "cuda":
-        raise ValueError(f"no kernel for device {values.device}")
+
+def _launch(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
+    """The kernel on the card: shared memory up to :func:`max_candidates`
+    rows an image, global scratch above. Everything goes onto the current
+    stream and is allocated by ``torch.empty``, so a CUDA graph captures the
+    launch (warm :func:`max_candidates` before capturing)."""
+    cols = (sx, ox, sy, oy)
     if not values.is_contiguous() or not all(c.is_contiguous() for c in cols):
         raise ValueError("values and decode tables must be contiguous")
-
+    if not values.get_device() == sx.get_device() == ox.get_device() == sy.get_device() \
+            == oy.get_device():
+        raise ValueError("the decode tables must lie on the values' card")
     from fdtpu_torch.kernels import build
 
     lib = build.load_library()
+    b, n, _ = values.shape
     dev = values.device.index if values.device.index is not None else torch.cuda.current_device()
     # the kernel writes every row, the zero rows after the last kept one too
     boxes = torch.empty((b, capacity, 5), dtype=torch.float32, device=values.device)
@@ -256,6 +255,74 @@ def decode_filter_nms_batch(
         )
     decode_filter_nms_batch.launches += 1
     return boxes, mask
+
+
+_LIB.impl("decode_filter_nms", _plain, "CPU")
+_LIB.impl("decode_filter_nms", _launch, "CUDA")
+decode_filter_nms_op = torch.ops.fdtpu_torch.decode_filter_nms.default
+
+
+# -- the dispatching wrapper --------------------------------------------------------
+
+
+def decode_filter_nms_batch(
+    values: torch.Tensor,
+    tables,
+    probability_threshold: float,
+    iou_threshold: float,
+    capacity: int = 128,
+):
+    """Batched fused decode+filter+NMS; the counterpart of
+    ``pallas_decode_filter_nms_batch`` (and, at ``B = 1``, of
+    ``pallas_decode_filter_nms``).
+
+    ``values``: ``(B, N, 5)`` float32; ``tables``: from one of the
+    ``*_decode_tables`` functions (numpy) or :func:`grid_tables_on` (tensors).
+    Returns ``(boxes (B, capacity, 5) [score, x, y, w, h] pixels, mask)``.
+
+    It checks the arguments and calls ``fdtpu_torch::decode_filter_nms``
+    (:data:`decode_filter_nms_op`) where a tracer would see the call
+    (:func:`_traced`); in plain eager code it calls the op's implementation
+    for the device itself, which spares each call the dispatcher's round
+    trip through Python. A CPU tensor runs the plain version. A
+    CUDA tensor launches the kernel, and :attr:`decode_filter_nms_batch.launches`
+    counts each launch (a CUDA graph's capture, which runs nothing, and its
+    replays, which pass no wrapper, are the graph's to count:
+    :class:`fdtpu_torch.export.GraphPredict`); anything the kernel does not
+    take raises.
+    Up to :func:`max_candidates` rows an image the kernel keeps its working
+    set in shared memory; above that the same kernel works in a scratch
+    tensor, ``B`` times the planes and the sort list of the padded ``N``.
+    """
+    if values.dim() != 3 or values.shape[-1] != 5:
+        raise ValueError(f"values must be (B, N, 5), got {tuple(values.shape)}")
+    if values.dtype != torch.float32:
+        raise TypeError(f"values must be float32, got {values.dtype}")
+    b, n, _ = values.shape
+    if b < 1 or n < 1 or capacity < 1:
+        raise ValueError(f"empty problem: B={b}, N={n}, capacity={capacity}")
+    device = values.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
+    sx, ox, sy, oy, w_scale, h_scale = tables
+    cols = tuple(torch.as_tensor(t, dtype=torch.float32, device=device) for t in (sx, ox, sy, oy))
+    if any(c.shape != (n,) for c in cols):
+        raise ValueError(f"decode tables must each be ({n},)")
+    scalars = tuple(_f32(v) for v in (w_scale, h_scale, probability_threshold, iou_threshold))
+    if _traced(values):
+        return decode_filter_nms_op(values, *cols, *scalars, capacity)
+    impl = _launch if device.type == "cuda" else _plain
+    return impl(values, *cols, *scalars, capacity)
+
+
+def _traced(values: torch.Tensor) -> bool:
+    """Whether anything but plain eager code sees this call: a tensor
+    subclass (the fake tensors of ``torch.export``), a dispatch or function
+    mode, or ``torch.compile``. Then only the op, one node, may stand for
+    K1."""
+    return (type(values) is not torch.Tensor or torch.compiler.is_compiling()
+            or torch._C._len_torch_dispatch_stack() > 0
+            or torch._C._is_torch_function_mode_enabled())
 
 
 decode_filter_nms_batch.launches = 0

@@ -70,12 +70,29 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "fdtpu"}
                                     "fdtpu_torch.parallel",
                                     "fdtpu_torch.parallel.dp",
                                     "fdtpu_torch.parallel.multihost",
-                                    "fdtpu_torch.parallel.dryrun"])
+                                    "fdtpu_torch.parallel.dryrun",
+                                    "fdtpu_torch.export",
+                                    "fdtpu_torch.export.export",
+                                    "fdtpu_torch.export.native_format",
+                                    "fdtpu_torch.native",
+                                    "fdtpu_torch.native.build",
+                                    "fdtpu_torch.native.infer",
+                                    "fdtpu_torch.native.loader",
+                                    "fdtpu_torch.native.reference_interp",
+                                    "fdtpu_torch.compat.pruning",
+                                    "fdtpu_torch.pruner",
+                                    "fdtpu_torch.convert_checkpoint_to_exported_model",
+                                    "fdtpu_torch.convert_checkpoint_to_native_model",
+                                    "fdtpu_torch.demo_model_exported",
+                                    "fdtpu_torch.demo_model_native",
+                                    "fdtpu_torch.utils.device_cache"])
 def test_kernel_modules_import_alone_without_jax(module):
     """Each module of the fused kernels, each entry point, the Trainer
     with its loader, the SSD's modules and the rest of the zoo's (with the
-    TorchScript import), and the data-parallel package, imported on its
-    own: no JAX, no fdtpu, and no build until a kernel launches."""
+    TorchScript import), the data-parallel package, and the deployment
+    modules (export, the ``.fdn`` writer, the native engine and loader,
+    pruning) with their entry points, imported on its own: no JAX, no
+    fdtpu, and no build until a kernel launches."""
     proc = subprocess.run(
         [sys.executable, "-c", ALONE, module], cwd=REPO, capture_output=True, text=True,
         timeout=120,
@@ -100,3 +117,26 @@ SOURCES = sorted((REPO / "fdtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_import_even_lazily(path):
     assert not imported_roots(path) & FORBIDDEN
+
+
+CPP_SOURCES = sorted((REPO / "fdtpu_torch").rglob("*.cpp")) + sorted(
+    (REPO / "fdtpu_torch").rglob("*.cu"))
+
+
+@pytest.mark.parametrize("path", SOURCES + CPP_SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_path_into_the_jax_package(path):
+    """No module and no C++ source of the port names a file of fdtpu's
+    native code or includes anything of fdtpu: the port builds its own
+    copies."""
+    text = path.read_text()
+    assert "fdtpu/native" not in text and "fdtpu.native" not in text
+    includes = [line for line in text.splitlines() if line.lstrip().startswith("#include")]
+    assert not [line for line in includes if "fdtpu" in line], includes
+
+
+def test_native_sources_are_the_ports_own():
+    from fdtpu_torch.native import infer, loader
+
+    own = REPO / "fdtpu_torch" / "native"
+    for src in (infer.ENGINE, infer.CLI, infer.LOADER, loader.LOADER):
+        assert src.parent == own and src.is_file()
