@@ -188,11 +188,33 @@ non-zero; without a CUDA card it fails at once and prints no result):
     a frame; (d) PoolResnet-128 L1-pruned to 102 channels and, with
     ``align`` 64, to 64: forwards finite, b64 forward + decode img/s at
     128, 102 and 64 channels. ``--deployment`` runs phases 1, 2 and 18
-    alone.
+    alone;
+19. the spatial axis on the one card (``fdtpu_torch.parallel``'s data x
+    spatial grid of ranks, the row-halo exchange, PoolResnet's spatial
+    forward) at ``DetectorConfig()`` (PoolResnet-128x10, 480 px, grid 10),
+    each rank a spawned process that loads the kernels phase 2 built: (a)
+    NCCL at world size 1 on a 1 x 1 mesh, through the spatial step, b8,
+    bf16 compute, SAM + Adam: one step against the plain step from the same
+    state, augmentation and dropout off, deterministic algorithms (phase
+    17a's loss rtol 1e-6, update rel. L2 1e-4), then three steps with
+    rotation on the card and train metrics (K1 and three shear launches
+    a step); the plain and the spatial step timed in turns, three
+    runs; (b) four gloo ranks on the card: a 1 x 2 mesh on ranks 0 and 1,
+    then a 2 x 2 mesh on all four, float32 SAM + SGD, global batch 8 with
+    one padded sample, each against the one-process step on the global
+    batch at phase 8's tolerances, params identical on every rank of the
+    mesh; on each mesh the grid gathered from each rank's rows, dropout on,
+    against the one-process forward of its data row with the same masks,
+    atol 1e-4 (the 480 px rows straddle block 2's pool and cross the head's
+    shard edge both ways); (c) the spatial step's ms and its exchanges' ms
+    (forward and backward, ``parallel.halo.timer``) on each mesh, with the
+    one-process step's: what the axis costs on one card with gloo's host
+    staging, not a scaling number. A rank that fails or outlives its
+    timeout fails the script. ``--spatial`` runs phases 1, 2 and 19 alone.
 
 The line before the last is a JSON object with each kernel's launches (from
-the serving, training, fused, Trainer, SSD, zoo, data-parallel and deployment
-paths; a CUDA graph's replays, which launch K1 without its wrapper, are
+the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment
+and spatial paths; a CUDA graph's replays, which launch K1 without its wrapper, are
 counted by the script), error, times, and
 its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
@@ -240,7 +262,7 @@ from fdtpu_torch.kernels import nms as knms
 from fdtpu_torch.kernels import photometric as kphoto
 from fdtpu_torch.kernels import rotate as krot
 from fdtpu_torch.losses.ssd import hard_negative_mining
-from fdtpu_torch.models.layers import BatchNorm
+from fdtpu_torch.models.layers import BatchNorm, DropoutMasks
 from fdtpu_torch.models import (
     SSD,
     Detector,
@@ -251,12 +273,17 @@ from fdtpu_torch.models import (
     ssd_patch_sizes,
 )
 from fdtpu_torch.parallel import (
+    data_shard,
     grad_all_reduce,
     initialize_multihost,
     launch_local_ranks,
     make_dp_train_step,
+    make_mesh,
+    poolresnet_plan,
     shutdown,
+    spatial_forward,
 )
+from fdtpu_torch.parallel import halo as khalo
 from fdtpu_torch.train import Trainer, create_train_state, make_train_step
 from fdtpu_torch.train import step as tstep
 from fdtpu_torch.train.checkpoint import latest_checkpoint
@@ -347,6 +374,14 @@ NATIVE_ATOL, NATIVE_RTOL = 2e-3, 1e-4  # the engine against the float32 predict 
 LATENCY_LOOPS, LATENCY_ITERS = 3, 2000
 NATIVE_FRAMES = 8
 PRUNE_BATCH = 64
+# K1 on trained val maps (config_of_record, PERF.md §6): eligible candidates an image
+K1_RECORDED = (("trained PoolResnet val maps", (8, 100, 64), 2.29),
+               ("trained SSD-16 val maps, bg_push 0.02", (24, 4774, 64), 17.8),
+               ("trained SSD-16 val maps, bg_push 0", (24, 4774, 64), 4564))
+# phase 19: the spatial axis, at DetectorConfig() (PoolResnet-128x10, 480 px, grid 10)
+SP_RANK_TIMEOUT_S = 300
+SP_BATCH = 8  # 19a's batch and 19b's global batch
+SP_STEPS, SP_TIMED_STEPS = 3, 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -380,6 +415,30 @@ def nms_bound(vals, tables, boxes, mask, prob: float = 0.5) -> tuple[dict, int, 
            + int((rounds * eligible).sum()) * NMS_ROUND_OPS)
     return (bound(nbytes(vals, *tables[:4], boxes, mask), ops), int(rounds.sum()),
             int(eligible.sum()))
+
+
+def k1_recorded_map_bounds() -> list[dict]:
+    """K1's bound (``nms_bound``'s count) on the trained val maps that
+    ``config_of_record`` timed (PERF.md §6), from their recorded eligible
+    candidates an image, which stand in for the maps (not kept): each
+    image's eligible count spread evenly and one greedy round an image,
+    the least any map with that count needs, so a lower bound on the
+    bound."""
+    rows = []
+    for what, (b, n, cap), per_image in K1_RECORDED:
+        eligible = round(b * per_image)
+        vals = torch.zeros((b, n, 5))
+        vals[..., 0] = 0.1
+        for i in range(eligible):
+            vals[i % b, i // b, 0] = 0.9
+        boxes, mask = torch.zeros((b, cap, 5)), torch.zeros((b, cap), dtype=torch.bool)
+        bnd, rounds, counted = nms_bound(vals, tables_for(n), boxes, mask)
+        check(counted == eligible and rounds == b, f"K1 recorded bound counts {counted}, {rounds}")
+        rows.append({"maps": what, "shape": [b, n, cap], "eligible": eligible, **bnd})
+        print(f"[K1 bound] {what} B={b} N={n} cap={cap}: {per_image} eligible an image (recorded) "
+              f"-> {eligible} in all, one round an image: bound {bnd['bound_ms']:.3g} ms "
+              f"({bnd['bound_by']}), a lower bound on the bound")
+    return rows
 
 
 # -- inputs ----------------------------------------------------------------------
@@ -2194,11 +2253,12 @@ def dp_slice(batch, rank: int, world: int):
     return [t[rank * lb:(rank + 1) * lb] for t in batch]
 
 
-def dp_params_identical(module) -> bool:
-    """Rank 0's params and buffers broadcast and compared bit for bit."""
+def dp_params_identical(module, group=None) -> bool:
+    """Rank 0's params and buffers broadcast (over ``group``, the default
+    group when None) and compared bit for bit."""
     flat = torch.cat([t.detach().reshape(-1).float() for t in module.state_dict().values()])
     ref = flat.clone()
-    dist.broadcast(ref, src=0)
+    dist.broadcast(ref, src=0, group=group)
     return torch.equal(flat, ref)
 
 
@@ -2213,12 +2273,13 @@ def update_errors(before, got, want) -> tuple[float, float]:
     return total, worst
 
 
-def dp_flagship(device, dropout: bool, seed: int = SEED):
-    """PoolResnet-128 at the bench shape (320 px, grid 15), bf16 compute."""
-    cfg = BENCH_CFG
+def dp_flagship(device, dropout: bool, seed: int = SEED, cfg: DetectorConfig = BENCH_CFG,
+                compute_dtype=torch.bfloat16):
+    """PoolResnet-128 at the bench shape (320 px, grid 15; or ``cfg``),
+    bf16 compute (or ``compute_dtype``; None: the params' float32)."""
     rate = 0.25 if dropout else 0.0
     return PoolResnet(cfg.filters, cfg.input_shape, cfg.num_patches, cfg.num_residual_blocks,
-                      dropout=rate, head_dropout=2 * rate, compute_dtype=torch.bfloat16,
+                      dropout=rate, head_dropout=2 * rate, compute_dtype=compute_dtype,
                       generator=torch.Generator().manual_seed(seed)).to(device)
 
 
@@ -2536,6 +2597,257 @@ def phase_dp(card, tmp) -> dict:
     return launches
 
 
+# -- the spatial axis ------------------------------------------------------------------
+
+
+def sp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """19a: NCCL at world size 1 on a 1 x 1 mesh, through the data x spatial
+    step, at ``DetectorConfig()`` b8 (bf16 compute, float32 params, SAM +
+    Adam)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    dp_require_library()
+    device = torch.device("cuda", 0)
+    initialize_multihost(rank=rank, world_size=world, init_method=init_method, device=device)
+    try:
+        mesh = make_mesh(1, 1)
+        check(dist.get_backend() == "nccl" and mesh.shape == (1, 1),
+              f"19a wants NCCL on a 1 x 1 mesh, got {dist.get_backend()} {mesh.shape}")
+        cfg = DetectorConfig()
+        batch = bench_like_batch(SP_BATCH, cfg.input_shape[0], device)
+        spatial_step = functools.partial(make_dp_train_step, mesh=mesh)
+        # the spatial step against the plain step, augmentation and dropout off
+        tcfg = TrainConfig(seed=SEED)
+        torch.use_deterministic_algorithms(True)
+        try:
+            runs = {}
+            for name, make in (("plain", make_train_step), ("spatial", spatial_step)):
+                module = dp_flagship(device, dropout=False, cfg=cfg)
+                before = [p.detach().clone() for p in module.parameters()]
+                state = create_train_state(module, tcfg, 100)
+                state, sc = make(module, tcfg, augment=False)(state, *batch)
+                runs[name] = (sc["loss"].item(), before,
+                              [p.detach().clone() for p in module.parameters()])
+                del module, state
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (l_p, before, after_p), (l_s, _, after_s) = runs["plain"], runs["spatial"]
+        loss_err = abs(l_s / l_p - 1)
+        upd_err, worst = update_errors(before, after_s, after_p)
+        check(np.isfinite(l_s) and loss_err <= DP_LOSS_RTOL,
+              f"19a spatial loss {l_s} vs plain {l_p} (rel {loss_err})")
+        check(upd_err <= DP_UPDATE_RTOL, f"19a spatial update differs by {upd_err} in relative L2")
+        del runs, before, after_p, after_s
+
+        # three steps with rotation on the card and train metrics: the
+        # path's launches
+        tcfg = TrainConfig(rotate_device=True, positional_crop=True, seed=SEED)
+        module = dp_flagship(device, dropout=True, cfg=cfg)
+        state = create_train_state(module, tcfg, 100)
+        metrics_step = spatial_step(module, tcfg, compute_metrics=True)
+        start = [p.detach().clone() for p in module.parameters()]
+        krot.shear_rows.launches = krot.shear_cols.launches = 0
+        knms.decode_filter_nms_batch.launches = 0
+        scalars = [metrics_step(state, *batch)[1] for _ in range(SP_STEPS)]
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        check(launches == {"decode_filter_nms": SP_STEPS, "shear_rows": 2 * SP_STEPS,
+                           "shear_cols": SP_STEPS}, f"19a launches {launches}")
+        check(all(np.isfinite(v.item()) for sc in scalars for v in sc.values()),
+              "19a non-finite scalars")
+        check(max((p - q).abs().max().item() for p, q in zip(module.parameters(), start)) > 0,
+              "19a params did not move")
+
+        # the plain and the spatial step in turns, three runs each
+        plain, spatial = make_train_step(module, tcfg), spatial_step(module, tcfg)
+        times = {"plain": [], "spatial": []}
+        for _ in range(3):
+            for name, step in (("plain", plain), ("spatial", spatial)):
+                times[name].append(step_ms(state, step, batch, SP_TIMED_STEPS))
+        with open(os.path.join(out_dir, "sp_nccl.json"), "w") as f:
+            json.dump({"loss": [l_p, l_s], "loss_err": loss_err, "update_err": upd_err,
+                       "worst_tensor": worst, "launches": launches,
+                       "metrics": {k: v.item() for k, v in scalars[-1].items()},
+                       "times": times}, f)
+    finally:
+        shutdown()
+
+
+def sp_module(device, dropout: bool = False):
+    """19b's model: PoolResnet-128x10 at ``DetectorConfig()``, float32."""
+    return dp_flagship(device, dropout, SEED + 5, DetectorConfig(), compute_dtype=None)
+
+
+def sp_reference(batch, device) -> dict:
+    """19b, rank 0: the one-process float32 SAM + SGD step on the global
+    batch, and its time (two more steps)."""
+    tcfg = TrainConfig(optimizer="sgd", learning_rate=1e-2)
+    module = sp_module(device)
+    before = [p.detach().clone() for p in module.parameters()]
+    state = create_train_state(module, tcfg, 100)
+    step = make_train_step(module, tcfg, augment=False)
+    state, sc = step(state, *batch)
+    want = [p.detach().clone() for p in module.parameters()]
+    step_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return {"loss": sc["loss"].item(), "grad_norm": sc["grad_norm"].item(), "before": before,
+            "want": want, "step_ms": [1e3 * t for t in step_s]}
+
+
+def sp_against_global(mesh, batch, rank: int, ref: dict | None, what: str) -> dict:
+    """19b: one float32 SAM + SGD step of the data x spatial step on this
+    rank's data row of ``batch``; the params must come out identical on
+    every rank of the mesh, and (rank 0) equal the one-process step on the
+    global batch at phase 8's tolerances. Two more steps time the step,
+    and a third the exchanges (``parallel.halo.timer``)."""
+    tcfg = TrainConfig(optimizer="sgd", learning_rate=1e-2)
+    module = sp_module(batch[0].device)
+    state = create_train_state(module, tcfg, 100)
+    step = make_dp_train_step(module, tcfg, mesh=mesh, augment=False)
+    mine = data_shard(mesh, *batch)
+    state, sc = step(state, *mine)
+    check(dp_params_identical(module, mesh.group), f"19b {what}: params differ between the ranks")
+    out = {"loss": sc["loss"].item(), "grad_norm": sc["grad_norm"].item()}
+    after = [p.detach().clone() for p in module.parameters()]
+    step_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *mine)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    out["step_ms"] = [1e3 * t for t in step_s]
+    khalo.timer = {}
+    try:
+        step(state, *mine)
+    finally:
+        timed, khalo.timer = khalo.timer, None
+    out["halo_ms"] = {k: 1e3 * v for k, v in timed.items()}
+    if rank == 0:
+        out["loss_err"] = abs(out["loss"] / ref["loss"] - 1)
+        out["grad_norm_err"] = abs(out["grad_norm"] / ref["grad_norm"] - 1)
+        out["update_err"], out["worst_tensor"] = update_errors(ref["before"], after, ref["want"])
+        check(out["loss_err"] <= TRAIN_RTOL_LOSS, f"19b {what} loss rel err {out['loss_err']}")
+        check(out["grad_norm_err"] <= TRAIN_RTOL_GRAD_NORM,
+              f"19b {what} grad norm rel err {out['grad_norm_err']}")
+        check(out["update_err"] <= TRAIN_RTOL_UPDATE,
+              f"19b {what} update rel L2 {out['update_err']}")
+        check(out["worst_tensor"] <= TRAIN_RTOL_UPDATE_TENSOR,
+              f"19b {what} worst tensor's update rel L2 {out['worst_tensor']}")
+    return out
+
+
+def sp_forward_error(mesh, images) -> float:
+    """19b: the grid this rank gathers from its rows, dropout on, against
+    the one-process forward of its data row with the same masks."""
+    module = sp_module(images.device, dropout=True)
+    (row,) = data_shard(mesh, images.float() / 255)
+    plan = poolresnet_plan(module, row.shape[1], mesh.spatial)
+    a, b = plan.image_rows[mesh.spatial_index]
+
+    def masks():
+        return DropoutMasks(torch.Generator(images.device).manual_seed(mesh.data_index))
+
+    with torch.no_grad():
+        grid = spatial_forward(module, row[:, a:b], plan, mesh, masks())
+        want = module(row, masks())
+    err = (grid - want).abs().max().item()
+    check(err <= FORWARD_ATOL, f"19b gathered grid differs from one process by {err}")
+    return err
+
+
+def sp_gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """19b and 19c: four gloo ranks on the one card (CUDA tensors staged
+    through the host); a 1 x 2 mesh on ranks 0 and 1, then a 2 x 2 mesh on
+    all four."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    dp_require_library()
+    device = torch.device("cuda", 0)
+    initialize_multihost(rank=rank, world_size=world, init_method=init_method, device=device,
+                         backend="gloo")
+    try:
+        check(dist.get_backend() == "gloo" and dist.get_world_size() == 4,
+              "19b wants 4 gloo ranks")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        meshes = {"1x2": make_mesh(2, 2), "2x2": make_mesh(4, 2)}  # every rank makes both
+        images, boxes, masks = bench_like_batch(SP_BATCH, DetectorConfig().input_shape[0], device)
+        sm = torch.ones(SP_BATCH, dtype=torch.bool, device=device)
+        sm[-1] = False  # one padded sample: the 2 x 2 rows weigh 4 and 3
+        batch = (images, boxes, masks, sm)
+        ref = sp_reference(batch, device) if rank == 0 else None
+        result = {}
+        for name, mesh in meshes.items():
+            if mesh is None:  # ranks 2 and 3 sit out the 1 x 2 mesh
+                continue
+            result[name] = sp_against_global(mesh, batch, rank, ref, name)
+            result[name]["forward_err"] = sp_forward_error(mesh, images)
+        if ref is not None:
+            result["reference_step_ms"] = ref["step_ms"]
+        with open(os.path.join(out_dir, f"sp_gloo_rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        shutdown()
+
+
+def phase_spatial(card, tmp) -> dict:
+    """19: the spatial axis on the card. Returns the kernels' launches."""
+    t0 = time.perf_counter()
+    launch_local_ranks(sp_nccl_rank, 1, args=(tmp,), timeout=SP_RANK_TIMEOUT_S)
+    with open(os.path.join(tmp, "sp_nccl.json")) as f:
+        a = json.load(f)
+    (p_lo, p_hi), (s_lo, s_hi) = ((min(v), max(v)) for v in (a["times"]["plain"],
+                                                            a["times"]["spatial"]))
+    print(f"[19a spatial nccl] 1 x 1 mesh, PoolResnet-128x10 480px grid 10 b{SP_BATCH} bf16 SAM + "
+          f"Adam: spatial step vs plain step, augmentation and dropout off, deterministic: loss "
+          f"{a['loss'][1]:.6f} vs {a['loss'][0]:.6f} (rel {a['loss_err']:.3g}, rtol "
+          f"{DP_LOSS_RTOL}), update rel L2 {a['update_err']:.3g} (tol {DP_UPDATE_RTOL}), worst "
+          f"tensor {a['worst_tensor']:.3g}; {SP_STEPS} spatial steps with rotation on the card and "
+          f"train metrics: launches {a['launches']}, last metrics {a['metrics']}")
+    print(f"[19a time] plain step {p_lo:.3f}-{p_hi:.3f} ms, spatial step (NCCL, 1 x 1) "
+          f"{s_lo:.3f}-{s_hi:.3f} ms (three runs of {SP_TIMED_STEPS} steps each, in turns, "
+          f"rotation on) [{card}]")
+
+    launch_local_ranks(sp_gloo_rank, 4, args=(tmp,), timeout=SP_RANK_TIMEOUT_S)
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(tmp, f"sp_gloo_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    b = ranks[0]
+    for name in ("1x2", "2x2"):
+        r = b[name]
+        errs = [x[name]["forward_err"] for x in ranks if name in x]
+        print(f"[19b spatial gloo] {name} mesh on one card, PoolResnet-128x10 480px f32 SAM + SGD, "
+              f"global batch {SP_BATCH} (one padded sample) vs one process on the global batch: "
+              f"loss rel {r['loss_err']:.3g} (rtol {TRAIN_RTOL_LOSS}), grad norm rel "
+              f"{r['grad_norm_err']:.3g} (rtol {TRAIN_RTOL_GRAD_NORM}), update rel L2 "
+              f"{r['update_err']:.3g} (rtol {TRAIN_RTOL_UPDATE}), worst tensor "
+              f"{r['worst_tensor']:.3g} (rtol {TRAIN_RTOL_UPDATE_TENSOR}); params identical on "
+              f"every rank; gathered grid with dropout vs one-process forward, largest "
+              f"difference over the ranks {max(errs):.3g} (atol {FORWARD_ATOL})")
+    for name in ("1x2", "2x2"):
+        steps = [x[name]["step_ms"] for x in ranks if name in x]
+        halo = [x[name]["halo_ms"] for x in ranks if name in x]
+        print(f"[19c time] {name} spatial step, gloo staging through the host ({len(steps)} ranks "
+              f"on one card; what the axis costs here, not a scaling number): "
+              f"{min(map(min, steps)):.1f}-{max(map(max, steps)):.1f} ms a step over the ranks; "
+              f"its row exchanges (halos and the grid's gather; two forwards and two backwards "
+              f"a SAM step, the card synchronised around each) forward "
+              f"{min(h['forward'] for h in halo):.1f}-{max(h['forward'] for h in halo):.1f} ms, "
+              f"backward {min(h['backward'] for h in halo):.1f}-"
+              f"{max(h['backward'] for h in halo):.1f} ms; the one-process step on the global "
+              f"batch {min(b['reference_step_ms']):.1f}-{max(b['reference_step_ms']):.1f} ms "
+              f"[{card}]")
+    launches = dict(a["launches"])
+    print(f"[19 spatial] launches on the spatial path {launches}; phase 19 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # -- deployment ------------------------------------------------------------------------
 
 
@@ -2797,6 +3109,14 @@ def deployment_only() -> None:
         phase_deploy(card, tmp)
 
 
+def spatial_only() -> None:
+    """``--spatial``: the card, the build and phase 19 alone."""
+    card, _ = phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_spatial(card, tmp)
+
+
 def kernel_times_only() -> None:
     """``--kernel-times``: the card, the build, K1-K4's device times (no
     plain versions, K1's wrapper host time a call) and the b1 480 px
@@ -2835,6 +3155,8 @@ def main() -> None:
         zoo_launches = phase_zoo(card, tmp)
         dp_launches = phase_dp(card, tmp)
         deploy_launches = phase_deploy(card, tmp)
+        sp_launches = phase_spatial(card, tmp)
+    k1_recorded_map_bounds()
 
     def entry(meta, launches, err, times, library_ms=None):
         ms, plain, bnd = times
@@ -2850,7 +3172,7 @@ def main() -> None:
     kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"]
                         + trainer_launches["decode_filter_nms"] + ssd_launches
                         + zoo_launches["decode_filter_nms"] + dp_launches["decode_filter_nms"]
-                        + deploy_launches,
+                        + deploy_launches + sp_launches["decode_filter_nms"],
                         worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
     for kname, meta in SHEARS.items():
@@ -2858,7 +3180,7 @@ def main() -> None:
         kernels.append({**entry({"name": kname, **meta},
                                 train_launches[kname] + photo_launches[kname]
                                 + trainer_launches[kname] + zoo_launches[kname]
-                                + dp_launches[kname], rot_worst,
+                                + dp_launches[kname] + sp_launches[kname], rot_worst,
                                 row_times(rows[0]), rows[0]["library_ms"]), "shapes": rows})
     kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"], photo_worst,
                          fused_times["photometric"]))
@@ -2875,5 +3197,7 @@ if __name__ == "__main__":
         kernel_times_only()
     elif sys.argv[1:] == ["--deployment"]:
         deployment_only()
+    elif sys.argv[1:] == ["--spatial"]:
+        spatial_only()
     else:
         main()

@@ -1,5 +1,7 @@
 """Data parallelism over ``torch.distributed`` (``fdtpu/parallel/``): one
-process a rank, NCCL between cards, gloo on the CPU. No spatial axis."""
+process a rank, NCCL between cards, gloo on the CPU; a data x spatial grid
+of ranks (``mesh.py``) that also shards the image height, with the row-halo
+exchange of ``halo.py`` and PoolResnet's spatial forward (``spatial.py``)."""
 
 from fdtpu_torch.parallel.dp import (  # noqa: F401
     barrier,
@@ -11,10 +13,22 @@ from fdtpu_torch.parallel.dp import (  # noqa: F401
     reduce_loss_sum,
     weighted_metric_reduce,
 )
+from fdtpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    data_shard,
+    make_mesh,
+    row_split,
+    shard_rows,
+)
 from fdtpu_torch.parallel.multihost import (  # noqa: F401
     initialize_multihost,
     launch_local_ranks,
     rank_device,
     shutdown,
     torchrun_environment,
+)
+from fdtpu_torch.parallel.spatial import (  # noqa: F401
+    PoolResnetPlan,
+    poolresnet_plan,
+    spatial_forward,
 )

@@ -44,14 +44,19 @@ def world_group(group=None):
     return dist.group.WORLD
 
 
-def grad_all_reduce(group, norm: torch.Tensor) -> Callable[[Sequence[torch.Tensor]], tuple]:
+def grad_all_reduce(group, norm: torch.Tensor,
+                    count_norm: bool = True) -> Callable[[Sequence[torch.Tensor]], tuple]:
     """fdtpu's ``_grad_all_reduce``: ``reduce(grads)`` turns this rank's
     mean-loss gradients into the global batch's, in one all-reduce of one
     flat float32 buffer that also carries ``norm`` (this rank's divisor
     before the clamp at 1) as its last element. The gradients go in by one
     ``_foreach_copy_`` into views of the buffer with their own strides (a
     dense gradient, channels_last too, covers a contiguous block), and the
-    views come back: the optimizer sees the params' layout."""
+    views come back: the optimizer sees the params' layout.
+
+    On a spatial mesh the ranks of a data row hold parts of one gradient,
+    weighed by the row's one ``norm``: each multiplies its part by it, and
+    only one of them (``count_norm``) adds the norm itself into the sum."""
     norm = norm.float().reshape(1)
     w_local = norm.clamp_min(1.0)
 
@@ -63,7 +68,7 @@ def grad_all_reduce(group, norm: torch.Tensor) -> Callable[[Sequence[torch.Tenso
             views.append(flat.as_strided(g.shape, g.stride(), offset))
             offset += g.numel()
         torch._foreach_copy_(views, list(grads))
-        flat[-1:].copy_(norm)
+        flat[-1:].copy_(norm if count_norm else torch.zeros_like(norm))
         flat[:-1].mul_(w_local)
         dist.all_reduce(flat, group=group)
         flat[:-1].div_(flat[-1:].clamp_min(1.0))
@@ -135,15 +140,23 @@ def barrier(group, device: torch.device | str) -> None:
     flag.item()
 
 
-def make_dp_train_step(module, config, group=None, **kwargs) -> Callable:
+def make_dp_train_step(module, config, group=None, mesh=None, **kwargs) -> Callable:
     """fdtpu's ``make_shardmap_dp_train_step``: the train step of
     ``train/step.py`` over ``group`` (the default group when None). Each
     rank calls it on its slice of every global batch; the state comes out
     the same on every rank. The rank's augmentation and dropout draws
     fold in its rank, as fdtpu folds in ``axis_index``. ``kwargs`` are
-    ``make_train_step``'s."""
+    ``make_train_step``'s.
+
+    With ``mesh`` (``parallel/mesh.py``; ``group`` is then the mesh's) it
+    is fdtpu's ``make_dp_train_step(spatial=True)``: each rank calls it on
+    its data row of the batch (``parallel.data_shard``), the same on every
+    rank of the row, and computes its rows of the height
+    (``train/step.py``, "The spatial axis")."""
     from fdtpu_torch.train.step import make_train_step
 
+    if mesh is not None:
+        return make_train_step(module, config, group=mesh.group, mesh=mesh, **kwargs)
     return make_train_step(module, config, group=world_group(group), **kwargs)
 
 

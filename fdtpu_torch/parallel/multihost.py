@@ -11,8 +11,8 @@ environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``global_batch_from_local`` has no counterpart: it assembles fdtpu's global
 arrays from each process's slice of the batch, and here each rank keeps its
 own slice (``BatchLoader(process_shard=(rank, world))``) and steps on it.
-``parallel/mesh.py`` has none either: the spatial axis is not ported, and
-batch sharding is the rank's slice.
+The mesh of ``fdtpu/parallel/mesh.py`` is ``parallel/mesh.py``'s grid of
+ranks.
 """
 
 from __future__ import annotations

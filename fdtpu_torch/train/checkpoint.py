@@ -7,7 +7,7 @@ module's ``state_dict`` (float32 params) and the optimizer's ``state_dict``
 from its generator reseeded from ``(seed, step)`` (``train/step.py``), so a
 resumed run continues bit for bit without a generator state. fdtpu's Orbax
 checkpoints need jax to read; their converter is not ported (ROADMAP.md
-queue 1, item 2).
+queue 1, item 1).
 """
 
 from __future__ import annotations

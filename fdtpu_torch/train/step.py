@@ -40,6 +40,18 @@ in ``fdtpu_torch/parallel/dp.py``. The rank folds into the step's seed, as
 fdtpu folds ``axis_index`` into its key, so every rank draws its own
 augmentation and dropout.
 
+The spatial axis: with a ``mesh`` (``parallel/mesh.py``, PoolResnet only)
+the step is a rank's of fdtpu's ``make_dp_train_step(spatial=True)``. The
+ranks of a data row each get the row's whole slice of the batch, augment it
+alike (the data index, not the rank, folds into the seed) and encode the
+same targets; each keeps its rows of the float image and runs the spatial
+forward (``parallel/spatial.py``), which gives every rank of the row the
+whole grid, so the loss is computed whole on each. A rank's gradient is the
+part from the rows it owns, and the spatial ranks' parts sum to the row's
+gradient: the mesh-wide all-reduce of fdtpu's weighted form sums over both
+axes, with each row's norm counted once. The loss and the metrics, the same
+on every rank of a row, are reduced over the data group only.
+
 The train step's phases run under ``torch.profiler.record_function`` spans
 (``train/augment``, ``train/targets``, ``train/gradients``,
 ``train/optimizer``, ``train/metrics``), which ``fdtpu_torch.profile_train``
@@ -73,6 +85,7 @@ from fdtpu_torch.parallel.dp import (
     reduce_loss_sum,
     weighted_metric_reduce,
 )
+from fdtpu_torch.parallel.spatial import check_spatial, poolresnet_plan, spatial_forward
 from fdtpu_torch.train.metrics import detection_metrics
 from fdtpu_torch.train.sam import global_norm, sam_gradients
 from fdtpu_torch.train.state import TrainState
@@ -151,11 +164,12 @@ def _forward(module, images, masks: DropoutMasks | None, train: bool, update_sta
 
 def _loss_and_out(module, images, enc, sample_mask, masks: DropoutMasks | None = None,
                   gt_locs=None, neg_pos_ratio: int = 10, bg_push: float = 0.0,
-                  train: bool = False, update_stats: bool = False):
+                  train: bool = False, update_stats: bool = False, forward=_forward):
     """-> ``(gradient loss, (reported loss, model out))``. ``sample_mask``
     drops padded samples from both: their YOLO losses are masked out, their
-    SSD labels zeroed (no positives, so no mined negatives either)."""
-    out = _forward(module, images, masks, train, update_stats)
+    SSD labels zeroed (no positives, so no mined negatives either).
+    ``forward`` is :func:`_forward`'s signature (the spatial step's own)."""
+    out = forward(module, images, masks, train, update_stats)
     if is_ssd(module):
         enc = enc * sample_mask[:, None, None]
         loss = ssd_loss(out[..., 0], out[..., 1:5], enc[..., 0], gt_locs, neg_pos_ratio, bg_push)
@@ -179,12 +193,15 @@ def make_train_step(
     group=None,
     neg_pos_ratio: int = 10,
     bg_push: float = 0.0,
+    mesh=None,
 ) -> Callable:
     """Build the train step for ``module`` (the state's module);
     ``neg_pos_ratio`` and ``bg_push`` are the SSD loss's. With ``group``
     (a process group; None for one process) the step is a rank's of
     data-parallel training (module docstring): each rank passes its slice
-    of the global batch and gets the same state and scalars back.
+    of the global batch and gets the same state and scalars back. With
+    ``mesh`` as well (``group`` is the mesh's) it is a rank's of the
+    data x spatial step: each rank passes its data row's slice.
 
     ``step(state, images_u8, boxes, box_mask, sample_mask=None) -> (state,
     scalars)``: ``images_u8`` ``(B, H, W, 3)``, ``boxes`` ``(B, N, 5)``
@@ -194,9 +211,22 @@ def make_train_step(
     ``recall``, ``precision`` with ``compute_metrics``) as 0-d tensors.
     """
     _check_supported(module)
+    if mesh is not None:
+        check_spatial(module)
     image_size = _image_size(module)
     prob, iou_thr, capacity = nms_params
     rank = None if group is None else dist.get_rank(group)
+    scalar_group, forward = group, _forward
+    if mesh is not None:
+        rank, scalar_group = mesh.data_index, mesh.data_group
+        plans = {}
+
+        def forward(module, images, masks, train, update_stats):
+            h = images.shape[1]
+            if h not in plans:
+                plans[h] = poolresnet_plan(module, h, mesh.spatial)
+            a, b = plans[h].image_rows[mesh.spatial_index]
+            return spatial_forward(module, images[:, a:b], plans[h], mesh, masks)
 
     def step(state: TrainState, images, boxes, box_mask, sample_mask=None):
         net = state.module
@@ -222,13 +252,15 @@ def make_train_step(
             # only, the unperturbed point
             evaluations += 1
             return _loss_and_out(net, imgs, enc, sample_mask, masks, gt_locs, neg_pos_ratio,
-                                 bg_push, train=True, update_stats=evaluations == 1)
+                                 bg_push, train=True, update_stats=evaluations == 1,
+                                 forward=forward)
 
         params = [p for p in net.parameters() if p.requires_grad]
         norm = grad_reduce = None
         if group is not None:
             norm = _loss_norm(net, enc, sample_mask)
-            grad_reduce = grad_all_reduce(group, norm)
+            grad_reduce = grad_all_reduce(group, norm,
+                                          count_norm=mesh is None or mesh.spatial_index == 0)
         with record_function("train/gradients"):
             if config.use_sam:
                 _, aux, grads = sam_gradients(loss_fn, params, config.sam_rho, grad_reduce)
@@ -239,8 +271,8 @@ def make_train_step(
                     grads = grad_reduce(grads)
         loss_sum, out = aux
         if group is not None:
-            loss_sum = reduce_loss_sum(group, loss_sum, norm, is_ssd(net))
-            mean_buffers(group, _batch_stats(net))
+            loss_sum = reduce_loss_sum(scalar_group, loss_sum, norm, is_ssd(net))
+            mean_buffers(scalar_group, _batch_stats(net))
 
         with record_function("train/optimizer"):
             opt = state.optimizer
@@ -259,7 +291,7 @@ def make_train_step(
                     net, out.detach(), image_size, prob, iou_thr, capacity)
                 det = detection_metrics(pred_boxes, pred_mask, bx, bm, sample_mask)
                 if group is not None:
-                    det = weighted_metric_reduce(group, det, sample_mask)
+                    det = weighted_metric_reduce(scalar_group, det, sample_mask)
                 scalars.update(det)
         return state, scalars
 

@@ -1,5 +1,6 @@
-"""The ranks of ``tests/test_torch_parallel.py``: one process a rank, gloo on
-the CPU, torch and fdtpu_torch only (no JAX).
+"""The ranks of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_spatial.py``: one process a rank, gloo on the CPU, torch
+and fdtpu_torch only (no JAX).
 
     python tests/torch_parallel_ranks.py TASK RANK WORLD INIT_METHOD WORK
 
@@ -11,7 +12,11 @@ batches, the synthetic dataset's path); the rank writes
   (or eval step) on the rank's slice of the case's global batch, from the
   case's params;
 * ``trainer``: ``Trainer(data_parallel=WORLD)`` for one epoch and an eval,
-  streamed and then resident, from the same params.
+  streamed and then resident, from the same params;
+* ``spatial``: for each layout of ``inputs["spatial"]["layouts"]`` (a
+  spatial size; every mesh spans all ranks), one data x spatial train step
+  on the rank's data row of the global batch, and the spatial forward with
+  dropout masks drawn from a generator seeded with the data index.
 """
 
 from __future__ import annotations
@@ -27,11 +32,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets  # noqa: E402
 from fdtpu_torch.models import SSD, MobileNetV3Backbone, PoolResnet  # noqa: E402
+from fdtpu_torch.models.layers import DropoutMasks  # noqa: E402
 from fdtpu_torch.parallel import (  # noqa: E402
+    data_shard,
     initialize_multihost,
     make_dp_eval_step,
     make_dp_train_step,
+    make_mesh,
+    poolresnet_plan,
     shutdown,
+    spatial_forward,
 )
 from fdtpu_torch.train import Trainer, create_train_state  # noqa: E402
 from fdtpu_torch.utils.config import TrainConfig  # noqa: E402
@@ -102,6 +112,30 @@ def trainer(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def spatial(rank: int, world: int, inputs: dict) -> dict:
+    spec = inputs["spatial"]
+    meshes = {name: make_mesh(world, s) for name, s in spec["layouts"].items()}
+    out = {}
+    for name, mesh in meshes.items():
+        module = build(spec)
+        config = TrainConfig(**spec["config"])
+        state = create_train_state(module, config, 10)
+        step = make_dp_train_step(module, config, mesh=mesh, augment=False)
+        batch = [torch.from_numpy(a.copy()) for a in data_shard(mesh, *spec["batch"])]
+        state, scalars = step(state, *batch)
+        dropout = FAMILIES[spec["family"]](**spec["dropout_ctor"])
+        dropout.load_state_dict(spec["state_dict"])
+        plan = poolresnet_plan(dropout, batch[0].shape[1], mesh.spatial)
+        a, b = plan.image_rows[mesh.spatial_index]
+        masks = DropoutMasks(torch.Generator().manual_seed(mesh.data_index))
+        with torch.no_grad():
+            grid = spatial_forward(dropout, batch[0][:, a:b].float() / 255, plan, mesh, masks)
+        out[name] = {"scalars": {k: v.item() for k, v in scalars.items()},
+                     "state_dict": {k: v.clone() for k, v in module.state_dict().items()},
+                     "step": state.step, "data_index": mesh.data_index, "grid": grid}
+    return out
+
+
 def main() -> None:
     task, rank, world, init_method, work = sys.argv[1:]
     rank, world, work = int(rank), int(world), Path(work)
@@ -111,7 +145,8 @@ def main() -> None:
     try:
         assert dist.get_backend() == "gloo"
         inputs = torch.load(work / "inputs.pt", weights_only=False)
-        result = {"steps": steps, "trainer": trainer}[task](rank, world, inputs)
+        result = {"steps": steps, "trainer": trainer, "spatial": spatial}[task](rank, world,
+                                                                               inputs)
         torch.save(result, work / f"{task}_rank{rank}.pt")
     finally:
         shutdown()
