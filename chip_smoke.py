@@ -43,10 +43,13 @@ non-zero; without a CUDA card it fails at once and prints no result):
    bfloat16, B in {1, 8, 26}, S in {200, 320, 480} (200 = 8 mod 16), angles
    0, +-ROTATE_LIMIT_RAD and random; and K4's rotate_batch_transposed. Then
    the edges of both shears: k from 0 to 40 (shear_cols' ring, and its
-   read straight from device memory when the shear outgrows the ring),
-   rows not a multiple of its 128-row band (328, 37), lanes off the
-   16-byte grid (45), c = 1, planes one element into their storage.
-   Bit-equal;
+   read straight from device memory when the shear outgrows the ring;
+   shear_rows' shifts past the row's length), rows not a multiple of its
+   128-row band (328, 37), lanes off the 16-byte grid (45), c = 1, and for
+   shear_rows rows = 3 row_mod (K4's horizontal passes), rows shorter than
+   a warp's 64 vectors and of one vector, shifts of every residue modulo
+   the vector (checked from the plain version's shifts), planes one
+   element into their storage. Bit-equal; the K4-layout launches counted;
 8. one float32 SAM + SGD train step at DetectorConfig() (480 px, grid 10,
    B=2, augmentation and dropout off, TF32 off) on the card against the
    same step on the CPU: loss rtol 1e-4, grad norm rtol 1e-3, and the
@@ -69,7 +72,8 @@ non-zero; without a CUDA card it fails at once and prints no result):
     rotation on and off, the b8/480 step; then each shear kernel on the
     card alone (``device_ms``) against its plain version at the shapes the
     training path gives it (and shear_rows on K4's channel-stacked planes
-    of the same images), and against the library call, one
+    of the same images, its horizontal and its vertical pass), and against
+    the library call, one
     ``F.grid_sample`` of the same planes (float32 only: with bfloat16
     planes its grid is bfloat16 too, which is not the same function), with
     its largest difference from the plain version;
@@ -225,9 +229,10 @@ the shears' float32 rows, the same function within float32 rounding of its
 normalised coordinates; null for the bfloat16 rows (its grid would be
 bfloat16 too) and for the other kernels: no single PyTorch call computes a
 batched greedy NMS, the photometric chain or the fused tail.
-The ``decode_filter_nms``, ``shear_rows``, ``shear_cols`` and
-``residual_tail`` entries also list every shape they were timed at
-(``shapes``).
+The ``decode_filter_nms``, the shears' and ``residual_tail`` entries also
+list every shape they were timed at (``shapes``); K4 has an entry of its
+own, ``shear_rows_stacked`` (``shear_rows`` with ``c = 1``), with the
+launches counted apart on the paths (none: no path stacks channels).
 The last line is ``{"ok": true, "device": {...}}``. Weights are random,
 drawn from a fixed seed.
 """
@@ -300,9 +305,11 @@ KERNEL = {
     "source": "fdtpu_torch/kernels/csrc/decode_filter_nms.cu",
     "replaces": "fdtpu/kernels/nms_pallas.py:197",
 }
-SHEARS = {
+SHEARS = {  # K3a, K3b and K4 (shear_rows on channel-stacked planes, c = 1)
     "shear_rows": {"route": "cuda", "source": "fdtpu_torch/kernels/csrc/rotate_shear.cu",
                    "replaces": "fdtpu/kernels/rotate_pallas.py:197"},
+    "shear_rows_stacked": {"route": "cuda", "source": "fdtpu_torch/kernels/csrc/rotate_shear.cu",
+                           "replaces": "fdtpu/kernels/rotate_pallas.py:55"},
     "shear_cols": {"route": "cuda", "source": "fdtpu_torch/kernels/csrc/rotate_shear.cu",
                    "replaces": "fdtpu/kernels/rotate_pallas.py:232"},
 }
@@ -840,18 +847,46 @@ def shear_inputs(x, angles):
     return padded.reshape(*padded.shape[:2], -1), k1, k2, center
 
 
-def phase_rotate_vs_plain() -> float:
+# phase 7's edges of the shears: (rows, lanes, c, row_mod). Rows not a
+# multiple of shear_cols' band (328); lanes neither a multiple of its tile
+# nor of 16 bytes (45); c = 1; rows = 3 row_mod (K4's horizontal passes);
+# rows shorter than a warp's step of 64 vectors (24 lanes), of one vector (8 bf16
+# lanes; 4 float32 lanes, which in bfloat16 are off the 16-byte grid); c = 5
+# (more than a float32 vector: the second tap is a vector away) and c = 9 (more
+# than a bfloat16 vector), which take the one-element instance
+SHEAR_EDGES = ((328, 984, 3, 0), (37, 45, 3, 0), (70, 1000, 1, 0), (336, 512, 1, 112),
+               (120, 984, 3, 40), (64, 24, 3, 0), (48, 8, 1, 16), (48, 4, 1, 0),
+               (40, 200, 5, 0), (40, 360, 9, 0))
+
+
+def edge_center(rows: int, row_mod: int) -> float:
+    return krot._f32(((row_mod or rows) - 1) / 2.0)
+
+
+def shear_residues(ks, rows: int, lanes: int, c: int, row_mod: int, vec: int) -> set:
+    """The residues ``m = s mod vec`` of the row shifts ``s = n c`` (``n``
+    the plain version's) that stay inside the row, ``|s| < lanes``."""
+    r = torch.arange(rows, device=ks.device)
+    t = ks[:, None] * ((r % row_mod if row_mod else r).float() - edge_center(rows, row_mod))
+    shift = torch.floor(t).long() * c
+    return set((shift[shift.abs() < lanes] % vec).tolist())
+
+
+def phase_rotate_vs_plain() -> dict:
+    """Returns the largest |kernel - plain| of each entry of ``SHEARS``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     lim = krot.ROTATE_LIMIT_RAD
-    worst, runs = 0.0, 0
+    worst = dict.fromkeys(SHEARS, 0.0)
+    runs = 0
 
-    def same(got, want, what):
-        nonlocal worst, runs
+    def same(got, want, kname, what):
+        nonlocal runs
         err = (got.float() - want.float()).abs().max().item()
-        worst = max(worst, err)
+        worst[kname] = max(worst[kname], err)
         runs += 1
         check(got.dtype == want.dtype and torch.equal(got, want), f"{what} differs (max {err})")
 
+    krot.shear_rows.stacked_launches = 0
     for s in (200, 320, 480):
         for dtype in (torch.float32, torch.bfloat16):
             for b in (1, 8, 26):
@@ -862,41 +897,56 @@ def phase_rotate_vs_plain() -> float:
                 for ang in cases:
                     where = f"B={b} S={s} {dtype} angles {[round(a, 4) for a in ang.tolist()[:4]]}"
                     same(krot.rotate_batch(x, ang), krot.rotate_batch_reference(x, ang),
-                         f"rotate_batch at {where}")
+                         "shear_rows", f"rotate_batch at {where}")
                     same(krot.rotate_batch_transposed(x, ang),
                          krot.rotate_batch_transposed_reference(x, ang),
-                         f"rotate_batch_transposed (K4) at {where}")
+                         "shear_rows_stacked", f"rotate_batch_transposed (K4) at {where}")
                 # every pass on its own, each fed the kernel's previous output
                 planes, k1, k2, center = shear_inputs(x, pattern[:b])
                 p1 = krot.shear_rows(planes, k1, 3, 0, center)
-                same(p1, krot.shear_rows_reference(planes, k1, 3, 0, center),
+                same(p1, krot.shear_rows_reference(planes, k1, 3, 0, center), "shear_rows",
                      f"shear_rows pass 1 at B={b} S={s} {dtype}")
                 p2 = krot.shear_cols(p1, k2, 3, center)
-                same(p2, krot.shear_cols_reference(p1, k2, 3, center),
+                same(p2, krot.shear_cols_reference(p1, k2, 3, center), "shear_cols",
                      f"shear_cols pass 2 at B={b} S={s} {dtype}")
-    # the shear kernels' edges, one plane per k: no shear, +-sin of the
-    # limit, and shears steep enough that shear_cols stages a band in
-    # passes (|k| 1.5 and 3) or reads its taps straight from device memory
-    # (k 40); rows not a multiple of the 64-row band (328: S = 200), lanes
-    # neither a multiple of the tile nor of 16 bytes (45), c = 1; and each
-    # as a view one element into its storage (shear_cols' scalar instance)
+    # the shear kernels' edges (SHEAR_EDGES), one plane per k: no shear,
+    # +-sin of the limit, and shears steep enough that shear_cols stages a
+    # band in passes (|k| 1.5 and 3) or reads its taps straight from device
+    # memory (k 40), and that shift shear_rows' rows by their whole length
+    # and more; each also as a view one element into its storage (the
+    # scalar instances)
     ks = torch.tensor([0.0, math.sin(lim), -math.sin(lim), 0.9, -1.5, 3.0, 40.0], device="cuda")
-    for (rows, lanes, c), dtype, offset in itertools.product(
-            ((328, 984, 3), (37, 45, 3), (70, 1000, 1)), (torch.float32, torch.bfloat16), (0, 1)):
+    for (rows, lanes, c, row_mod), dtype, offset in itertools.product(
+            SHEAR_EDGES, (torch.float32, torch.bfloat16), (0, 1)):
         numel = len(ks) * rows * lanes
         flat = (torch.rand((numel + offset,), generator=gen, device="cuda") * 255).to(dtype)
         planes = flat[offset:].view(len(ks), rows, lanes)
-        center = (rows - 1) / 2.0
-        where = f"({len(ks)}, {rows}, {lanes}) c={c} {dtype} offset {offset}"
-        same(krot.shear_cols(planes, ks, c, center),
-             krot.shear_cols_reference(planes, ks, c, center), f"shear_cols edges {where}")
-        same(krot.shear_rows(planes, ks, c, 0, center),
-             krot.shear_rows_reference(planes, ks, c, 0, center), f"shear_rows edges {where}")
+        center = edge_center(rows, row_mod)
+        where = f"({len(ks)}, {rows}, {lanes}) c={c} row_mod={row_mod} {dtype} offset {offset}"
+        if not row_mod:
+            same(krot.shear_cols(planes, ks, c, center),
+                 krot.shear_cols_reference(planes, ks, c, center), "shear_cols",
+                 f"shear_cols edges {where}")
+        same(krot.shear_rows(planes, ks, c, row_mod, center),
+             krot.shear_rows_reference(planes, ks, c, row_mod, center),
+             "shear_rows_stacked" if c == 1 else "shear_rows", f"shear_rows edges {where}")
     torch.cuda.synchronize()
+    stacked = krot.shear_rows.stacked_launches
+    # the edges give the aligned instances every residue of the shift, for
+    # c = 1 and 3, and |s| >= lanes
+    for c in (1, 3):
+        for vec in (4, 8):
+            got = set().union(*(shear_residues(ks, r, l, cc, rm, vec)
+                                for r, l, cc, rm in SHEAR_EDGES if cc == c and l % vec == 0))
+            check(got == set(range(vec)), f"edges give c={c} residues {sorted(got)} of {vec}")
+    check(all(float(ks.abs().max()) * edge_center(r, rm) * cc >= l
+              for r, l, cc, rm in SHEAR_EDGES), "an edge case with no shift past its row's end")
     print(f"[7 rotate=plain] {runs} comparisons bit-equal (rotate_batch, K4's "
-          f"rotate_batch_transposed, the passes alone, and the edges: k up to 40, rows 328 "
-          f"and 37, lanes 45, c = 1, views at an offset of one element); "
-          f"max |kernel - plain| = {worst}")
+          f"rotate_batch_transposed, the passes alone, and the edges: k up to 40 (shifts past "
+          f"the row), rows 328 and 37, lanes 45, rows = 3 row_mod, rows of 24 lanes and of one "
+          f"vector, every residue of the shift, c = 1, 3, 5 and 9, views at an offset of one "
+          f"element); "
+          f"K4-layout launches {stacked}; max |kernel - plain| = {worst}")
     return worst
 
 
@@ -1010,7 +1060,7 @@ def phase_train_path():
     before = {k: [p.detach().clone() for p in st.module.parameters()]
               for k, (st, _, _) in runs.items()}
 
-    krot.shear_rows.launches = krot.shear_cols.launches = 0
+    krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
     knms.decode_filter_nms_batch.launches = 0
     scalars = {}
     for key, (state, (step, metrics_step), batch) in runs.items():
@@ -1018,8 +1068,7 @@ def phase_train_path():
             state, sc = (metrics_step if i == TRAIN_STEPS - 1 else step)(state, *batch)
             scalars.setdefault(key, []).append(sc)
     torch.cuda.synchronize()
-    launches = {"shear_rows": krot.shear_rows.launches, "shear_cols": krot.shear_cols.launches,
-                "decode_filter_nms": knms.decode_filter_nms_batch.launches}
+    launches = kernel_counts()
 
     calls = TRAIN_STEPS * len(runs)  # one rotate_batch per step
     check(launches["shear_rows"] == 2 * calls and launches["shear_cols"] == calls,
@@ -1086,6 +1135,19 @@ def shear_grids(k, center: float, hp: int):
     return rows.contiguous(), cols.contiguous()
 
 
+def stacked_vertical_grid(k, center, hp):
+    """The ``F.grid_sample`` grid of K4's vertical pass on its planes
+    ``(K, Hp, 3 Hp)`` seen as one ``(K, 1, Hp, 3 Hp)`` image: row ``y`` read
+    at ``x + k (y - center)`` along all ``3 Hp`` lanes."""
+    y = torch.arange(hp, device=k.device, dtype=torch.float32)
+    x = torch.arange(3 * hp, device=k.device, dtype=torch.float32)
+    t = k[:, None] * (y - center)  # (K, hp)
+    along = x[None, None, :] + t[:, :, None]  # [i, y, x] = x + t_i(y)
+    fixed = y[None, :, None].expand_as(along)
+    return torch.stack([along * (2.0 / (3 * hp - 1)) - 1.0, fixed * (2.0 / (hp - 1)) - 1.0],
+                       dim=-1).contiguous()
+
+
 def grid_sample(img, grid):
     return torch.nn.functional.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
                                            align_corners=True)
@@ -1094,13 +1156,21 @@ def grid_sample(img, grid):
 def shear_times(card, with_plain: bool = True) -> list[dict]:
     """K3a, K3b and K4 on the planes the training path gives them: the
     26-image exact-k subset at b128/320 in bf16, all 8 images at b8/480 in
-    float32; the card's time alone (``device_ms``). With ``with_plain``, also
-    the library call: one ``F.grid_sample`` (bilinear, zero padding,
-    align_corners) of the same planes seen as ``(K, 3, Hp, Hp)`` images,
-    its time and its largest difference from the plain version. In bfloat16
-    the grid is bfloat16 too (its coordinates, up to 767, in steps of 2 to
-    4), so there it is not the same function: no ``library_ms``, the error
-    is given."""
+    float32; K4 (``shear_rows_stacked``) on the same images stacked by
+    channel, its horizontal pass and its vertical pass (on the transpose,
+    ``c = 1``, ``row_mod = 0``); the card's time alone (``device_ms``). With
+    ``with_plain``, also the library call: one ``F.grid_sample`` (bilinear,
+    zero padding, align_corners) of the same planes seen as ``(K, 3, Hp,
+    Hp)`` images (K4's vertical pass: its planes seen as one ``(K, 1, Hp,
+    3 Hp)`` image, since its taps run on across the channels' blocks of a
+    lane row and read zeros only outside the row, as ``F.grid_sample``'s do
+    on that view), its time and its largest difference from the plain
+    version. In bfloat16 the grid is bfloat16 too (its normalised
+    coordinates keep 8 bits: steps of up to 1 pixel on rows of 512 lanes, 3
+    on rows of 1,536), so there it is not the same function: no
+    ``library_ms``, the error is given. ``copy_ms``: one ``Tensor.copy_`` of
+    the planes, the same bytes moved with no arithmetic, what the card
+    streams in practice."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     for b, s, dtype in ((26, 320, torch.bfloat16), (8, 480, torch.float32)):
@@ -1108,49 +1178,62 @@ def shear_times(card, with_plain: bool = True) -> list[dict]:
         ang = (torch.rand((b,), generator=gen, device="cuda") * 2 - 1) * krot.ROTATE_LIMIT_RAD
         planes, k1, k2, ctr = shear_inputs(x, ang)
         hp = planes.shape[1]
-        # K4's layout: channels stacked on rows, a row shear with c = 1
+        # K4's layout: channels stacked on rows, a row shear with c = 1; the
+        # vertical pass on the transpose, lanes (channel, y)
         stacked = planes.reshape(b, hp, hp, 3).permute(0, 3, 1, 2).reshape(b, 3 * hp, hp)
+        stacked_t = stacked.transpose(1, 2).contiguous()
         image = planes.reshape(b, hp, hp, 3).permute(0, 3, 1, 2)  # a view: channels_last
         grid_rows, _ = shear_grids(k1, ctr, hp)
         _, grid_cols = shear_grids(k2, ctr, hp)
+        grid_vertical = stacked_vertical_grid(k2, ctr, hp)
         pairs = {
-            "shear_rows": (lambda: krot.shear_rows(planes, k1, 3, 0, ctr),
+            "shear_rows": (planes, lambda: krot.shear_rows(planes, k1, 3, 0, ctr),
                            lambda: krot.shear_rows_reference(planes, k1, 3, 0, ctr),
                            lambda g: grid_sample(image, g), grid_rows,
                            lambda o: o.permute(0, 2, 3, 1).reshape(b, hp, 3 * hp)),
-            "shear_cols": (lambda: krot.shear_cols(planes, k2, 3, ctr),
+            "shear_cols": (planes, lambda: krot.shear_cols(planes, k2, 3, ctr),
                            lambda: krot.shear_cols_reference(planes, k2, 3, ctr),
                            lambda g: grid_sample(image, g), grid_cols,
                            lambda o: o.permute(0, 2, 3, 1).reshape(b, hp, 3 * hp)),
-            "shear_rows, K4 layout": (
-                lambda: krot.shear_rows(stacked, k1, 1, hp, ctr),
+            "shear_rows_stacked": (
+                stacked, lambda: krot.shear_rows(stacked, k1, 1, hp, ctr),
                 lambda: krot.shear_rows_reference(stacked, k1, 1, hp, ctr),
                 lambda g: grid_sample(stacked.view(b, 3, hp, hp), g), grid_rows,
                 lambda o: o.reshape(b, 3 * hp, hp)),
+            "shear_rows_stacked, vertical pass": (
+                stacked_t, lambda: krot.shear_rows(stacked_t, k2, 1, 0, ctr),
+                lambda: krot.shear_rows_reference(stacked_t, k2, 1, 0, ctr),
+                lambda g: grid_sample(stacked_t.view(b, 1, hp, 3 * hp), g), grid_vertical,
+                lambda o: o.reshape(b, hp, 3 * hp)),
         }
-        for name, (kern, plain, library, grid, layout) in pairs.items():
-            shape = tuple((stacked if "K4" in name else planes).shape)
+        for name, (inp, kern, plain, library, grid, layout) in pairs.items():
+            shape = tuple(inp.shape)
             # each pass reads its planes once and writes them once
             row = {"name": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                   **bound(2 * nbytes(planes), SHEAR_OPS * planes.numel())}
+                   **bound(2 * nbytes(inp), SHEAR_OPS * inp.numel())}
             if with_plain:
                 row["ms"], row["plain_ms"], runs = turns(kern, plain, 50, 5)
-                grid = grid.to(dtype)
-                err = (layout(library(grid)).float() - plain().float()).abs().max().item()
-                row["library_max_abs_err"] = err
-                if dtype == torch.float32:
-                    row["library_ms"], lib_runs = mean_of_two(lambda: library(grid), 50)
-                    lib_txt = (f"; library F.grid_sample {row['library_ms']:.4f} ms ({lib_runs}), "
-                               f"max abs err {err:.3g} against plain on 0-255 planes")
-                else:
-                    row["library_ms"] = None
-                    lib_txt = (f"; F.grid_sample takes a bf16 grid with bf16 planes: max abs err "
-                               f"{err:.3g}, not the same function")
+                copy = torch.empty_like(inp)
+                row["copy_ms"], _ = mean_of_two(lambda: copy.copy_(inp), 50)
+                row["library_ms"], lib_txt = None, "; no library call computes it"
+                if library is not None:
+                    grid = grid.to(dtype)
+                    err = (layout(library(grid)).float() - plain().float()).abs().max().item()
+                    row["library_max_abs_err"] = err
+                    if dtype == torch.float32:
+                        row["library_ms"], lib_runs = mean_of_two(lambda: library(grid), 50)
+                        lib_txt = (f"; library F.grid_sample {row['library_ms']:.4f} ms "
+                                   f"({lib_runs}), max abs err {err:.3g} against plain on 0-255 "
+                                   f"planes")
+                    else:
+                        lib_txt = (f"; F.grid_sample takes a bf16 grid with bf16 planes: max abs "
+                                   f"err {err:.3g}, not the same function")
             else:
                 row["ms"], runs = mean_of_two(kern, 50)
                 lib_txt = ""
             rows.append(row)
-            plain_txt = f", plain {row['plain_ms']:.4f} ms" if with_plain else ""
+            plain_txt = (f", plain {row['plain_ms']:.4f} ms, a copy of the planes "
+                         f"{row['copy_ms']:.4f} ms" if with_plain else "")
             print(f"[10 time] {name} {shape} {dtype}: kernel {row['ms']:.4f} ms{plain_txt} "
                   f"({runs}); bound {row['bound_ms']:.4f} ms by {row['bound_by']}{lib_txt} "
                   f"[{card}]")
@@ -1377,15 +1460,14 @@ def phase_photometric_path():
     batch = bench_like_batch(128, 320, "cuda")
 
     kphoto.photometric_batch.launches = 0
-    krot.shear_rows.launches = krot.shear_cols.launches = 0
+    krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
     losses, counts = [], []
     for _ in range(FUSED_STEPS):
         state, sc = step(state, *batch)
         losses.append(sc["loss"].item())
         counts.append(kphoto.photometric_batch.launches)
     torch.cuda.synchronize()
-    launches = {"photometric": kphoto.photometric_batch.launches,
-                "shear_rows": krot.shear_rows.launches, "shear_cols": krot.shear_cols.launches}
+    launches = {**kernel_counts(), "photometric": kphoto.photometric_batch.launches}
 
     check(counts == list(range(1, FUSED_STEPS + 1)), f"photometric launches by step {counts}")
     check(launches["shear_rows"] == 2 * FUSED_STEPS and launches["shear_cols"] == FUSED_STEPS,
@@ -1542,8 +1624,12 @@ def phase_fused_timings(card, train):
 
 
 def kernel_counts() -> dict:
+    """Every launch count of K1 and the shears (``shear_rows_stacked``: the
+    ``shear_rows`` launches with ``c = 1``, K4's layout, among them)."""
     return {"decode_filter_nms": knms.decode_filter_nms_batch.launches,
-            "shear_rows": krot.shear_rows.launches, "shear_cols": krot.shear_cols.launches}
+            "shear_rows": krot.shear_rows.launches,
+            "shear_rows_stacked": krot.shear_rows.stacked_launches,
+            "shear_cols": krot.shear_cols.launches}
 
 
 def counts_since(start: dict) -> dict:
@@ -2095,7 +2181,7 @@ def phase_zoo_train():
     before = {name: {k: v.detach().clone() for k, v in st.module.state_dict().items()}
               for name, (st, _, _) in runs.items()}
 
-    krot.shear_rows.launches = krot.shear_cols.launches = 0
+    krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
     knms.decode_filter_nms_batch.launches = 0
     scalars = {}
     for name, (state, (step, metrics_step), batch) in runs.items():
@@ -2324,13 +2410,14 @@ def dp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         state = create_train_state(module, tcfg, 100)
         metrics_step = make_dp_train_step(module, tcfg, compute_metrics=True)
         start = [p.detach().clone() for p in module.parameters()]
-        krot.shear_rows.launches = krot.shear_cols.launches = 0
+        krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
         knms.decode_filter_nms_batch.launches = 0
         scalars = [metrics_step(state, *batch)[1] for _ in range(DP_STEPS)]
         torch.cuda.synchronize()
         launches = kernel_counts()
         check(launches == {"decode_filter_nms": DP_STEPS, "shear_rows": 2 * DP_STEPS,
-                           "shear_cols": DP_STEPS}, f"17a launches {launches}")
+                           "shear_rows_stacked": 0, "shear_cols": DP_STEPS},
+              f"17a launches {launches}")
         check(all(np.isfinite(v.item()) for sc in scalars for v in sc.values()),
               "17a non-finite scalars")
         check(max((p - q).abs().max().item() for p, q in zip(module.parameters(), start)) > 0,
@@ -2645,13 +2732,14 @@ def sp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         state = create_train_state(module, tcfg, 100)
         metrics_step = spatial_step(module, tcfg, compute_metrics=True)
         start = [p.detach().clone() for p in module.parameters()]
-        krot.shear_rows.launches = krot.shear_cols.launches = 0
+        krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
         knms.decode_filter_nms_batch.launches = 0
         scalars = [metrics_step(state, *batch)[1] for _ in range(SP_STEPS)]
         torch.cuda.synchronize()
         launches = kernel_counts()
         check(launches == {"decode_filter_nms": SP_STEPS, "shear_rows": 2 * SP_STEPS,
-                           "shear_cols": SP_STEPS}, f"19a launches {launches}")
+                           "shear_rows_stacked": 0, "shear_cols": SP_STEPS},
+              f"19a launches {launches}")
         check(all(np.isfinite(v.item()) for sc in scalars for v in sc.values()),
               "19a non-finite scalars")
         check(max((p - q).abs().max().item() for p, q in zip(module.parameters(), start)) > 0,
@@ -3175,12 +3263,13 @@ def main() -> None:
                         + deploy_launches + sp_launches["decode_filter_nms"],
                         worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
+    path = (train_launches, photo_launches, trainer_launches, zoo_launches, dp_launches,
+            sp_launches)
+    shear_launches = {k: sum(p[k] for p in path) for k in SHEARS}
+    shear_launches["shear_rows"] -= shear_launches["shear_rows_stacked"]  # K3a's alone
     for kname, meta in SHEARS.items():
-        rows = [r for r in shear_rows if r["name"].startswith(kname)]
-        kernels.append({**entry({"name": kname, **meta},
-                                train_launches[kname] + photo_launches[kname]
-                                + trainer_launches[kname] + zoo_launches[kname]
-                                + dp_launches[kname] + sp_launches[kname], rot_worst,
+        rows = [r for r in shear_rows if r["name"].split(",")[0] == kname]
+        kernels.append({**entry({"name": kname, **meta}, shear_launches[kname], rot_worst[kname],
                                 row_times(rows[0]), rows[0]["library_ms"]), "shapes": rows})
     kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"], photo_worst,
                          fused_times["photometric"]))

@@ -23,12 +23,42 @@
 // exactly and stores round to the plane type to nearest even.
 //
 // What bounds it on this card: bytes. Each output element reads two inputs
-// and writes one, with 8 flops; at 26 x 512 x 1536 bf16 planes a pass must
-// move 82 MB (0.0244 ms at 3.35 TB/s).
+// and writes one, with 8 flops, and no input byte is used by another row;
+// at 26 x 512 x 1536 bf16 planes a pass must move 82 MB (0.0244 ms at
+// 3.35 TB/s).
 //
-// shear_rows: one CTA per plane row, threads striding along lanes, so loads
-// and stores are coalesced (the two taps of neighbouring lanes are
-// neighbours too) and each row computes its shift once.
+// shear_rows serves K3a (c = 3, row_mod = 0) and K4 (c = 1, row_mod = the
+// block period Hp, or 0 for the vertical pass on the transpose). Its first
+// design gave each plane row a CTA of 256 threads, each lane loaded as two
+// scalars and stored as one: a warp instruction moved 64 bytes in bf16, so
+// about 4 KB was in flight on an SM where ~18 KB is needed (3.35 TB/s times
+// ~0.7 us of latency over 132 SMs). It reached 34% of the bound on K4's
+// 512-lane bf16 rows (65% in f32, 56% on K3a's 1536-lane rows).
+// Now every global load and store is a 16-byte vector (8 bf16 or 4 f32
+// lanes). The rows are cut into steps of 64 vectors; a warp owns one step,
+// a CTA of 4 warps four consecutive steps, and the card schedules the many
+// short CTAs as SMs free up. A row's shift s = n c is the same for the
+// warp: with s = q VEC + m, the warp stages vectors [v + q, v + q + 66) of
+// its row in shared memory by 16-byte cp.async, which writes zeros for
+// vectors outside the row (its ends are on the vector grid, so those are
+// exactly the taps outside it) and has the L2 fetch whole 128-byte lines.
+// Each lane then blends its two output vectors j = lane and lane + 32 from
+// slot vectors j, j + 1 and, when the second tap reaches it (m + c > VEC),
+// j + 2, picking the taps by a branch on m, uniform in the warp, so each
+// case is register moves. Row, plane and r mod row_mod cost a few
+// divisions a warp, none an element. A second tap more than a vector away
+// (c > VEC), and planes off the 16-byte grid (lanes * size % 16 != 0, or a
+// view at an odd offset), take the same kernel with one element a vector
+// and plain copies into the slot; with c > 1 there the second tap is staged
+// as its own vectors.
+// The designs it was chosen over are kept in designs/shear_rows_designs.cu;
+// python -m fdtpu_torch.bench_shear_designs times them against it. On an
+// H100 80GB HBM3 at 700 W, K4's bf16 planes (26, 1536, 512): this kernel
+// 0.0332 ms (73% of the bound, 92% of a Tensor.copy_ of the planes); the
+// window built by warp shuffles, two steps in flight a warp, 0.0476 (51%);
+// a warp walking runs of 2-8 steps through a ring of 2-8 cp.async slots,
+// 0.038-0.048, slower the more steps a warp; the same single step staged by
+// one TMA bulk copy and an mbarrier, 0.0339.
 //
 // shear_cols: a lane's shift is fixed, so a lane is a column walked down the
 // rows. Done per element, as a first version did, each output recomputes
@@ -68,8 +98,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -82,30 +110,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 // (1 - f) * a + f * b, each product and the sum rounded once.
 __device__ __forceinline__ float blend(float a, float b, float f) {
   return __fadd_rn(__fmul_rn(__fsub_rn(1.f, f), a), __fmul_rn(f, b));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    shear_rows_kernel(const T* __restrict__ in, T* __restrict__ out,
-                      const float* __restrict__ k, int rows, int lanes, int c,
-                      int row_mod, float center) {
-  const int row = blockIdx.x;  // plane * rows + r
-  const int plane = row / rows;
-  int r = row - plane * rows;
-  if (row_mod > 0) r %= row_mod;
-  const float t =
-      __fmul_rn(k[plane], __fsub_rn(static_cast<float>(r), center));
-  const float n = floorf(t);
-  const float f = __fsub_rn(t, n);
-  const int shift = static_cast<int>(n) * c;
-  const size_t base = static_cast<size_t>(row) * lanes;
-  const T* src = in + base;
-  for (int l = threadIdx.x; l < lanes; l += kThreads) {
-    const int j0 = l + shift, j1 = j0 + c;
-    const float a = (j0 >= 0 && j0 < lanes) ? load(src + j0) : 0.f;
-    const float b = (j1 >= 0 && j1 < lanes) ? load(src + j1) : 0.f;
-    store(out + base + l, blend(a, b, f));
-  }
 }
 
 // shear_cols tiling: kTileVecs vectors across lanes by kRowGroups groups
@@ -124,16 +128,6 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
-  if constexpr (sizeof(T) * VEC == 16) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    return *reinterpret_cast<const Pack<T, VEC>*>(&u);
-  } else {
-    return *reinterpret_cast<const Pack<T, VEC>*>(p);
-  }
-}
-
 // 16 bytes from device to shared memory without a register, or 16 zeros
 // when !valid (src is then not read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -141,8 +135,161 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0));
 }
+// The same, and the L2 fetches the whole 128-byte line from device memory.
+__device__ __forceinline__ void cp_async16_line(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// shear_rows: the planes' rows are cut into steps of kWarpVecs vectors (the
+// last of a row may be short), one a warp, kRowsWarps consecutive steps a
+// CTA. A warp stages its step's input in shared memory and blends it.
+constexpr int kRowsWarps = 4;
+constexpr int kLaneVecs = 2;  // output vectors a lane blends
+constexpr int kWarpVecs = 32 * kLaneVecs;
+constexpr int kSlotVecs = kWarpVecs + 2;  // a step's first tap and the two vectors past it
+
+template <int VEC>
+__device__ __forceinline__ int floor_div(int s) {
+  return (s >= 0 ? s : s - (VEC - 1)) / VEC;
+}
+
+// Elements [m, m + VEC) of the pair (lo, hi); m is uniform in the warp, and
+// each case copies at fixed places, so nothing goes through local memory.
+template <typename T, int VEC, int M = 0>
+__device__ __forceinline__ Pack<T, VEC> window(const Pack<T, VEC>& lo, const Pack<T, VEC>& hi,
+                                               int m) {
+  if constexpr (M + 1 < VEC) {
+    if (m != M) return window<T, VEC, M + 1>(lo, hi, m);
+  }
+  Pack<T, VEC> o;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    o.v[j] = M + j < VEC ? lo.v[(M + j) % VEC] : hi.v[(M + j) % VEC];
+  }
+  return o;
+}
+
+template <typename T, int VEC, bool kFar>
+__global__ void __launch_bounds__(kRowsWarps * 32)
+    shear_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const float* __restrict__ k,
+                      int planes, int rows, int lanes, int c, int row_mod, float center) {
+  using P = Pack<T, VEC>;
+  // a warp's slot: the step's first-tap vectors; with kFar the second tap's too
+  constexpr int kSlot = (kFar ? 2 : 1) * kSlotVecs;
+  __shared__ __align__(16) unsigned char slot_bytes[kRowsWarps * kSlot * sizeof(P)];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  P* slot = reinterpret_cast<P*>(slot_bytes) + warp * kSlot;
+
+  // this warp's step: its row (plane * rows + r), r mod row_mod, and where
+  // in the row it starts; divisions a warp, none an element
+  const int nvec = lanes / VEC;
+  const int steps = (nvec + kWarpVecs - 1) / kWarpVecs;
+  const long long t = static_cast<long long>(blockIdx.x) * kRowsWarps + warp;
+  if (t >= static_cast<long long>(planes) * rows * steps) return;  // the whole warp
+  const int row = static_cast<int>(t / steps);
+  const int base = static_cast<int>(t - static_cast<long long>(row) * steps) * kWarpVecs;
+  const int plane = row / rows;
+  const int r = row - plane * rows;
+  const int rr = row_mod > 0 ? r % row_mod : r;
+
+  // the row's taps: lane l blends in[l + s] and in[l + s + c] by f, with
+  // s = qa VEC + ma and s + c = qb VEC + mb; a shift past either end reads
+  // only zeros, and clamping it there keeps s in range
+  const float tr = __fmul_rn(k[plane], __fsub_rn(static_cast<float>(rr), center));
+  const float n = floorf(tr);
+  const float f = __fsub_rn(tr, n);
+  const float n_hi = static_cast<float>(lanes / c);
+  const int s = static_cast<int>(fminf(fmaxf(n, -n_hi - 1.f), n_hi)) * c;
+  const int qa = floor_div<VEC>(s), ma = s - qa * VEC;
+  const int qb = floor_div<VEC>(s + c), mb = s + c - qb * VEC;
+
+  // Stage vectors [v0, v0 + kSlotVecs) of the row from the first tap's
+  // aligned vector v0 (zeros outside the row): 16-byte cp.async, else
+  // plain copies.
+  const T* src = in + static_cast<size_t>(row) * lanes;
+#pragma unroll
+  for (int region = 0; region < (kFar ? 2 : 1); ++region) {
+    const int v0 = base + (region ? qb : qa);
+    for (int i = lane; i < kSlotVecs; i += 32) {
+      const int v = v0 + i;
+      const bool ok = v >= 0 && v < nvec;
+      const T* from = ok ? src + static_cast<size_t>(v) * VEC : src;
+      if constexpr (sizeof(P) == 16) {
+        cp_async16_line(slot + region * kSlotVecs + i, from, ok);
+      } else {
+        P val = {};
+        if (ok) val = *reinterpret_cast<const P*>(from);
+        slot[region * kSlotVecs + i] = val;
+      }
+    }
+  }
+  if constexpr (sizeof(P) == 16) {
+    cp_async_commit();
+    cp_async_wait_all();
+  }
+  __syncwarp();
+
+  // a from vectors (j, j + 1) of the slot, j = lane + 32 u; b from the same
+  // pair, the next pair (qb = qa + 1, c <= VEC), or with kFar its own
+#pragma unroll
+  for (int u = 0; u < kLaneVecs; ++u) {
+    const int j = lane + 32 * u;
+    const P x0 = slot[j], x1 = slot[j + 1];
+    const P a = window<T, VEC>(x0, x1, ma);
+    P lo, hi;
+    if constexpr (kFar) {
+      lo = slot[kSlotVecs + j];
+      hi = slot[kSlotVecs + j + 1];
+    } else {
+      const bool next = qb != qa;
+      const P x2 = slot[j + 2];
+      lo = next ? x1 : x0;
+      hi = next ? x2 : x1;
+    }
+    const P b = window<T, VEC>(lo, hi, mb);
+    const int v = base + j;
+    if (v < nvec) {
+      P o;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) store(&o.v[e], blend(load(&a.v[e]), load(&b.v[e]), f));
+      *reinterpret_cast<P*>(out + static_cast<size_t>(row) * lanes + static_cast<size_t>(v) * VEC) =
+          o;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_shear_rows(const T* in, T* out, const float* k, int planes, int rows,
+                              int lanes, int c, int row_mod, float center, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  // 16-byte vectors where the planes are on the grid and the second tap is
+  // at most a vector away (c <= VEC); else one element a vector
+  const bool vec = c <= kVec &&
+                   (reinterpret_cast<size_t>(in) | reinterpret_cast<size_t>(out)) % 16 == 0 &&
+                   (static_cast<size_t>(lanes) * sizeof(T)) % 16 == 0;
+  const int vlen = vec ? kVec : 1;
+  const long long steps = (lanes / vlen + kWarpVecs - 1) / kWarpVecs;
+  const long long blocks =
+      (static_cast<long long>(planes) * rows * steps + kRowsWarps - 1) / kRowsWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks)), block(kRowsWarps * 32);
+  if (vec) {
+    shear_rows_kernel<T, kVec, false><<<grid, block, 0, s>>>(in, out, k, planes, rows, lanes, c,
+                                                             row_mod, center);
+  } else if (c == 1) {
+    shear_rows_kernel<T, 1, false><<<grid, block, 0, s>>>(in, out, k, planes, rows, lanes, c,
+                                                          row_mod, center);
+  } else {
+    shear_rows_kernel<T, 1, true><<<grid, block, 0, s>>>(in, out, k, planes, rows, lanes, c,
+                                                         row_mod, center);
+  }
+  return cudaGetLastError();
+}
 
 // The row shift of lane l: floor(k ((l / c) - center)).
 __device__ __forceinline__ float shear_t(float kp, int l, int c, float center) {
@@ -315,25 +462,21 @@ cudaError_t launch_shear_cols(const T* in, T* out, const float* k, int planes,
 
 extern "C" {
 
-// shear_rows: launch on `stream`, one CTA per plane row. `in`, `out`: (planes, rows,
-// lanes) contiguous, f32 (bf16 == 0) or bf16 (bf16 == 1); `k`: (planes,) f32
-// on the card. Returns the cudaError_t of the launch (0 on success).
+// shear_rows: launch on `stream`, a warp every 64 vectors of a row. `in`, `out`:
+// (planes, rows, lanes) contiguous, f32 (bf16 == 0) or bf16 (bf16 == 1); `k`:
+// (planes,) f32 on the card. Returns the cudaError_t of the launch (0 on success).
 int fdtpu_shear_rows(const void* in, void* out, const void* k, int bf16,
                      int planes, int rows, int lanes, int c, int row_mod,
                      float center, void* stream) {
-  const dim3 grid(static_cast<unsigned>(planes) * static_cast<unsigned>(rows));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* kk = static_cast<const float*>(k);
   if (bf16) {
-    shear_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(in), static_cast<__nv_bfloat16*>(out),
-        kk, rows, lanes, c, row_mod, center);
-  } else {
-    shear_rows_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(in), static_cast<float*>(out), kk, rows,
-        lanes, c, row_mod, center);
+    return launch_shear_rows(static_cast<const __nv_bfloat16*>(in),
+                             static_cast<__nv_bfloat16*>(out), kk, planes, rows, lanes, c,
+                             row_mod, center, s);
   }
-  return cudaGetLastError();
+  return launch_shear_rows(static_cast<const float*>(in), static_cast<float*>(out), kk, planes,
+                           rows, lanes, c, row_mod, center, s);
 }
 
 // Launch on `stream`: one CTA per tile of 16 vectors of lanes by 128-row band of

@@ -20,7 +20,9 @@ Two entry points carry every pass, each a hand-written CUDA kernel
 Taps outside the plane read 0 (fdtpu's rolls wrap instead; both land only
 in the margin the final crop discards). Each wrapper dispatches on where
 the planes lie: a CPU tensor runs the plain version, a CUDA tensor launches
-the kernel or the call raises; ``.launches`` counts kernel launches.
+the kernel or the call raises; ``.launches`` counts kernel launches, and
+``shear_rows.stacked_launches`` those of :func:`shear_rows` with ``c = 1``
+(K4's channel-stacked layout) among them.
 :func:`rotate_batch` (K3's NHWC-interleaved layout) and
 :func:`rotate_batch_transposed` (K4's channel-stacked layout) compute
 ``k1 = -tan(a/2)`` and ``k2 = sin a`` once, in float32, and hand the same
@@ -142,6 +144,8 @@ def shear_rows(planes: torch.Tensor, k: torch.Tensor, c: int, row_mod: int, cent
         return shear_rows_reference(planes, k, c, row_mod, center)
     out = _launch("fdtpu_shear_rows", planes, k, c, row_mod, center)
     shear_rows.launches += 1
+    if c == 1:
+        shear_rows.stacked_launches += 1
     return out
 
 
@@ -158,6 +162,7 @@ def shear_cols(planes: torch.Tensor, k: torch.Tensor, c: int, center: float):
 
 
 shear_rows.launches = 0
+shear_rows.stacked_launches = 0
 shear_cols.launches = 0
 
 

@@ -140,7 +140,9 @@ def test_shear_kernels_match_plain_on_card():
     """Whole rotations at S = 200 and 320 with angles 0 and +-the limit, and
     the shears' edges: steep k (shear_cols staged in passes, or read from
     device memory), rows not a multiple of the band, lanes off the 16-byte
-    grid, c = 1, views one element into their storage. Both dtypes,
+    grid, c = 1, c = 5 (a float32 second tap a vector away), K4's rows = 3
+    row_mod, a row of one vector, views one
+    element into their storage. Both dtypes,
     bit-equal. ``chip_smoke.py`` phase 7 runs the full sweep."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -156,14 +158,15 @@ def test_shear_kernels_match_plain_on_card():
                                rot.rotate_batch_transposed_reference(x, a))
     ks = torch.tensor([0.0, np.sin(lim), -np.sin(lim), 0.9, -1.5, 3.0, 40.0],
                       dtype=torch.float32, device="cuda")
-    for rows, lanes, c in ((328, 984, 3), (37, 45, 3), (70, 1000, 1)):
+    for rows, lanes, c, row_mod in ((328, 984, 3, 0), (37, 45, 3, 0), (70, 1000, 1, 0),
+                                    (336, 512, 1, 112), (48, 8, 1, 16), (40, 200, 5, 0)):
         for dt in (torch.float32, torch.bfloat16):
             for offset in (0, 1):
                 flat = (torch.rand((len(ks) * rows * lanes + offset,), generator=g,
                                    device="cuda") * 255).to(dt)
                 x = flat[offset:].view(len(ks), rows, lanes)
-                ctr = (rows - 1) / 2.0
+                ctr = ((row_mod or rows) - 1) / 2.0
                 assert torch.equal(rot.shear_cols(x, ks, c, ctr),
                                    rot.shear_cols_reference(x, ks, c, ctr))
-                assert torch.equal(rot.shear_rows(x, ks, c, 0, ctr),
-                                   rot.shear_rows_reference(x, ks, c, 0, ctr))
+                assert torch.equal(rot.shear_rows(x, ks, c, row_mod, ctr),
+                                   rot.shear_rows_reference(x, ks, c, row_mod, ctr))
