@@ -87,14 +87,18 @@ def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv_same(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def conv_same(layer: nn.Conv2d, x: torch.Tensor,
+              rows: tuple[int, int] | None = None) -> torch.Tensor:
     """``layer`` with ``"SAME"`` padding, as Flax pads it. A strided layer
     often pads one more row or column after than before (a k3/s2 conv at
     480 px pads (0, 1)), which ``nn.Conv2d(padding=k // 2)`` gets wrong and
     ``padding="same"`` refuses: the input is zero-padded first, and the
-    convolution pads nothing. Symmetric pads go to the convolution."""
+    convolution pads nothing. Symmetric pads go to the convolution.
+    ``rows`` replaces the height's ``(top, bottom)`` pads: a window of rows
+    of a taller image (``parallel/halo.py``) pads as the image does."""
     k, s = layer.kernel_size[0], layer.stride[0]
-    (top, bottom), (left, right) = same_pads(x.shape[2], k, s), same_pads(x.shape[3], k, s)
+    top, bottom = same_pads(x.shape[2], k, s) if rows is None else rows
+    left, right = same_pads(x.shape[3], k, s)
     if top == bottom and left == right:
         return conv(layer, x, padding=(top, left))
     return conv(layer, F.pad(x, (left, right, top, bottom)), padding=(0, 0))
@@ -276,7 +280,20 @@ class BatchNorm(nn.Module):
     0, reduced in float32). ``nn.BatchNorm2d`` would fold in the unbiased
     variance (1% larger at 100 values a channel) and count
     ``num_batches_tracked``, which this layer has not.
+
+    ``sum_reduce`` (None, or a callable set by
+    ``fdtpu_torch.parallel.batch_norm_over``): with it, ``train`` normalises
+    by the statistics of the batch the ranks of a group hold together, as
+    fdtpu's GSPMD step normalises by the global batch's. Each rank's
+    float32 per-channel ``sum x``, ``sum x^2`` and count go through
+    ``sum_reduce`` (an autograd-aware sum over the group) into the mean and
+    Flax's variance; the layer computes ``(x - mean) * (rsqrt(var + eps) *
+    weight) + bias`` in float32, rounded once to ``x``'s dtype, and folds
+    the same mean and variance into the running statistics. This layer
+    holds no collective itself.
     """
+
+    sum_reduce = None
 
     def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
@@ -289,6 +306,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = True) -> torch.Tensor:
+        if train and self.sum_reduce is not None:
+            return self._over_group(x, update_stats)
         if train and update_stats:
             with torch.no_grad():
                 xf = x.float()
@@ -300,3 +319,17 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             False, 0.0, self.eps)
+
+    def _over_group(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        xf, c = x.float(), x.shape[1]
+        count = xf.new_full((1,), x.numel() // c)
+        total = self.sum_reduce(torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3)), count]))
+        mean = total[:c] / total[-1]
+        var = (total[c:2 * c] / total[-1] - mean.square()).clamp_min(0.0)
+        if update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)

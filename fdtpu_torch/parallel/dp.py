@@ -1,24 +1,39 @@
 """Data-parallel train and eval steps over ``torch.distributed``
 (``fdtpu/parallel/dp.py``).
 
-fdtpu has two builders that compute the same step: GSPMD's (the
-single-device step jitted over a sharded batch) and shard_map's (the step
-body run per shard, with the collectives placed by hand). Its Trainer takes
-shard_map's whenever the step launches a Pallas kernel, since those run per
-shard. Every rank here is a process that runs the step on its own slice of
-the batch, which is shard_map's form, so the port has the one builder pair,
-:func:`make_dp_train_step` and :func:`make_dp_eval_step`: the steps of
-``train/step.py`` with a process group, whose reductions are below.
+fdtpu has two builders. GSPMD's (``make_dp_train_step``) jits the
+single-device step over a sharded batch, so a BatchNorm normalises by the
+*global* batch's statistics. shard_map's (``make_shardmap_dp_train_step``)
+runs the step body per shard, so a BatchNorm normalises by each shard's own
+statistics and the running statistics are ``pmean``'d afterwards. For a
+model without BatchNorm the two compute the same step; for MobileNetV3
+they do not (one step apart by order 1e-2). fdtpu's Trainer takes
+shard_map's whenever the step launches a Pallas kernel per shard
+(``rotate_device``) or the epoch runs on device-resident data
+(``device_data``), and GSPMD's otherwise: :func:`trainer_route`.
+
+Every rank here is a process that runs the step on its own slice of the
+batch, and :func:`make_dp_train_step` builds either route
+(``route="shard_map"`` by default, or ``"gspmd"``): the steps of
+``train/step.py`` with a process group, whose reductions are below. On the
+GSPMD route a BatchNorm model's BatchNorms sum their statistics over the
+group (:func:`batch_norm_over`); families without BatchNorm take the
+shard_map form on either route, which is the same step.
 
 The reductions are fdtpu's (``fdtpu/train/step.py``), not a mean over the
-ranks. A rank's gradient is that of its own mean loss, divided by its own
-``max(norm, 1)`` (the count of real samples, or the SSD's count of positive
-priors); each rank multiplies that divisor back, the ranks sum, and the sum
-is divided by ``max(sum of norms, 1)``: the global batch's mean-loss
-gradient, exact under uneven ``sample_mask`` and uneven positives. SAM
-applies it at both of its points. ``DistributedDataParallel`` cannot: its
-reducer divides by the world size and fires on ``.backward()``, and the step
-takes its gradients with ``torch.autograd.grad`` twice.
+ranks. On the shard_map route a rank's gradient is that of its own mean
+loss, divided by its own ``max(norm, 1)`` (the count of real samples, or
+the SSD's count of positive priors); each rank multiplies that divisor
+back, the ranks sum, and the sum is divided by ``max(sum of norms, 1)``:
+the global batch's mean-loss gradient, exact under uneven ``sample_mask``
+and uneven positives. Where the BatchNorm statistics span ranks, rank r's
+loss reads every rank's activations through them, so part of its gradient
+is computed on the other ranks, and a weight applied after the backward
+would weigh that part by the wrong rank's norm: each rank weighs its loss
+by ``max(norm, 1) / max(sum of norms, 1)`` *before* the backward, and the
+gradients are summed. SAM applies the reduction at both of its points. ``DistributedDataParallel`` cannot: its reducer divides by
+the world size and fires on ``.backward()``, and the step takes its
+gradients with ``torch.autograd.grad`` twice.
 
 Each reduction is one ``all_reduce`` of one flat float32 buffer (gloo
 offers ``all_reduce`` and ``broadcast`` on CUDA tensors, and the code uses
@@ -28,10 +43,17 @@ without it.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
+
+from fdtpu_torch.models.layers import BatchNorm
+from fdtpu_torch.parallel.halo import sum_over
+
+ROUTES = ("shard_map", "gspmd")
 
 
 def world_group(group=None):
@@ -44,7 +66,7 @@ def world_group(group=None):
     return dist.group.WORLD
 
 
-def grad_all_reduce(group, norm: torch.Tensor,
+def grad_all_reduce(group, norm: torch.Tensor | None,
                     count_norm: bool = True) -> Callable[[Sequence[torch.Tensor]], tuple]:
     """fdtpu's ``_grad_all_reduce``: ``reduce(grads)`` turns this rank's
     mean-loss gradients into the global batch's, in one all-reduce of one
@@ -56,18 +78,26 @@ def grad_all_reduce(group, norm: torch.Tensor,
 
     On a spatial mesh the ranks of a data row hold parts of one gradient,
     weighed by the row's one ``norm``: each multiplies its part by it, and
-    only one of them (``count_norm``) adds the norm itself into the sum."""
-    norm = norm.float().reshape(1)
-    w_local = norm.clamp_min(1.0)
+    only one of them (``count_norm``) adds the norm itself into the sum.
+
+    With ``norm`` None the gradients are only summed: those of losses each
+    rank has already weighed (:func:`global_loss_scale`)."""
+    if norm is not None:
+        norm = norm.float().reshape(1)
+        w_local = norm.clamp_min(1.0)
 
     def reduce(grads: Sequence[torch.Tensor]) -> tuple:
-        flat = torch.empty(sum(g.numel() for g in grads) + 1, dtype=torch.float32,
-                           device=norm.device)
+        extra = 0 if norm is None else 1
+        flat = torch.empty(sum(g.numel() for g in grads) + extra, dtype=torch.float32,
+                           device=grads[0].device)
         views, offset = [], 0
         for g in grads:
             views.append(flat.as_strided(g.shape, g.stride(), offset))
             offset += g.numel()
         torch._foreach_copy_(views, list(grads))
+        if norm is None:
+            dist.all_reduce(flat, group=group)
+            return tuple(views)
         flat[-1:].copy_(norm if count_norm else torch.zeros_like(norm))
         flat[:-1].mul_(w_local)
         dist.all_reduce(flat, group=group)
@@ -75,6 +105,47 @@ def grad_all_reduce(group, norm: torch.Tensor,
         return tuple(views)
 
     return reduce
+
+
+def global_loss_scale(group, norm: torch.Tensor) -> torch.Tensor:
+    """The factor that turns this rank's mean loss (divided by its own
+    ``max(norm, 1)``) into its share of the global batch's:
+    ``max(norm, 1) / max(sum of norms over group, 1)``. ``group`` holds one
+    rank of each data row (a mesh's data group), so each row's norm counts
+    once."""
+    norm = norm.float().reshape(1)
+    total = norm.clone()
+    dist.all_reduce(total, group=group)
+    return (norm.clamp_min(1.0) / total.clamp_min(1.0))[0]
+
+
+@contextlib.contextmanager
+def batch_norm_over(module: torch.nn.Module, group):
+    """Within the block, every BatchNorm of ``module`` in ``train`` mode
+    normalises by the statistics of the batch all ranks of ``group`` hold
+    together (``BatchNorm.sum_reduce``: one autograd-aware sum over the
+    group a layer). With no group, or a group of one rank, the layers stay
+    as they are: ``F.batch_norm``, op for op."""
+    if group is None or dist.get_world_size(group) == 1:
+        yield
+        return
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [m.sum_reduce for m in layers]
+    reduce = functools.partial(sum_over, group=group, kind="bn")
+    for m in layers:
+        m.sum_reduce = reduce
+    try:
+        yield
+    finally:
+        for m, r in zip(layers, before):
+            m.sum_reduce = r
+
+
+def trainer_route(config) -> str:
+    """The route fdtpu's Trainer takes (``fdtpu/train/loop.py``):
+    shard_map's with ``rotate_device`` or ``device_data``, GSPMD's
+    otherwise."""
+    return "shard_map" if config.rotate_device or config.device_data else "gspmd"
 
 
 def reduce_loss_sum(group, loss_sum: torch.Tensor, norm: torch.Tensor,
@@ -140,24 +211,28 @@ def barrier(group, device: torch.device | str) -> None:
     flag.item()
 
 
-def make_dp_train_step(module, config, group=None, mesh=None, **kwargs) -> Callable:
-    """fdtpu's ``make_shardmap_dp_train_step``: the train step of
-    ``train/step.py`` over ``group`` (the default group when None). Each
-    rank calls it on its slice of every global batch; the state comes out
-    the same on every rank. The rank's augmentation and dropout draws
-    fold in its rank, as fdtpu folds in ``axis_index``. ``kwargs`` are
-    ``make_train_step``'s.
+def make_dp_train_step(module, config, group=None, mesh=None, route: str = "shard_map",
+                       **kwargs) -> Callable:
+    """fdtpu's ``make_shardmap_dp_train_step`` (``route="shard_map"``) or
+    ``make_dp_train_step`` (``route="gspmd"``; module docstring): the train
+    step of ``train/step.py`` over ``group`` (the default group when None).
+    Each rank calls it on its slice of every global batch; the state comes
+    out the same on every rank. The rank's augmentation and dropout draws
+    fold in its rank, as fdtpu's shard_map folds in ``axis_index``.
+    ``kwargs`` are ``make_train_step``'s.
 
     With ``mesh`` (``parallel/mesh.py``; ``group`` is then the mesh's) it
-    is fdtpu's ``make_dp_train_step(spatial=True)``: each rank calls it on
-    its data row of the batch (``parallel.data_shard``), the same on every
-    rank of the row, and computes its rows of the height
+    is fdtpu's ``make_dp_train_step(spatial=True)``, GSPMD's route: each
+    rank calls it on its data row of the batch (``parallel.data_shard``),
+    the same on every rank of the row, and computes its rows of the height
     (``train/step.py``, "The spatial axis")."""
     from fdtpu_torch.train.step import make_train_step
 
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r}: want one of {ROUTES}")
     if mesh is not None:
         return make_train_step(module, config, group=mesh.group, mesh=mesh, **kwargs)
-    return make_train_step(module, config, group=world_group(group), **kwargs)
+    return make_train_step(module, config, group=world_group(group), route=route, **kwargs)
 
 
 def make_dp_eval_step(module, group=None, **kwargs) -> Callable:

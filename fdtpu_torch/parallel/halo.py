@@ -31,10 +31,21 @@ both collectives, whether it fetches anything or not.
 whole map on every rank of the group (the same zeroed-buffer ``all_reduce``);
 its backward hands each rank the gradient of its own rows.
 
+A layer padded ``"SAME"`` (MobileNetV3's strided layers pad one row more
+below than above) takes its pads from the *global* height
+(:func:`same_exchange`), since a shard's height would give other pads.
+
+:func:`sum_over` is the other collective of the spatial step: a sum over a
+group (a BatchNorm's per-channel sums over the mesh, a squeeze-excite's
+per-sample sums over a spatial group), whose backward sums the gradient, as
+every rank's loss reads the total.
+
 Every rank of a group must run the same exchanges in the same order, as
 every rank of a spatial step does. ``timer``, when a dict, collects the
-host seconds of the exchanges' forward and backward (the device synchronised
-before and after each): the measurement of ``chip_smoke.py`` phase 19.
+host seconds of the collectives (the device synchronised before and after
+each): the row exchanges under ``forward`` and ``backward``, a
+:func:`sum_over` under its own ``kind``: the measurement of
+``chip_smoke.py`` phase 19.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from fdtpu_torch.models.layers import conv
+from fdtpu_torch.models.layers import conv, same_pads
 from fdtpu_torch.parallel.mesh import row_split
 
 timer: dict | None = None
@@ -107,16 +118,19 @@ class Exchange:
         return [tuple(run) for run in runs]
 
 
-def window_exchange(n_in: int, k: int, s: int, p: int, parts: int) -> Exchange:
+def window_exchange(n_in: int, k: int, s: int, p: int | tuple[int, int],
+                    parts: int) -> Exchange:
     """The exchange of a ``k``-tap, stride-``s`` window padded by ``p`` in
-    the height, over ``n_in`` rows split ceil-first over ``parts`` ranks.
-    Raises ``ValueError`` if a rank would own no row."""
-    n_out = (n_in + 2 * p - k) // s + 1
+    the height (``(top, bottom)`` when they differ), over ``n_in`` rows
+    split ceil-first over ``parts`` ranks. Raises ``ValueError`` if a rank
+    would own no row."""
+    top, bottom = (p, p) if isinstance(p, int) else p
+    n_out = (n_in + top + bottom - k) // s + 1
     if n_out < parts or n_in < parts:
         raise ValueError(f"{n_in} rows in, {n_out} out do not split over {parts} spatial ranks")
     own_in = tuple(row_split(n_in, parts))
     own_out = tuple(row_split(n_out, parts))
-    need = tuple((o0 * s - p, (o1 - 1) * s - p + k) for o0, o1 in own_out)
+    need = tuple((o0 * s - top, (o1 - 1) * s - top + k) for o0, o1 in own_out)
     slots = set()
     for (lo, hi), (a, b) in zip(need, own_in):
         slots.update(r for r in range(max(lo, 0), min(hi, n_in)) if not a <= r < b)
@@ -126,6 +140,13 @@ def window_exchange(n_in: int, k: int, s: int, p: int, parts: int) -> Exchange:
 def conv_exchange(n_in: int, layer: torch.nn.Conv2d, parts: int) -> Exchange:
     """The exchange of ``layer``'s window in the height."""
     return window_exchange(n_in, layer.kernel_size[0], layer.stride[0], layer.padding[0], parts)
+
+
+def same_exchange(n_in: int, layer: torch.nn.Conv2d, parts: int) -> Exchange:
+    """The exchange of ``layer`` padded ``"SAME"`` on the global height
+    ``n_in`` (``layers.same_pads``: ``ceil(n_in / s)`` rows out)."""
+    k, s = layer.kernel_size[0], layer.stride[0]
+    return window_exchange(n_in, k, s, same_pads(n_in, k, s), parts)
 
 
 def pool_exchange(n_in: int, parts: int) -> Exchange:
@@ -242,3 +263,30 @@ def gather_rows(y: torch.Tensor, own: tuple[tuple[int, int], ...], index: int,
     if len(own) == 1:
         return y
     return _Gather.apply(y, tuple(own), index, group)
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, kind: str):
+        ctx.group, ctx.kind = group, kind
+        with record_function(f"spatial/{kind}"), _timed(f"{kind} forward", x.device):
+            total = x.contiguous().clone()
+            dist.all_reduce(total, group=group)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        with record_function(f"spatial/{ctx.kind}_backward"), \
+                _timed(f"{ctx.kind} backward", g.device):
+            total = g.contiguous().clone()
+            dist.all_reduce(total, group=ctx.group)
+        return total, None, None
+
+
+def sum_over(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (one ``all_reduce``),
+    on every rank. Its backward sums the gradient over the group too: every
+    rank's loss reads the total, so each rank's share of it is the sum of
+    all the ranks' gradients. ``kind`` names it in ``timer`` and in the
+    profiler's spans."""
+    return _Sum.apply(x, group, kind)

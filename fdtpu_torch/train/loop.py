@@ -23,7 +23,10 @@ Data parallelism (``config.data_parallel``, fdtpu's mesh step builders):
 each rank of an initialised ``torch.distributed`` group of that size builds
 its own Trainer on its own device, with loaders built with
 ``process_shard=(rank, world)``, and takes the data-parallel train and eval
-steps (``fdtpu_torch/parallel/dp.py``). The Trainer broadcasts rank 0's
+steps (``fdtpu_torch/parallel/dp.py``) by the route fdtpu's Trainer takes
+(``parallel.trainer_route``): shard_map's with ``rotate_device`` or
+``device_data``, GSPMD's otherwise, whose BatchNorms (MobileNetV3's)
+normalise by the global batch's statistics. The Trainer broadcasts rank 0's
 initial params and buffers; rank 0 writes the logs, drawings and
 checkpoints, and every rank waits for each checkpoint before it goes on;
 every rank reads the checkpoint on ``maybe_resume``.
@@ -38,7 +41,7 @@ import torch
 import torch.distributed as dist
 
 from fdtpu_torch.data.pipeline import BatchLoader
-from fdtpu_torch.parallel.dp import barrier, broadcast_module
+from fdtpu_torch.parallel.dp import barrier, broadcast_module, trainer_route
 from fdtpu_torch.train.checkpoint import (
     checkpoint_path,
     latest_checkpoint,
@@ -103,10 +106,11 @@ class Trainer:
         self._nms_params = nms_params
         # the SSD loss's knobs, the same for every step (train/val objectives aligned)
         self._loss_kw = dict(neg_pos_ratio=neg_pos_ratio, bg_push=bg_push)
+        self.route = trainer_route(config)  # fdtpu's choice of DP step builder
         self._train_step_metrics = None  # built on first use
         self.train_step = make_train_step(
             self.module, config, augment=augment, compute_metrics=False, nms_params=nms_params,
-            group=self.group, **self._loss_kw)
+            group=self.group, route=self.route, **self._loss_kw)
         self.eval_step = make_eval_step(self.module, nms_params=nms_params, return_boxes=True,
                                         group=self.group, **self._loss_kw)
         # the first-batch drawings: rank 0's own rows, no collective
@@ -149,7 +153,8 @@ class Trainer:
         if self._train_step_metrics is None:
             self._train_step_metrics = make_train_step(
                 self.module, self.config, augment=self._augment, compute_metrics=True,
-                nms_params=self._nms_params, group=self.group, **self._loss_kw)
+                nms_params=self._nms_params, group=self.group, route=self.route,
+                **self._loss_kw)
         return self._train_step_metrics
 
     def profile(self, trace_dir: str = "profiles"):

@@ -30,27 +30,43 @@ step, from the forward at the unperturbed point: fdtpu takes the new
 drops the perturbed forward's.
 
 Data parallelism: with a ``group`` (a ``torch.distributed`` process group)
-each rank runs the step on its slice of the global batch, and the step is
-fdtpu's per-shard ``axis_name`` body: the gradients are all-reduced by
-fdtpu's weighted form inside both SAM points, the reported loss is summed
-(the SSD's re-weighted by its positives), the BatchNorm running statistics
-(updated once, from the unperturbed forward) are averaged across the ranks,
-and the metrics are weighted by each rank's real samples. The reductions are
-in ``fdtpu_torch/parallel/dp.py``. The rank folds into the step's seed, as
-fdtpu folds ``axis_index`` into its key, so every rank draws its own
-augmentation and dropout.
+each rank runs the step on its slice of the global batch, by one of fdtpu's
+two routes (``fdtpu_torch/parallel/dp.py``). The Trainer takes the route
+fdtpu's Trainer takes: shard_map's with ``rotate_device`` or
+``device_data``, GSPMD's otherwise (``parallel.trainer_route``).
 
-The spatial axis: with a ``mesh`` (``parallel/mesh.py``, PoolResnet only)
-the step is a rank's of fdtpu's ``make_dp_train_step(spatial=True)``. The
-ranks of a data row each get the row's whole slice of the batch, augment it
-alike (the data index, not the rank, folds into the seed) and encode the
-same targets; each keeps its rows of the float image and runs the spatial
-forward (``parallel/spatial.py``), which gives every rank of the row the
-whole grid, so the loss is computed whole on each. A rank's gradient is the
-part from the rows it owns, and the spatial ranks' parts sum to the row's
-gradient: the mesh-wide all-reduce of fdtpu's weighted form sums over both
-axes, with each row's norm counted once. The loss and the metrics, the same
-on every rank of a row, are reduced over the data group only.
+* shard_map's (``route="shard_map"``, fdtpu's per-shard ``axis_name``
+  body): the gradients are all-reduced by fdtpu's weighted form inside both
+  SAM points, the reported loss is summed (the SSD's re-weighted by its
+  positives), the BatchNorm running statistics (updated once, from the
+  unperturbed forward) are averaged across the ranks, and the metrics are
+  weighted by each rank's real samples.
+* GSPMD's (``route="gspmd"``): for a BatchNorm model, every BatchNorm
+  normalises by the global batch's statistics (its sums all-reduced over
+  the group, ``parallel.batch_norm_over``), so the running statistics come
+  out the same on every rank; each rank weighs its loss by its share of the
+  global norm before the backward and the gradients are summed. The
+  scalars are reduced as on shard_map's route. For the other families the
+  two routes are one step, and this route runs shard_map's form.
+
+The reductions are in ``fdtpu_torch/parallel/dp.py``. The rank folds into
+the step's seed, as fdtpu folds ``axis_index`` into its key, so every rank
+draws its own augmentation and dropout.
+
+The spatial axis: with a ``mesh`` (``parallel/mesh.py``) the step is a
+rank's of fdtpu's ``make_dp_train_step(spatial=True)``, for every family.
+The ranks of a data row each get the row's whole slice of the batch,
+augment it alike (the data index, not the rank, folds into the seed) and
+encode the same targets; each keeps its rows of the float image and runs
+the spatial forward (``parallel/spatial.py``), which gives every rank of
+the row the whole output, so the loss is computed whole on each (the SSD's
+mining ranks the whole map). A rank's gradient is the part from the rows
+it owns, and the spatial ranks' parts sum to the row's gradient: the
+mesh-wide all-reduce of fdtpu's weighted form sums over both axes, with
+each row's norm counted once. MobileNetV3's BatchNorms sum their
+statistics over the whole mesh, GSPMD's global batch; its loss is weighed
+before the backward, as on the GSPMD route. The loss and the metrics, the
+same on every rank of a row, are reduced over the data group only.
 
 The train step's phases run under ``torch.profiler.record_function`` spans
 (``train/augment``, ``train/targets``, ``train/gradients``,
@@ -80,12 +96,14 @@ from fdtpu_torch.models.mobilenetv3 import MobileNetV3Backbone
 from fdtpu_torch.models.poolresnet import PoolResnet
 from fdtpu_torch.models.ssd import SSD
 from fdtpu_torch.parallel.dp import (
+    batch_norm_over,
+    global_loss_scale,
     grad_all_reduce,
     mean_buffers,
     reduce_loss_sum,
     weighted_metric_reduce,
 )
-from fdtpu_torch.parallel.spatial import check_spatial, poolresnet_plan, spatial_forward
+from fdtpu_torch.parallel.spatial import spatial_forward, spatial_plan
 from fdtpu_torch.train.metrics import detection_metrics
 from fdtpu_torch.train.sam import global_norm, sam_gradients
 from fdtpu_torch.train.state import TrainState
@@ -194,14 +212,16 @@ def make_train_step(
     neg_pos_ratio: int = 10,
     bg_push: float = 0.0,
     mesh=None,
+    route: str = "shard_map",
 ) -> Callable:
     """Build the train step for ``module`` (the state's module);
     ``neg_pos_ratio`` and ``bg_push`` are the SSD loss's. With ``group``
     (a process group; None for one process) the step is a rank's of
-    data-parallel training (module docstring): each rank passes its slice
-    of the global batch and gets the same state and scalars back. With
-    ``mesh`` as well (``group`` is the mesh's) it is a rank's of the
-    data x spatial step: each rank passes its data row's slice.
+    data-parallel training by ``route`` (module docstring): each rank
+    passes its slice of the global batch and gets the same state and
+    scalars back. With ``mesh`` as well (``group`` is the mesh's) it is a
+    rank's of the data x spatial step: each rank passes its data row's
+    slice.
 
     ``step(state, images_u8, boxes, box_mask, sample_mask=None) -> (state,
     scalars)``: ``images_u8`` ``(B, H, W, 3)``, ``boxes`` ``(B, N, 5)``
@@ -211,22 +231,24 @@ def make_train_step(
     ``recall``, ``precision`` with ``compute_metrics``) as 0-d tensors.
     """
     _check_supported(module)
-    if mesh is not None:
-        check_spatial(module)
     image_size = _image_size(module)
     prob, iou_thr, capacity = nms_params
     rank = None if group is None else dist.get_rank(group)
     scalar_group, forward = group, _forward
+    # the BatchNorm statistics span the ranks: GSPMD's global batch
+    global_stats = group is not None and has_batch_stats(module) and (
+        mesh is not None or route == "gspmd")
     if mesh is not None:
         rank, scalar_group = mesh.data_index, mesh.data_group
-        plans = {}
+        plans = {module.input_shape[0]: spatial_plan(module, module.input_shape[0], mesh.spatial)}
 
         def forward(module, images, masks, train, update_stats):
             h = images.shape[1]
             if h not in plans:
-                plans[h] = poolresnet_plan(module, h, mesh.spatial)
+                plans[h] = spatial_plan(module, h, mesh.spatial)
             a, b = plans[h].image_rows[mesh.spatial_index]
-            return spatial_forward(module, images[:, a:b], plans[h], mesh, masks)
+            return spatial_forward(module, images[:, a:b], plans[h], mesh, masks, train,
+                                   update_stats)
 
     def step(state: TrainState, images, boxes, box_mask, sample_mask=None):
         net = state.module
@@ -244,6 +266,15 @@ def make_train_step(
             enc, gt_locs = _encode_targets(net, bx, bm, image_size)
         masks = DropoutMasks(gen)
         evaluations = 0
+        norm = grad_reduce = loss_scale = None
+        if group is not None:
+            norm = _loss_norm(net, enc, sample_mask)
+            if global_stats:  # weigh the loss before the backward, then sum
+                loss_scale = global_loss_scale(scalar_group, norm)
+                grad_reduce = grad_all_reduce(group, None)
+            else:
+                grad_reduce = grad_all_reduce(
+                    group, norm, count_norm=mesh is None or mesh.spatial_index == 0)
 
         def loss_fn():
             nonlocal evaluations
@@ -251,17 +282,14 @@ def make_train_step(
             # BatchNorm's running statistics come from the first evaluation
             # only, the unperturbed point
             evaluations += 1
-            return _loss_and_out(net, imgs, enc, sample_mask, masks, gt_locs, neg_pos_ratio,
-                                 bg_push, train=True, update_stats=evaluations == 1,
-                                 forward=forward)
+            loss, aux = _loss_and_out(net, imgs, enc, sample_mask, masks, gt_locs, neg_pos_ratio,
+                                      bg_push, train=True, update_stats=evaluations == 1,
+                                      forward=forward)
+            return (loss, aux) if loss_scale is None else (loss * loss_scale, aux)
 
         params = [p for p in net.parameters() if p.requires_grad]
-        norm = grad_reduce = None
-        if group is not None:
-            norm = _loss_norm(net, enc, sample_mask)
-            grad_reduce = grad_all_reduce(group, norm,
-                                          count_norm=mesh is None or mesh.spatial_index == 0)
-        with record_function("train/gradients"):
+        with record_function("train/gradients"), \
+                batch_norm_over(net, group if global_stats else None):
             if config.use_sam:
                 _, aux, grads = sam_gradients(loss_fn, params, config.sam_rho, grad_reduce)
             else:
@@ -272,7 +300,8 @@ def make_train_step(
         loss_sum, out = aux
         if group is not None:
             loss_sum = reduce_loss_sum(scalar_group, loss_sum, norm, is_ssd(net))
-            mean_buffers(scalar_group, _batch_stats(net))
+            if not global_stats:
+                mean_buffers(scalar_group, _batch_stats(net))
 
         with record_function("train/optimizer"):
             opt = state.optimizer

@@ -34,14 +34,7 @@ from fdtpu.parallel import make_dp_train_step as jax_make_dp_train_step
 from fdtpu.parallel import make_mesh as jax_make_mesh
 from fdtpu.parallel import shard_batch_arrays
 from fdtpu_torch.compat import state_dict_from_fdtpu
-from fdtpu_torch.models import (
-    SSD,
-    MobileNetV3Backbone,
-    PoolResnet,
-    Resnet,
-    SeparableCNN,
-    ssd_patch_sizes,
-)
+from fdtpu_torch.models import PoolResnet
 from fdtpu_torch.models.layers import DropoutMasks
 from fdtpu_torch.parallel import make_dp_train_step, make_mesh, poolresnet_plan, spatial_forward
 from fdtpu_torch.parallel.halo import pool_exchange, window_exchange
@@ -176,18 +169,6 @@ def test_mesh_layout_and_shards():
     for world, spatial in ((4, 3), (6, 4), (2, 0)):
         with pytest.raises(ValueError, match="does not divide"):
             mesh_layout(world, spatial, 0)
-
-
-@pytest.mark.parametrize("family", ["ssd", "mobilenetv3", "resnet", "separable"])
-def test_spatial_step_of_another_family_raises(family):
-    module = {
-        "ssd": lambda: SSD(4, (64, 64), ssd_patch_sizes((64, 64))),
-        "mobilenetv3": lambda: MobileNetV3Backbone((96, 96), 3),
-        "resnet": lambda: Resnet(4, (64, 64), 4, 1),
-        "separable": lambda: SeparableCNN(4, (64, 64), 4, 1),
-    }[family]()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_dp_train_step(module, TrainConfig(), mesh=mesh_layout(4, 2, 0))
 
 
 # -- one rank, in this process -------------------------------------------------------------

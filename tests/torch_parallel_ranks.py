@@ -16,7 +16,12 @@ batches, the synthetic dataset's path); the rank writes
 * ``spatial``: for each layout of ``inputs["spatial"]["layouts"]`` (a
   spatial size; every mesh spans all ranks), one data x spatial train step
   on the rank's data row of the global batch, and the spatial forward with
-  dropout masks drawn from a generator seeded with the data index.
+  dropout masks drawn from a generator seeded with the data index;
+* ``spatial_zoo``: the same for each family of ``inputs["spatial_zoo"]
+  ["families"]`` (MobileNetV3's forward in train mode, on the statistics of
+  the whole mesh's batch, instead of dropout), and on ranks 0 and 1 one
+  GSPMD-route data-parallel step of ``inputs["spatial_zoo"]["gspmd"]``
+  (each rank its half of the batch).
 """
 
 from __future__ import annotations
@@ -31,7 +36,13 @@ import torch.distributed as dist
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets  # noqa: E402
-from fdtpu_torch.models import SSD, MobileNetV3Backbone, PoolResnet  # noqa: E402
+from fdtpu_torch.models import (  # noqa: E402
+    SSD,
+    MobileNetV3Backbone,
+    PoolResnet,
+    Resnet,
+    SeparableCNN,
+)
 from fdtpu_torch.models.layers import DropoutMasks  # noqa: E402
 from fdtpu_torch.parallel import (  # noqa: E402
     data_shard,
@@ -42,11 +53,13 @@ from fdtpu_torch.parallel import (  # noqa: E402
     poolresnet_plan,
     shutdown,
     spatial_forward,
+    spatial_plan,
 )
 from fdtpu_torch.train import Trainer, create_train_state  # noqa: E402
 from fdtpu_torch.utils.config import TrainConfig  # noqa: E402
 
-FAMILIES = {"poolresnet": PoolResnet, "ssd": SSD, "mobilenetv3": MobileNetV3Backbone}
+FAMILIES = {"poolresnet": PoolResnet, "ssd": SSD, "mobilenetv3": MobileNetV3Backbone,
+            "resnet": Resnet, "separable": SeparableCNN}
 
 
 def build(case: dict) -> torch.nn.Module:
@@ -136,6 +149,54 @@ def spatial(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def stepped(module, state, scalars) -> dict:
+    return {"scalars": {k: v.item() for k, v in scalars.items()},
+            "state_dict": {k: v.clone() for k, v in module.state_dict().items()},
+            "step": state.step}
+
+
+def zoo_forward(case: dict, mesh, images: torch.Tensor) -> torch.Tensor:
+    """The spatial forward of the case's family from this rank's rows of
+    its data row: dropout on (masks seeded with the data index), or
+    MobileNetV3 in train mode without a statistics update."""
+    module = FAMILIES[case["family"]](**case.get("dropout_ctor", case["ctor"]))
+    module.load_state_dict(case["state_dict"])
+    plan = spatial_plan(module, images.shape[1], mesh.spatial)
+    a, b = plan.image_rows[mesh.spatial_index]
+    rows = images[:, a:b].float() / 255
+    with torch.no_grad():
+        if case["family"] == "mobilenetv3":
+            return spatial_forward(module, rows, plan, mesh, train=True, update_stats=False)
+        masks = DropoutMasks(torch.Generator().manual_seed(mesh.data_index))
+        return spatial_forward(module, rows, plan, mesh, masks)
+
+
+def spatial_zoo(rank: int, world: int, inputs: dict) -> dict:
+    spec = inputs["spatial_zoo"]
+    meshes = {name: make_mesh(world, s) for name, s in spec["layouts"].items()}
+    pair = make_mesh(2, 1)  # the GSPMD-route step's two ranks (None on the others)
+    config = TrainConfig(**spec["config"])
+    out = {}
+    for family, case in spec["families"].items():
+        for name, mesh in meshes.items():
+            module = build(case)
+            state = create_train_state(module, config, 10)
+            step = make_dp_train_step(module, config, mesh=mesh, augment=False)
+            batch = [torch.from_numpy(a.copy()) for a in data_shard(mesh, *case["batch"])]
+            state, scalars = step(state, *batch)
+            out[family, name] = dict(stepped(module, state, scalars), data_index=mesh.data_index,
+                                     output=zoo_forward(case, mesh, batch[0]))
+    if pair is not None:
+        case = spec["gspmd"]
+        module = build(case)
+        state = create_train_state(module, config, 10)
+        step = make_dp_train_step(module, config, group=pair.group, route="gspmd",
+                                  augment=False)
+        state, scalars = step(state, *rank_slice(case["batch"], rank, 2))
+        out["gspmd"] = stepped(module, state, scalars)
+    return out
+
+
 def main() -> None:
     task, rank, world, init_method, work = sys.argv[1:]
     rank, world, work = int(rank), int(world), Path(work)
@@ -145,8 +206,9 @@ def main() -> None:
     try:
         assert dist.get_backend() == "gloo"
         inputs = torch.load(work / "inputs.pt", weights_only=False)
-        result = {"steps": steps, "trainer": trainer, "spatial": spatial}[task](rank, world,
-                                                                               inputs)
+        tasks = {"steps": steps, "trainer": trainer, "spatial": spatial,
+                 "spatial_zoo": spatial_zoo}
+        result = tasks[task](rank, world, inputs)
         torch.save(result, work / f"{task}_rank{rank}.pt")
     finally:
         shutdown()
