@@ -227,11 +227,31 @@ non-zero; without a CUDA card it fails at once and prints no result):
     squeeze-excite sums under their own kinds) on each mesh, with the
     one-process step's: what the axis costs on one card with gloo's host
     staging, not a scaling number. A rank that fails or outlives its
-    timeout fails the script. ``--spatial`` runs phases 1, 2 and 19 alone.
+    timeout fails the script. ``--spatial`` runs phases 1, 2 and 19 alone;
+20. the last entry points: (a) ``fdtpu_torch.demo_model.run_camera`` on
+    the card, a bf16 Detector of PoolResnet-128x10 grid 10 at 480 px
+    (``demo_model``'s flags ``--filters 128 --prob-threshold 0.5``, random
+    weights from seed 0, the head's score bias shifted so that 5% of the
+    frames' cells pass), fed by a stub ``cv2`` in ``sys.modules`` that
+    serves 30 BGR 640x480 frames (``make_synthetic_widerface`` images
+    resized) and then fails a read: each frame's rectangles equal the boxes
+    of a separate ``predict`` on the same RGB frame, as ints, as many as
+    its mask keeps, some frame has one, K1 launched once a frame in the
+    loop and once a checking call; ms a frame by CUDA events around
+    ``predict`` and by the host clock around the whole frame, median and
+    range; (b) the native JPEG feed on the card's host: the C++ loader
+    loads (the libjpeg it resolved printed), ``WIDERFaceDataSource()``
+    decodes through it by default, and ``get_batch`` equals per-sample
+    ``get`` bit for bit at b8/480 and b128/320 on 256 JPEGs of 1024x768 at
+    quality 90 (``make_synthetic_widerface`` images resized, from the
+    seed); host decode ms a batch, PIL against native, medians of 5, cache
+    off, at the loader's default threads (``os.cpu_count()`` printed); the
+    first-epoch ``BatchLoader`` feed in img/s at b128/320 with each decoder.
+    ``--entry`` runs phases 1, 2 and 20 alone.
 
 The line before the last is a JSON object with each kernel's launches (from
-the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment
-and spatial paths; a CUDA graph's replays, which launch K1 without its wrapper, are
+the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment,
+spatial and camera paths; a CUDA graph's replays, which launch K1 without its wrapper, are
 counted by the script), error, times, and
 its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
@@ -259,6 +279,7 @@ import json
 import math
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -408,6 +429,15 @@ SP_NAMES = {"poolresnet": "PoolResnet-128x10 grid 10", "ssd": "SSD-16",
             "mobilenetv3": "MobileNetV3-Small grid 15", "resnet": "Resnet-64x10 grid 15",
             "separable": "SeparableCNN-128x10 grid 10"}
 SP_FAMILIES = tuple(SP_NAMES)
+# phase 20: the last entry points
+CAMERA_ARGS = ["--filters", "128", "--prob-threshold", "0.5"]  # the README's serving flags
+CAMERA_FRAMES = 30
+CAMERA_HW = (480, 640)  # a webcam's VGA frame, rows x columns
+CAMERA_PASS = 0.05  # the frames' cells over the threshold, see camera_detector
+FEED_JPEG_WH, FEED_QUALITY = (1024, 768), 90  # WIDERFace's image width
+FEED_IMAGES = 256  # two b128 batches a first epoch
+FEED_SHAPES = ((8, 480), (128, 320))  # (batch, side) of the decode timings
+FEED_REPS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -3373,6 +3403,243 @@ def phase_deploy(card, tmp) -> int:
     return launches
 
 
+# -- phase 20: the last entry points ------------------------------------------------------------
+
+
+def camera_detector(frames):
+    """``demo_model``'s bf16 Detector of PoolResnet-128x10 grid 10 at 480 px
+    (random weights from seed 0, as its ``build_detector`` draws them),
+    with the head's score bias shifted so that ``CAMERA_PASS`` of the cells
+    of the BGR ``frames`` pass the threshold, as phase 18 does: random
+    weights alone put no cell above 0.5."""
+    from PIL import Image
+
+    from fdtpu_torch import demo_model
+    from fdtpu_torch.models import DTYPES
+
+    args = demo_model.parse_args(CAMERA_ARGS)
+    cfg = DetectorConfig(filters=args.filters, input_shape=(args.input, args.input),
+                         num_patches=args.patches, num_residual_blocks=args.blocks)
+    module = build_model(args.model, cfg, args.device, torch.Generator().manual_seed(0))
+    resized = np.stack([np.asarray(Image.fromarray(np.ascontiguousarray(f[..., ::-1])).resize(
+        (args.input, args.input), Image.BILINEAR)) for f in frames])
+    batch = torch.from_numpy(resized.astype(np.float32)).to(args.device)
+    prob = args.prob_threshold
+    with torch.no_grad():
+        score = module(batch / 255.0)[..., 0].double().clamp(1e-9, 1 - 1e-9)
+        logit = torch.quantile(torch.logit(score).flatten(), 1 - CAMERA_PASS)
+        module.out.bias[0] += math.log(prob / (1 - prob)) - float(logit)
+    return Detector(module, probability_threshold=prob, iou_threshold=args.iou_threshold,
+                    nms_capacity=cfg.nms_capacity, dtype=DTYPES[cfg.dtype])
+
+
+def camera_frames(tmp) -> list[np.ndarray]:
+    """``CAMERA_FRAMES`` BGR frames of a webcam's size, from
+    ``make_synthetic_widerface`` images resized with PIL."""
+    from PIL import Image
+
+    root = make_synthetic_widerface(os.path.join(tmp, "camera"), num_images=CAMERA_FRAMES,
+                                    seed=SEED + 61)
+    paths = sorted((root / "WIDER_train" / "images" / "0--Synthetic").glob("*.jpg"))
+    h, w = CAMERA_HW
+    return [np.ascontiguousarray(np.asarray(Image.open(p).convert("RGB").resize(
+        (w, h), Image.BILINEAR))[..., ::-1]) for p in paths]
+
+
+class StubCv2:
+    """What ``run_camera`` calls of OpenCV: a camera that serves ``frames``
+    and then fails a read, with the host clock at each read, the
+    rectangles drawn on each frame and the frames shown."""
+
+    COLOR_BGR2RGB, COLOR_RGB2BGR = 4, 5
+
+    def __init__(self, frames):
+        self.frames, self.read_at, self.rects, self.shown = list(frames), [], [], 0
+        self.released = self.destroyed = 0
+        stub = self
+
+        class VideoCapture:
+            def __init__(self, index):
+                check(index == 0, f"camera {index}")
+
+            def read(self):
+                stub.read_at.append(time.perf_counter())
+                if not stub.frames:
+                    return False, None
+                stub.rects.append([])
+                return True, stub.frames.pop(0)
+
+            def release(self):
+                stub.released += 1
+
+        self.VideoCapture = VideoCapture
+
+    @staticmethod
+    def cvtColor(img, code):
+        return np.ascontiguousarray(img[..., ::-1])
+
+    def rectangle(self, img, p1, p2, color, thickness):
+        check(color == (255, 0, 0) and thickness == 2, f"rectangle {color} {thickness}")
+        self.rects[-1].append((*p1, *p2))
+
+    def imshow(self, name, img):
+        self.shown += 1
+
+    @staticmethod
+    def waitKey(ms):
+        return -1
+
+    def destroyAllWindows(self):
+        self.destroyed += 1
+
+
+def phase_camera(card, tmp) -> int:
+    """20a: ``demo_model.run_camera`` on the card over a stub ``cv2``'s
+    frames. Returns K1's launches in the loop."""
+    from fdtpu_torch import demo_model
+    from fdtpu_torch.core import compact_boxes
+
+    frames = camera_frames(tmp)
+    det = camera_detector(frames)
+    cv2 = StubCv2(frames)
+    events = []
+    predict = det.predict
+
+    def timed_predict(img):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = predict(img)
+        end.record()
+        events.append((start, end))
+        return out
+
+    det.predict = timed_predict
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2
+    try:
+        knms.decode_filter_nms_batch.launches = 0
+        demo_model.run_camera(det)
+        launches = knms.decode_filter_nms_batch.launches
+    finally:
+        if saved is None:
+            sys.modules.pop("cv2")
+        else:
+            sys.modules["cv2"] = saved
+        det.predict = predict
+    torch.cuda.synchronize()
+    check(len(cv2.rects) == cv2.shown == CAMERA_FRAMES and len(cv2.read_at) == CAMERA_FRAMES + 1,
+          f"{len(cv2.rects)} frames drawn, {cv2.shown} shown, {len(cv2.read_at)} reads")
+    check(cv2.released == cv2.destroyed == 1, "camera released and windows destroyed once")
+    check(launches == CAMERA_FRAMES, f"K1 launched {launches} times in {CAMERA_FRAMES} frames")
+    drawn = []
+    for i, (frame, rects) in enumerate(zip(frames, cv2.rects)):
+        _, boxes, mask = det.predict(np.ascontiguousarray(frame[..., ::-1]))
+        kept = compact_boxes(boxes, mask)
+        want = [(int(x), int(y), int(x) + int(w), int(y) + int(h)) for _, x, y, w, h in kept]
+        check(rects == want, f"frame {i}: drawn {rects}, predict {want}")
+        check(len(rects) == int(mask.sum()), f"frame {i}: {len(rects)} drawn, mask {mask.sum()}")
+        drawn.append(len(rects))
+    check(max(drawn) > 0, "no frame had a box")
+    check(knms.decode_filter_nms_batch.launches == 2 * CAMERA_FRAMES,
+          f"K1 launches {knms.decode_filter_nms_batch.launches}, want {2 * CAMERA_FRAMES}")
+    device = [s.elapsed_time(e) for s, e in events]
+    host = [(b - a) * 1e3 for a, b in zip(cv2.read_at, cv2.read_at[1:])]
+    print(f"[20a camera] demo_model.run_camera on the card, bf16 PoolResnet-128x10 grid 10 at "
+          f"480 px, {CAMERA_FRAMES} BGR {CAMERA_HW[1]}x{CAMERA_HW[0]} frames of a stub cv2: "
+          f"rectangles = predict's boxes on every frame ({sum(drawn)} drawn, up to {max(drawn)} "
+          f"a frame), K1 {launches} launches in the loop + {CAMERA_FRAMES} checking calls; "
+          f"predict by CUDA events median {statistics.median(device):.3f} ms "
+          f"({min(device):.3f}-{max(device):.3f}), the whole frame by the host clock median "
+          f"{statistics.median(host):.3f} ms ({min(host):.3f}-{max(host):.3f}) [{card}]")
+    return launches
+
+
+def feed_dataset(tmp):
+    """``FEED_IMAGES`` JPEGs of ``FEED_JPEG_WH`` at ``FEED_QUALITY``, written
+    with PIL from ``make_synthetic_widerface`` images (seeded) resized to that
+    size, and their targets (boxes scaled alike)."""
+    from PIL import Image
+
+    root = make_synthetic_widerface(os.path.join(tmp, "feed"), num_images=FEED_IMAGES,
+                                    seed=SEED + 62)
+    targets = load_targets(root, "train", 3)
+    w, h = FEED_JPEG_WH
+    for t in targets:
+        img = Image.open(t["img_path"]).convert("RGB")
+        w0, h0 = img.size
+        img.resize((w, h), Image.BILINEAR).save(t["img_path"], quality=FEED_QUALITY)
+        t["bbx"] = t["bbx"].copy()
+        t["bbx"][:, [1, 3]] *= w / w0
+        t["bbx"][:, [2, 4]] *= h / h0
+    return targets
+
+
+def median_s(fn, reps: int = FEED_REPS) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_feed(card, tmp) -> None:
+    """20b: the native JPEG feed on the card's host: the loader loads,
+    ``get_batch`` equals per-sample ``get`` bit for bit, and the host decode
+    and the first-epoch feed timed with each decoder."""
+    from fdtpu_torch.native import loader
+
+    t0 = time.perf_counter()
+    check(loader.native_available(), "the native loader does not load on this machine")
+    lib = loader.build()
+    ldd = subprocess.run(["ldd", str(lib)], capture_output=True, text=True).stdout
+    jpeg = " ".join(line.split()[0] + " => " + line.split()[2] for line in ldd.splitlines()
+                    if "jpeg" in line and "=>" in line)
+    targets = feed_dataset(tmp)
+    made_s = time.perf_counter() - t0
+
+    def source(side, native, cache=False):
+        return WIDERFaceDataSource(targets, (side, side), 8, error_log=None,
+                                   use_native=native, cache_decoded=cache)
+
+    line = []
+    for b, side in FEED_SHAPES:
+        idx = list(range(b))
+        native, plain = source(side, None), source(side, False)
+        check(native.use_native, "WIDERFaceDataSource() does not decode natively here")
+        got, want = native.get_batch(idx), [native.get(i) for i in idx]
+        for i, (g, w) in enumerate(zip(got, want)):
+            for a, c in zip(g, w):
+                check(np.array_equal(a, c), f"b{b}/{side} sample {i}: get_batch != get")
+        pil_ms = median_s(lambda: [plain.get(i) for i in idx]) * 1e3
+        native_ms = median_s(lambda: native.get_batch(idx)) * 1e3
+        line.append(f"b{b}/{side} PIL {pil_ms:.1f} ms, native {native_ms:.1f} ms a batch "
+                    f"({pil_ms / native_ms:.2f}x)")
+    feed = []
+    for native in (False, True):
+        loader_ = BatchLoader(source(320, native, cache=True), 128)
+        t1 = time.perf_counter()
+        n = sum(int(batch.sample_mask.sum()) for batch in loader_)
+        check(n == FEED_IMAGES, f"feed gave {n} images")
+        feed.append(f"{'native' if native else 'PIL'} {n / (time.perf_counter() - t1):.1f} img/s")
+    shapes = " and ".join(f"b{b}/{side}" for b, side in FEED_SHAPES)
+    print(f"[20b feed] native loader loads ({lib.name}: {jpeg}); get_batch = per-sample get "
+          f"bit for bit at {shapes} on {FEED_JPEG_WH[0]}x{FEED_JPEG_WH[1]} q"
+          f"{FEED_QUALITY} JPEGs; host decode, medians of {FEED_REPS}, cache off, "
+          f"os.cpu_count() {os.cpu_count()} (the loader's threads): " + "; ".join(line)
+          + f"; first-epoch BatchLoader feed at b128/320 over {FEED_IMAGES} images: "
+          + ", ".join(feed) + f" (dataset written in {made_s:.1f} s) [{card}]")
+
+
+def phase_entry(card, tmp) -> int:
+    """20: the last entry points. Returns K1's launches in the camera loop."""
+    t0 = time.perf_counter()
+    launches = phase_camera(card, tmp)
+    phase_feed(card, tmp)
+    print(f"[20 entry] phase 20 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def deployment_only() -> None:
     """``--deployment``: the card, the build and phase 18 alone."""
     card, _ = phase_card()
@@ -3387,6 +3654,14 @@ def spatial_only() -> None:
     phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         phase_spatial(card, tmp)
+
+
+def entry_only() -> None:
+    """``--entry``: the card, the build and phase 20 alone."""
+    card, _ = phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_entry(card, tmp)
 
 
 def kernel_times_only() -> None:
@@ -3428,6 +3703,7 @@ def main() -> None:
         dp_launches = phase_dp(card, tmp)
         deploy_launches = phase_deploy(card, tmp)
         sp_launches = phase_spatial(card, tmp)
+        entry_launches = phase_entry(card, tmp)
     k1_recorded_map_bounds()
 
     def entry(meta, launches, err, times, library_ms=None):
@@ -3444,7 +3720,8 @@ def main() -> None:
     kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"]
                         + trainer_launches["decode_filter_nms"] + ssd_launches
                         + zoo_launches["decode_filter_nms"] + dp_launches["decode_filter_nms"]
-                        + deploy_launches + sp_launches["decode_filter_nms"],
+                        + deploy_launches + sp_launches["decode_filter_nms"]
+                        + entry_launches,
                         worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
     path = (train_launches, photo_launches, trainer_launches, zoo_launches, dp_launches,
@@ -3472,5 +3749,7 @@ if __name__ == "__main__":
         deployment_only()
     elif sys.argv[1:] == ["--spatial"]:
         spatial_only()
+    elif sys.argv[1:] == ["--entry"]:
+        entry_only()
     else:
         main()

@@ -1,7 +1,7 @@
 """Host-side data source, fixed-shape batch loader and a device prefetcher:
 the counterpart of ``fdtpu/data/pipeline.py``.
 
-* the host does only **decode + resize + box scaling** (PIL); all other
+* the host does only **decode + resize + box scaling**; all other
   augmentation runs on the device (``fdtpu_torch/data/augment.py``), with
   rotation there too under ``TrainConfig.rotate_device``;
 * variable-length box lists become fixed-capacity padded arrays with masks;
@@ -15,10 +15,14 @@ the counterpart of ``fdtpu/data/pipeline.py``.
 fdtpu's numpy code, so the same seed gives the same bytes, and
 ``BatchLoader(process_shard=(rank, world))`` gives a data-parallel rank its
 slice of every global batch, as fdtpu's multi-process feed does. The source
-decodes with PIL. The C++ libjpeg-turbo decoder is ported
-(``fdtpu_torch/native/loader.py``) but not wired in here: fdtpu's
-``use_native`` option, ``get_batch`` and the loader's batch path wait until
-the host decode time of both decoders is measured (ROADMAP.md).
+decodes a JPEG through the C++ libjpeg-turbo loader
+(``fdtpu_torch/native/loader.py``: DCT-scaled decode and a fixed-point
+bilinear resize) wherever the loader builds and loads, and with PIL
+elsewhere and for other formats: ``use_native=None`` takes fdtpu's rule,
+:func:`~fdtpu_torch.native.native_available`, so the same call gives the
+same bytes as fdtpu's feed. :meth:`WIDERFaceDataSource.get_batch` decodes a
+batch's misses in one threaded loader call, and :class:`BatchLoader` makes
+its batches through it.
 :class:`DevicePrefetcher` takes an explicit device (each rank its own): on a
 CUDA device it stages each batch in pinned host memory and copies it on a
 side stream one batch ahead.
@@ -30,6 +34,7 @@ import collections
 import dataclasses
 import queue
 import threading
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
@@ -61,6 +66,7 @@ class WIDERFaceDataSource:
         input_shape: tuple[int, int],
         box_capacity: int = 8,
         error_log: str | None = "incorrect_indices.log",
+        use_native: bool | None = None,
         rotate_prob: float = 0.0,
         rotate_limit: float = 20.0,
         seed: int = 0,
@@ -82,12 +88,22 @@ class WIDERFaceDataSource:
         self.rotate_prob = rotate_prob
         self.rotate_limit = rotate_limit
         self._rng = np.random.default_rng(seed)
+        if use_native is None:
+            from fdtpu_torch.native import native_available
+
+            use_native = native_available()
+        self.use_native = use_native
 
     def _decode(self, img_path):
-        """-> (img uint8 (H, W, 3), (src_w, src_h)), PIL bilinear resize."""
+        """-> (img uint8 (H, W, 3), (src_w, src_h)). A JPEG through the
+        native loader where ``use_native``, else PIL's bilinear resize."""
+        h, w = self.input_shape
+        if self.use_native and str(img_path).lower().endswith((".jpg", ".jpeg")):
+            from fdtpu_torch.native import decode_resize
+
+            return decode_resize(Path(img_path).read_bytes(), h, w)
         from PIL import Image
 
-        h, w = self.input_shape
         img = Image.open(img_path).convert("RGB")
         size = img.size
         return np.asarray(img.resize((w, h), Image.BILINEAR), np.uint8), size
@@ -161,6 +177,66 @@ class WIDERFaceDataSource:
             # dataset.py:148-150: log and substitute the neighbor sample
             self._log_failure(index)
             return self.get(index - 1 if index != 0 else index + 1, _depth=_depth + 1)
+
+    def get_batch(self, indices) -> list:
+        """:meth:`get` of each of ``indices``, the misses of the RAM cache
+        decoded in one threaded call of the native loader
+        (``decode_resize_batch``). A slot whose decode (or box handling)
+        fails is logged and takes :meth:`get`'s neighbour; a batch with a
+        source that is not a JPEG, or a source without ``use_native``, takes
+        the per-sample path wholesale."""
+        indices = [int(i) for i in indices]
+        if not self.use_native:
+            return [self.get(i) for i in indices]
+        out: list = [None] * len(indices)
+        miss: list[int] = []
+        for pos, i in enumerate(indices):
+            if self.cache_decoded and i in self._cache_meta:
+                try:
+                    target = self._resolve_target(i)
+                    w0, h0 = self._cache_meta[i]
+                    out[pos] = self._finish_sample(self._cache_imgs[i], target["bbx"], w0, h0)
+                    continue
+                except Exception:
+                    pass
+            miss.append(pos)
+        if not miss:
+            return out
+
+        blobs: list[bytes] = []
+        metas: list[tuple[int, dict | None]] = []
+        for pos in miss:
+            i = indices[pos]
+            try:
+                target = self._resolve_target(i)
+                path = str(target["img_path"])
+                if not path.lower().endswith((".jpg", ".jpeg")):
+                    for p in miss:
+                        out[p] = self.get(indices[p])
+                    return out
+                blobs.append(Path(path).read_bytes())
+                metas.append((i, target))
+            except Exception:
+                blobs.append(b"")
+                metas.append((i, None))
+        from fdtpu_torch.native import decode_resize_batch
+
+        h, w = self.input_shape
+        imgs, dims, _ = decode_resize_batch(blobs, h, w)
+        for slot, pos in enumerate(miss):
+            i, target = metas[slot]
+            try:
+                if target is None or dims[slot, 0] < 0:
+                    raise ValueError("decode failed")
+                w0, h0 = int(dims[slot, 0]), int(dims[slot, 1])
+                self._cache_store(i, imgs[slot], w0, h0)
+                out[pos] = self._finish_sample(imgs[slot], target["bbx"], w0, h0)
+            except Exception:
+                # get()'s tolerance a slot: log and substitute the neighbour
+                # (a failure after the decode too, e.g. malformed boxes)
+                self._log_failure(i)
+                out[pos] = self.get(i - 1 if i != 0 else i + 1, _depth=1)
+        return out
 
 
 def rotate_image_and_boxes(arr: np.ndarray, boxes: np.ndarray, angle_deg: float):
@@ -261,7 +337,11 @@ class BatchLoader:
 
     def _make_batch(self, idx_chunk: np.ndarray) -> Batch:
         imgs, boxes, masks = [], [], []
-        for im, bx, mk in (self.source.get(int(i)) for i in idx_chunk):
+        if hasattr(self.source, "get_batch"):
+            samples = self.source.get_batch(idx_chunk)
+        else:
+            samples = [self.source.get(int(i)) for i in idx_chunk]
+        for im, bx, mk in samples:
             imgs.append(im)
             boxes.append(bx)
             masks.append(mk)
@@ -378,8 +458,6 @@ def make_synthetic_widerface(
     can actually fit them. Returns the data dir for
     :func:`fdtpu_torch.data.load_targets`.
     """
-    from pathlib import Path
-
     from PIL import Image, ImageDraw
 
     rng = np.random.default_rng(seed)

@@ -1,15 +1,21 @@
-"""Inference demo over image files, the port's ``demo_model.py``.
+"""Inference demo, the port's ``demo_model.py``: over image files, or a
+webcam with ``--camera``.
 
 Each image goes through :meth:`Detector.predict` (host resize, ``/255``,
 forward, fused decode+filter+NMS); the boxes are drawn on the resized frame
-and saved. ``--model`` names the family (any of the zoo; the SSD's patch
-sizes follow from ``--input``). The weights come from ``--checkpoint``: a
-checkpoint of the port (as ``train_model`` or ``train_model_ssd`` writes
-it), or a reference TorchScript ``.pth``, imported through
+and saved. An image directory without images gets three synthetic frames
+(``make_synthetic_widerface``), as fdtpu's demo does. ``--camera`` runs the
+reference's webcam loop instead (OpenCV, camera 0, ESC stops it), the
+frames through the same ``predict``. ``--model`` names the family (any of
+the zoo; the SSD's patch sizes follow from ``--input``). The weights come
+from ``--checkpoint``: a checkpoint of the port (as ``train_model`` or
+``train_model_ssd`` writes it, or ``convert_fdtpu_checkpoint.py`` from
+fdtpu's), or a reference TorchScript ``.pth``, imported through
 ``compat.load_reference_detector``; without one they are random, drawn
 from seed 0. Run as::
 
     python -m fdtpu_torch.demo_model --images DIR --checkpoint PATH --device cuda
+    python -m fdtpu_torch.demo_model --camera --checkpoint PATH
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ def parse_args(argv=None):
     p.add_argument("--blocks", type=int, default=10)
     p.add_argument("--prob-threshold", type=float, default=0.7)
     p.add_argument("--iou-threshold", type=float, default=0.01)
+    p.add_argument("--camera", action="store_true", help="webcam loop (needs cv2)")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     return p.parse_args(argv)
 
@@ -86,7 +93,13 @@ def run_images(det: Detector, image_dir: str, out_dir: str) -> None:
         if p.suffix.lower() in (".jpg", ".jpeg", ".png")
     )
     if not paths:
-        raise SystemExit(f"no .jpg/.jpeg/.png images in {image_dir}")
+        print(f"no images in {image_dir}; generating a synthetic frame")
+        import tempfile
+
+        from fdtpu_torch.data import make_synthetic_widerface
+
+        root = make_synthetic_widerface(tempfile.mkdtemp(), num_images=3)
+        paths = sorted((Path(root) / "WIDER_train/images/0--Synthetic").glob("*.jpg"))
     for p in paths:
         img = np.asarray(Image.open(p).convert("RGB"))
         t0 = time.perf_counter()
@@ -97,9 +110,42 @@ def run_images(det: Detector, image_dir: str, out_dir: str) -> None:
         draw_bbx(norm.cpu().numpy(), compact_boxes(boxes, mask), save_name=p.stem, out_dir=out_dir)
 
 
+def run_camera(det: Detector) -> None:
+    """The reference's webcam loop (``demo_model.py:40-57``), as fdtpu's:
+    each BGR frame of camera 0 goes to RGB and through
+    :meth:`Detector.predict`; the kept boxes are drawn in blue, width 2, on
+    the model-resized frame (predict's coordinates are in that frame) and
+    the frame is shown. ESC (27) or a failed read stops the loop."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("--camera needs OpenCV (the cv2 module), which is not installed") from e
+
+    vid = cv2.VideoCapture(0)
+    while True:
+        ret, frame = vid.read()
+        if not ret:
+            break
+        rgb = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+        norm, boxes, mask = det.predict(rgb)
+        display = cv2.cvtColor((norm.cpu().numpy() * 255).astype(np.uint8), cv2.COLOR_RGB2BGR)
+        for b in compact_boxes(boxes, mask):
+            x, y, w, h = (int(v) for v in b[1:])
+            cv2.rectangle(display, (x, y), (x + w, y + h), (255, 0, 0), 2)
+        cv2.imshow("fdtpu_torch", display)
+        if cv2.waitKey(1) == 27:  # ESC (demo_model.py:53)
+            break
+    vid.release()
+    cv2.destroyAllWindows()
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    run_images(build_detector(args), args.images, args.out)
+    det = build_detector(args)
+    if args.camera:
+        run_camera(det)
+    else:
+        run_images(det, args.images, args.out)
 
 
 if __name__ == "__main__":

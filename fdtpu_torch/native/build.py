@@ -24,20 +24,22 @@ GXX_FLAGS = ("-O3", "-std=c++17")
 ARCH_FLAGS = (("-march=native",), ("-mavx2", "-mfma"), ())
 
 
-def output_path(stem: str, sources: tuple[Path, ...], args: tuple[str, ...]) -> Path:
-    """Where the build of ``sources`` with ``args`` lives."""
+def output_path(stem: str, sources: tuple[Path, ...], args: tuple[str, ...],
+                deps: tuple[Path, ...] = ()) -> Path:
+    """Where the build of ``sources`` (and the headers ``deps`` they
+    include) with ``args`` lives."""
     digest = hashlib.sha256(" ".join((*GXX_FLAGS, *args, *map(" ".join, ARCH_FLAGS))).encode())
-    for src in sources:
+    for src in (*sources, *deps):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}"
 
 
 def gxx_build(stem: str, sources: tuple[Path, ...], args: tuple[str, ...],
-              suffix: str = "") -> Path:
+              suffix: str = "", deps: tuple[Path, ...] = ()) -> Path:
     """Compile ``sources`` with ``args`` (link flags after the sources)
     unless the output for them exists; returns its path."""
-    out = output_path(stem, sources, args).with_suffix(suffix)
+    out = output_path(stem, sources, args, deps).with_suffix(suffix)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -3,17 +3,30 @@
 
 ``fast_loader.cpp`` (the port's copy) decodes with libjpeg-turbo, scaling
 inside the inverse DCT, and resizes bilinearly in fixed point, with a
-threaded batch path. It is built at first use (``native/build.py``). Where
-it cannot be built or loaded (no ``g++``, no libjpeg headers, or no libjpeg
-where the dynamic loader looks), :func:`native_available` is False and a
-decode through it raises. The port's data source decodes with PIL and does
-not call it yet (``fdtpu_torch/data/pipeline.py``).
+threaded batch path. It is built at first use (``native/build.py``) against
+the first libjpeg with which it links and loads:
+
+* the compiler's own (``jpeglib.h`` and ``-ljpeg``), with an rpath to the
+  directory the linker took ``libjpeg.so`` from, so that the dynamic loader
+  finds the library the linker found;
+* else the libjpeg-turbo that Pillow's wheel bundles
+  (``pillow.libs/libjpeg-*.so.62*``, the libjpeg 6.2 ABI), with the 6.2 API
+  headers kept in ``native/include`` and an rpath to ``pillow.libs``. A
+  machine with Pillow from its wheel but without libjpeg's development
+  files takes this route.
+
+Where neither builds and loads, :func:`native_available` is False and a
+decode through the loader raises. The data source decodes through it
+wherever it is available (``fdtpu_torch/data/pipeline.py``, fdtpu's rule).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import importlib.util
+import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -21,15 +34,55 @@ import numpy as np
 from fdtpu_torch.native.build import HERE
 
 LOADER = HERE / "fast_loader.cpp"
+INCLUDE = HERE / "include"
+HEADERS = tuple(sorted(INCLUDE.glob("*.h")))
+LINK = ("-shared", "-fPIC", "-pthread")
+
+
+def system_libjpeg() -> tuple[str, ...]:
+    """Link flags for the compiler's own libjpeg: ``-ljpeg``, and an rpath
+    to the directory of the ``libjpeg.so`` the compiler finds, if it finds
+    one."""
+    try:
+        found = subprocess.run(["g++", "-print-file-name=libjpeg.so"], capture_output=True,
+                               text=True, timeout=60).stdout.strip()
+    except OSError:
+        found = ""
+    rpath = (f"-Wl,-rpath,{Path(found).resolve().parent}",) if os.path.isabs(found) else ()
+    return ("-ljpeg", *rpath)
+
+
+def bundled_libjpeg() -> tuple[str, ...] | None:
+    """Link flags for the libjpeg-turbo of Pillow's wheel, with the headers
+    of ``native/include``; None where Pillow bundles none."""
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or spec.origin is None:
+        return None
+    libs = sorted((Path(spec.origin).parents[1] / "pillow.libs").glob("libjpeg*.so.62*"))
+    if not libs:
+        return None
+    return (f"-I{INCLUDE}", str(libs[0]), f"-Wl,-rpath,{libs[0].parent}")
 
 
 def build() -> Path:
-    """The loader's shared library, built if needed; raises where ``g++``
-    or libjpeg is missing."""
+    """The loader's shared library, built if needed against the first
+    libjpeg with which it links and loads (the compiler's own, else
+    Pillow's); raises where none does."""
     from fdtpu_torch.native.build import gxx_build
 
-    return gxx_build("libfastloader", (LOADER,), ("-shared", "-fPIC", "-ljpeg", "-pthread"),
-                     ".so")
+    errors = []
+    for libjpeg in (system_libjpeg(), bundled_libjpeg()):
+        if libjpeg is None:
+            continue
+        deps = HEADERS if f"-I{INCLUDE}" in libjpeg else ()
+        try:
+            path = gxx_build("libfastloader", (LOADER,), (*LINK, *libjpeg), ".so", deps=deps)
+            ctypes.CDLL(str(path))
+            return path
+        except (RuntimeError, OSError) as e:
+            errors.append(str(e))
+    raise RuntimeError("the native loader links and loads with no libjpeg:\n"
+                       + "\n".join(errors))
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,7 +115,7 @@ def native_available() -> bool:
 def _lib():
     lib = _load()
     if lib is None:
-        raise RuntimeError("the native loader could not be built (g++ and libjpeg)")
+        raise RuntimeError("the native loader could not be built or loaded (g++ and libjpeg)")
     return lib
 
 

@@ -5,9 +5,11 @@ A checkpoint is one file, ``<dir>/step_%08d.pt``, holding the step, the
 module's ``state_dict`` (float32 params) and the optimizer's ``state_dict``
 (Adam's moments and step counts). The train step draws every random number
 from its generator reseeded from ``(seed, step)`` (``train/step.py``), so a
-resumed run continues bit for bit without a generator state. fdtpu's Orbax
-checkpoints need jax to read; their converter is not ported (ROADMAP.md
-queue 1, item 1).
+resumed run continues bit for bit without a generator state. A
+variables-only checkpoint, ``{"step": 0, "module": ...}``, serves
+inference (:func:`restore_variables`). fdtpu's Orbax checkpoints need jax to
+read: ``convert_fdtpu_checkpoint.py`` at the root of the repository turns
+them into either form, where jax is installed.
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ def restore_checkpoint(path: str | Path, template: TrainState) -> TrainState:
     host: ``load_state_dict`` copies each tensor to its param's device, and
     keeps Adam's step counts on the host, where ``torch.optim`` keeps them."""
     ckpt = _load(path, "cpu")
+    if "optimizer" not in ckpt:
+        raise ValueError(f"{path} holds no optimizer state to resume from (a variables-only "
+                         f"checkpoint, keys {sorted(ckpt)}): restore_variables reads it")
     template.module.load_state_dict(ckpt["module"])
     template.optimizer.load_state_dict(ckpt["optimizer"])
     template.step = int(ckpt["step"])

@@ -210,7 +210,8 @@ class ResidentDriver(EpochDriver):
         parts: list[list] = [[], [], []]
         for start in range(0, n_total, batch):
             idx = np.minimum(np.arange(start, start + batch), n - 1)  # BatchLoader padding
-            samples = [src.get(int(i)) for i in idx[rows]]
+            samples = (src.get_batch(idx[rows]) if hasattr(src, "get_batch")
+                       else [src.get(int(i)) for i in idx[rows]])
             for i in range(3):
                 host = torch.from_numpy(np.stack([s[i] for s in samples]))
                 if dev.type == "cuda":

@@ -64,7 +64,7 @@ def sources(roots, tmp_path, rotate_prob, **kw):
     target (an all-zero box: falls back to the previous index) at 2 and an
     unreadable image (logged, neighbor substituted) at 5."""
     made = []
-    for root, cls, extra in ((roots[0], WIDERFaceDataSource, {}),
+    for root, cls, extra in ((roots[0], WIDERFaceDataSource, {"use_native": False}),
                              (roots[1], JaxSource, {"use_native": False})):
         targets = load_targets(root, "train", 10**9)
         targets[2] = dict(targets[2], bbx=np.concatenate(

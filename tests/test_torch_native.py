@@ -6,14 +6,21 @@ for every family, the reference-layout wrap and int8. The port's engine
 serves the port's model as the port's float32 predict does, within the
 tolerance of ``tests/test_native_infer.py`` (atol 2e-3, rtol 1e-4 on the
 kept rows, counts equal); the numpy interpreter follows the engine op by
-op; the CLI serves a JPEG; the loader decodes as PIL does, roughly.
+op; the CLI serves a JPEG; the loader decodes as PIL does, roughly, and
+builds against the compiler's libjpeg (with an rpath to it) or against the
+libjpeg-turbo of Pillow's wheel, with the same bytes. The data source at its
+default decoder (the loader, where it loads) equals fdtpu's bit for bit:
+``get``, ``get_batch`` with its neighbour substitution, and the
+``BatchLoader``'s batches.
 """
 
 import copy
 import functools
+import io
 import json
 import struct
 import subprocess
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -415,3 +422,191 @@ def test_loader_is_unavailable_where_it_cannot_load(tmp_path, monkeypatch, jpegs
             loader.decode_resize(jpegs[0].read_bytes(), 64, 64)
     finally:
         loader._load.cache_clear()
+
+
+def test_loader_builds_against_pillows_libjpeg_alike():
+    """Where the compiler has no libjpeg of its own, the loader links the
+    libjpeg-turbo of Pillow's wheel through the headers in
+    ``native/include``: here both routes build, and decode the same bytes."""
+    from PIL import Image
+
+    from fdtpu_torch.native import loader
+    from fdtpu_torch.native.build import gxx_build
+
+    bundled = loader.bundled_libjpeg()
+    assert bundled is not None and f"-I{loader.INCLUDE}" in bundled
+    lib = Path(bundled[1])
+    assert lib.parent.name == "pillow.libs" and ".so.62" in lib.name
+    assert bundled[2] == f"-Wl,-rpath,{lib.parent}"
+    path = gxx_build("libfastloader", (loader.LOADER,), (*loader.LINK, *bundled), ".so",
+                     deps=loader.HEADERS)
+    assert path != loader.build()
+    needed = subprocess.run(["readelf", "-d", str(path)], capture_output=True, text=True).stdout
+    assert lib.name in needed and str(lib.parent) in needed  # NEEDED, and its RUNPATH
+    rng = np.random.default_rng(3)
+    blobs = []
+    for w, h in ((1024, 768), (300, 200), (97, 61)):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(buf, "JPEG",
+                                                                              quality=90)
+        blobs.append(buf.getvalue())
+    blobs.append(b"not a jpeg")
+    loader._load.cache_clear()
+    try:
+        want = loader.decode_resize_batch(blobs, 320, 320)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(loader, "build", lambda: path)
+            loader._load.cache_clear()
+            got = loader.decode_resize_batch(blobs, 320, 320)
+    finally:
+        loader._load.cache_clear()
+    assert got[2] == want[2] == 1
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_system_libjpeg_is_linked_with_an_rpath_to_its_directory():
+    """The compiler's own libjpeg comes with an rpath to the directory the
+    linker took it from, so that the dynamic loader finds the same file."""
+    from fdtpu_torch.native import loader
+
+    found = subprocess.run(["g++", "-print-file-name=libjpeg.so"], capture_output=True,
+                           text=True).stdout.strip()
+    assert Path(found).is_absolute()
+    rpath = f"-Wl,-rpath,{Path(found).resolve().parent}"
+    assert loader.system_libjpeg() == ("-ljpeg", rpath)
+    dynamic = subprocess.run(["readelf", "-d", str(loader.build())], capture_output=True,
+                             text=True).stdout
+    assert "libjpeg.so.62" in dynamic and str(Path(found).resolve().parent) in dynamic
+
+
+def test_build_falls_through_to_pillows_libjpeg_where_a_build_does_not_load(tmp_path,
+                                                                          monkeypatch):
+    """A library that links against the compiler's libjpeg but does not
+    load (a stale copy, a libjpeg the loader cannot find) gives way to the
+    build against Pillow's; where none loads, the build raises."""
+    from fdtpu_torch.native import build as nbuild
+    from fdtpu_torch.native import loader
+
+    real, broken = nbuild.gxx_build, tmp_path / "libfastloader.so"
+    broken.write_text("not a shared library")
+    monkeypatch.setattr(nbuild, "gxx_build", lambda stem, sources, args, suffix="", deps=():
+                        broken if "-ljpeg" in args else real(stem, sources, args, suffix, deps))
+    path = loader.build()
+    needed = subprocess.run(["readelf", "-d", str(path)], capture_output=True, text=True).stdout
+    assert path != broken and Path(loader.bundled_libjpeg()[1]).name in needed
+    monkeypatch.setattr(loader, "bundled_libjpeg", lambda: None)
+    with pytest.raises(RuntimeError, match="links and loads with no libjpeg"):
+        loader.build()
+
+
+def test_build_digest_covers_the_headers(tmp_path):
+    from fdtpu_torch.native import build as nbuild
+
+    src, header = tmp_path / "x.cpp", tmp_path / "x.h"
+    src.write_text("int f() { return 1; }\n")
+    header.write_text("#define X 1\n")
+    first = nbuild.output_path("libx", (src,), ("-shared",), deps=(header,))
+    header.write_text("#define X 2\n")
+    assert nbuild.output_path("libx", (src,), ("-shared",), deps=(header,)) != first
+    assert nbuild.output_path("libx", (src,), ("-shared",)) != first
+
+
+# -- the native feed -------------------------------------------------------------------------
+
+
+def native_sources(tmp_path, n=6, **kw):
+    """fdtpu's source and the port's, each at its default decoder, over its
+    own byte-identical copy of a synthetic dataset."""
+    from fdtpu.data import WIDERFaceDataSource as JaxSource
+    from fdtpu.data import load_targets as jax_load_targets
+    from fdtpu.data import make_synthetic_widerface as jax_make_synthetic
+    from fdtpu_torch.data import WIDERFaceDataSource, load_targets, make_synthetic_widerface
+
+    jroot = jax_make_synthetic(tmp_path / "fdtpu", num_images=n, max_faces=2)
+    root = make_synthetic_widerface(tmp_path / "port", num_images=n, max_faces=2)
+    jt, t = jax_load_targets(jroot, "train", max_faces=3), load_targets(root, "train", max_faces=3)
+    return (JaxSource(jt, (160, 160), box_capacity=4, error_log=None, **kw),
+            WIDERFaceDataSource(t, (160, 160), box_capacity=4, error_log=None, **kw))
+
+
+def test_source_decodes_natively_where_the_loader_builds(tmp_path):
+    """``use_native=None`` is fdtpu's rule: the loader where it loads (here),
+    and a JPEG then decodes through it, not through PIL."""
+    from PIL import Image
+
+    from fdtpu_torch.native import decode_resize, native_available
+
+    jsrc, src = native_sources(tmp_path, n=2)
+    assert native_available() and src.use_native is jsrc.use_native is True
+    path = src.targets[0]["img_path"]
+    img, dims = src._decode(path)
+    want = decode_resize(Path(path).read_bytes(), 160, 160)
+    np.testing.assert_array_equal(img, want[0])
+    assert dims == want[1]
+    _, plain = native_sources(tmp_path / "pil", n=2, use_native=False)
+    pil = np.asarray(Image.open(path).convert("RGB").resize((160, 160), Image.BILINEAR))
+    np.testing.assert_array_equal(plain._decode(path)[0], pil)
+    assert not np.array_equal(img, pil)  # the two decoders differ
+
+
+def test_native_source_equals_fdtpus(tmp_path):
+    """``get`` and ``get_batch`` of the port's source equal fdtpu's bit for
+    bit at the default decoder, misses and RAM-cache hits alike, with host
+    rotation on (its draws follow the same order)."""
+    jsrc, src = native_sources(tmp_path, rotate_prob=0.5, seed=3)
+    for idx in ([0, 1, 2, 3], [4, 5, 0, 1], [5, 2, 4, 3]):  # misses first, then the cache
+        for g, w in zip(src.get_batch(idx), jsrc.get_batch(idx)):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+    for i in range(len(src)):
+        for a, b in zip(src.get(i), jsrc.get(i)):
+            np.testing.assert_array_equal(a, b)
+    _, fresh = native_sources(tmp_path / "fresh", cache_decoded=False)
+    for g, w in zip(fresh.get_batch(range(6)), [fresh.get(i) for i in range(6)]):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_native_batch_loader_equals_fdtpus(tmp_path, monkeypatch):
+    """The port's ``BatchLoader`` makes each batch through one threaded
+    ``decode_resize_batch`` call, and its batches equal fdtpu's."""
+    import fdtpu_torch.native as native_pkg
+    from fdtpu.data import BatchLoader as JaxBatchLoader
+    from fdtpu_torch.data import BatchLoader
+
+    jsrc, src = native_sources(tmp_path)
+    calls = []
+    real = native_pkg.decode_resize_batch
+
+    def spy(blobs, h, w, num_threads=0):
+        calls.append(len(blobs))
+        return real(blobs, h, w, num_threads)
+
+    monkeypatch.setattr(native_pkg, "decode_resize_batch", spy)
+    for _ in range(2):  # the second epoch reads the RAM cache
+        got = list(BatchLoader(src, batch_size=4, shuffle=True, seed=1))
+        want = list(JaxBatchLoader(jsrc, batch_size=4, shuffle=True, seed=1))
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            for field in ("images", "boxes", "box_mask", "sample_mask"):
+                np.testing.assert_array_equal(getattr(g, field), getattr(w, field))
+    assert calls == [4, 2]  # one native call a batch, none once cached
+
+
+def test_get_batch_substitutes_a_neighbour_for_a_corrupt_jpeg(tmp_path):
+    """fdtpu's ``tests/test_native.py`` case: a slot whose bytes are not a
+    JPEG takes its neighbour's sample and is logged, as fdtpu's does."""
+    jsrc, src = native_sources(tmp_path, n=4)
+    for s, log in ((jsrc, "fdtpu.log"), (src, "port.log")):
+        s.targets[2]["img_path"].write_bytes(b"not a jpeg at all")
+        s.error_log = str(tmp_path / log)
+    got, want = src.get_batch([0, 1, 2, 3]), jsrc.get_batch([0, 1, 2, 3])
+    neighbour = src.get(1)
+    for a, b, c in zip(got[2], want[2], neighbour):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+    assert (tmp_path / "port.log").read_text().split(",")[0] == "2"
+    assert (tmp_path / "fdtpu.log").read_text().split(",")[0] == "2"

@@ -416,7 +416,7 @@ def test_trainer_matches_fdtpu(params, tmp_path, monkeypatch):
                                                 log_path=str(tmp_path / "jl" / "out.log")),
                     jtrain, jval, augment=False, nms_params=NMS, run_name="fdtpu")
     train, val = loaders(make_dataset(tmp_path / "port_data", make_synthetic_widerface),
-                         WIDERFaceDataSource, BatchLoader, load_targets)
+                         WIDERFaceDataSource, BatchLoader, load_targets, use_native=False)
     assert len(train) == len(jtrain) == 2  # a quarter of 32 images, batch 4
     tt = Trainer(converted(params), TrainConfig(**kw, checkpoint_dir=str(tmp_path / "tc"),
                                                 log_path=str(tmp_path / "tl" / "out.log")),

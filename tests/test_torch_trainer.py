@@ -88,7 +88,7 @@ def runs(request, tmp_path_factory):
 
     module = torch_model()
     module.load_state_dict(start)
-    train, val = loaders(root, WIDERFaceDataSource, BatchLoader, load_targets)
+    train, val = loaders(root, WIDERFaceDataSource, BatchLoader, load_targets, use_native=False)
     tt = Trainer(module, TrainConfig(**config_kw(use_sam, tmp, "port")), train, val,
                  augment=False, nms_params=NMS, run_name="port", device="cpu")
     return {"fdtpu": (jt, jt.fit()), "port": (tt, tt.fit()), "tmp": tmp}

@@ -172,7 +172,8 @@ def trainers(tmp_path_factory):
     module = MobileNetV3Backbone((SIZE, SIZE), 3)
     module.load_state_dict(mobilenetv3_state_dict(jax.tree.map(np.asarray, jt.state.params),
                                                   jax.tree.map(np.asarray, jt.state.batch_stats)))
-    train_, val = loaders(tmp / "port_data", WIDERFaceDataSource, BatchLoader, load_targets)
+    train_, val = loaders(tmp / "port_data", WIDERFaceDataSource, BatchLoader, load_targets,
+                          use_native=False)
     tt = Trainer(module, TrainConfig(**config_kw(tmp, "port")), train_, val, augment=False,
                  nms_params=nms, run_name="port", device="cpu")
     return {"fdtpu": (jt, jt.fit()), "port": (tt, tt.fit())}

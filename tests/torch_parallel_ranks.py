@@ -97,7 +97,8 @@ def trainer(rank: int, world: int, inputs: dict) -> dict:
     for resident in (False, True):
         shard = (rank, world)
         srcs = [WIDERFaceDataSource(load_targets(spec["root"], split, 3), spec["size"],
-                                    box_capacity=4, error_log=None) for split in ("train", "val")]
+                                    box_capacity=4, error_log=None, use_native=False)
+                for split in ("train", "val")]
         train = BatchLoader(srcs[0], spec["batch"], process_shard=shard)
         val = BatchLoader(srcs[1], spec["batch"], process_shard=shard)
         work = Path(spec["work"]) / f"{'resident' if resident else 'streamed'}"
