@@ -247,12 +247,43 @@ non-zero; without a CUDA card it fails at once and prints no result):
     seed); host decode ms a batch, PIL against native, medians of 5, cache
     off, at the loader's default threads (``os.cpu_count()`` printed); the
     first-epoch ``BatchLoader`` feed in img/s at b128/320 with each decoder.
-    ``--entry`` runs phases 1, 2 and 20 alone.
+    ``--entry`` runs phases 1, 2 and 20 alone;
+21. the train step captured in a CUDA graph
+    (``fdtpu_torch.train.graphs.CapturedTrainStep``), bf16 compute, SAM +
+    Adam, at full width: PoolResnet-128x10 grid 10 at b8/480 with rotation
+    (the shears in the graph), ``bench.py``'s PoolResnet-128x10 grid 15 at
+    b128/320 with rotation and ``fused_photometric`` (K5 in the graph too),
+    SSD-16 at b24/480 with augmentation off, MobileNetV3-Small grid 15 at
+    b8/480 with rotation (its BatchNorm statistics in the graph): (a) five
+    eager steps and five replays, each from its own copy of the same state,
+    on five batches: losses, grad norms, params, buffers, Adam moments and
+    step counts bit-equal, no wrapper count ticking on a replay, and the
+    kernel launches a replay recorded at the capture times the replays
+    equal to the eager steps' counts, the graph's private pool bytes and
+    its warm-up + capture seconds; (b) the Trainer at ``DetectorConfig()``
+    b8 with rotation on 48 / 16 synthetic images, two epochs, streamed
+    (``steps_per_dispatch`` 1 and 4) and with ``device_data``, each
+    replaying its captured step, bit-equal to the same fits with the
+    captured step taken away, and a replayed fit resumed after its first
+    epoch bit-equal to the straight one (epoch metrics, step, params, Adam
+    moments and steps); then ``fdtpu_torch.bench``'s graph rows with short
+    loops (the captured b128 step, the b128 ``GraphPredict`` with K1
+    inside). ``--graph`` runs phases 1, 2 and 21 alone and adds (c): eager
+    against graph for each model, step ms as the median and range of three
+    runs of 50 steps in turns, img/s, device busy ms over a profiled window
+    of five steps and the idle share of that window (the profiler lengthens
+    it) and of the median (two runs: it can read below 0), kernels and host
+    launch calls a step,
+    and one more train epoch of each 21b fit by the host clock. Phases 14
+    and 16 replay the Trainer's captured step too, and phases 14-16 and 21
+    count the replays' shear and K5 launches (``train/graphs.py``:
+    ``REPLAYED``).
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment,
-spatial and camera paths; a CUDA graph's replays, which launch K1 without its wrapper, are
-counted by the script), error, times, and
+spatial, camera and graph paths; a CUDA graph's replays, which launch K1, the
+shears and K5 without their wrappers, are counted by each graph: the launches
+its capture recorded times its replays), error, times, and
 its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
@@ -325,7 +356,8 @@ from fdtpu_torch.parallel import (
     spatial_plan,
 )
 from fdtpu_torch.parallel import halo as khalo
-from fdtpu_torch.train import Trainer, create_train_state, make_train_step
+from fdtpu_torch.train import CapturedTrainStep, Trainer, create_train_state, make_train_step
+from fdtpu_torch.train import graphs as tgraphs
 from fdtpu_torch.train import step as tstep
 from fdtpu_torch.train.checkpoint import latest_checkpoint
 from fdtpu_torch.train.sam import global_norm
@@ -438,6 +470,17 @@ FEED_JPEG_WH, FEED_QUALITY = (1024, 768), 90  # WIDERFace's image width
 FEED_IMAGES = 256  # two b128 batches a first epoch
 FEED_SHAPES = ((8, 480), (128, 320))  # (batch, side) of the decode timings
 FEED_REPS = 5
+# phase 21: the train step in a CUDA graph; label -> (family, config, batch,
+# TrainConfig fields, augment)
+GRAPH_MODELS = {
+    "poolresnet-b8-480": ("poolresnet", DetectorConfig(), 8, {"rotate_device": True}, True),
+    "poolresnet-b128-320": ("poolresnet", BENCH_CFG, 128,
+                            {"rotate_device": True, "fused_photometric": True}, True),
+    "ssd-b24-480": ("ssd", SSD_CFG, 24, {}, False),
+    "mobilenetv3-b8-480": ("mobilenetv3", ZOO["mobilenetv3"], 8, {"rotate_device": True}, True),
+}
+GRAPH_STEPS = 5
+GRAPH_RUNS, GRAPH_TIMED_STEPS, GRAPH_PROFILED_STEPS = 3, 50, 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -1109,7 +1152,7 @@ def phase_train_path():
     before = {k: [p.detach().clone() for p in st.module.parameters()]
               for k, (st, _, _) in runs.items()}
 
-    krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
+    zero_shear_counts()
     knms.decode_filter_nms_batch.launches = 0
     scalars = {}
     for key, (state, (step, metrics_step), batch) in runs.items():
@@ -1509,7 +1552,7 @@ def phase_photometric_path():
     batch = bench_like_batch(128, 320, "cuda")
 
     kphoto.photometric_batch.launches = 0
-    krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
+    zero_shear_counts()
     losses, counts = [], []
     for _ in range(FUSED_STEPS):
         state, sc = step(state, *batch)
@@ -1674,11 +1717,23 @@ def phase_fused_timings(card, train):
 
 def kernel_counts() -> dict:
     """Every launch count of K1 and the shears (``shear_rows_stacked``: the
-    ``shear_rows`` launches with ``c = 1``, K4's layout, among them)."""
+    ``shear_rows`` launches with ``c = 1``, K4's layout, among them): the
+    wrappers' counts plus the launches of the captured train steps'
+    replays, which pass no wrapper (``train/graphs.py``: ``REPLAYED``)."""
+    replayed = tgraphs.REPLAYED
     return {"decode_filter_nms": knms.decode_filter_nms_batch.launches,
-            "shear_rows": krot.shear_rows.launches,
-            "shear_rows_stacked": krot.shear_rows.stacked_launches,
-            "shear_cols": krot.shear_cols.launches}
+            "shear_rows": krot.shear_rows.launches + replayed["shear_rows"],
+            "shear_rows_stacked": krot.shear_rows.stacked_launches
+            + replayed["shear_rows_stacked"],
+            "shear_cols": krot.shear_cols.launches + replayed["shear_cols"]}
+
+
+def zero_shear_counts() -> None:
+    """Set the shears' counts in :func:`kernel_counts` to 0, the replays'
+    too."""
+    krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
+    for k in ("shear_rows", "shear_rows_stacked", "shear_cols"):
+        tgraphs.REPLAYED[k] = 0
 
 
 def counts_since(start: dict) -> dict:
@@ -1747,8 +1802,12 @@ def phase_trainer(tmp) -> dict:
     want_k1 = TRAINER_EPOCHS * (1 + val_batches)  # the metrics step, then each val batch
     check(fit["decode_filter_nms"] == want_k1,
           f"K1 launched {fit['decode_filter_nms']} times in fit, want {want_k1}")
-    check(fit["shear_rows"] == 2 * steps and fit["shear_cols"] == steps,
-          f"shear launches {fit} over {steps} rotating steps")
+    # the captured step's warm-up bodies rotate too; the replays are counted
+    rotating = steps + trainer.captured_step.warmed
+    check(trainer.captured_step.replays == steps - TRAINER_EPOCHS,
+          f"{trainer.captured_step.replays} replays of {steps} steps")
+    check(fit["shear_rows"] == 2 * rotating and fit["shear_cols"] == rotating,
+          f"shear launches {fit} over {rotating} rotating steps and warm-up bodies")
     logs = tmp / "logs"
     lines = (logs / "out.log").read_text().splitlines()
     records = (logs / "out.jsonl").read_text().splitlines()
@@ -1761,8 +1820,9 @@ def phase_trainer(tmp) -> dict:
     print(f"[14 trainer] fit {TRAINER_EPOCHS} epochs, PoolResnet-128x10 480px grid 10 b8 bf16 "
           f"SAM+Adam, rotation on the card, {n_train} train / {n_val} val synthetic images: "
           f"train {out['train']}, val {out['val']}; params moved up to {moved:.3g}; launches "
-          f"{fit} ({steps} steps, {TRAINER_EPOCHS} metrics steps, {TRAINER_EPOCHS * val_batches} "
-          f"val batches); {len(lines)} log lines, checkpoints {ckpts}")
+          f"{fit} ({steps} steps, {trainer.captured_step.replays} of them CUDA-graph replays, "
+          f"{TRAINER_EPOCHS} metrics steps, {TRAINER_EPOCHS * val_batches} val batches); "
+          f"{len(lines)} log lines, checkpoints {ckpts}")
 
     # resume in a new Trainer from other params: bit-equal state, one epoch more
     train, val = trainer_loaders(root, shuffle=True)
@@ -1803,8 +1863,9 @@ def phase_trainer(tmp) -> dict:
     check(streamed == resident, f"epoch metrics differ: streamed {streamed}, resident {resident}")
     for p, q in zip(ts.state.module.parameters(), tr.state.module.parameters()):
         check(torch.equal(p, q), "resident params differ from streamed")
-    print(f"[14 trainer] resident = streamed, float32, shuffle and augmentation off, "
-          f"deterministic algorithms: epoch metrics and params bit-equal "
+    check(all(t.captured_step.replays for t in (ts, tr)), "a deterministic fit did not replay")
+    print(f"[14 trainer] resident = streamed (both replayed), float32, shuffle and "
+          f"augmentation off, deterministic algorithms: epoch metrics and params bit-equal "
           f"(train loss {streamed['train']['loss']:.6f}, val loss {streamed['val']['loss']:.6f})")
 
     # run_validation_epoch on the saved checkpoint, with AP
@@ -2230,7 +2291,7 @@ def phase_zoo_train():
     before = {name: {k: v.detach().clone() for k, v in st.module.state_dict().items()}
               for name, (st, _, _) in runs.items()}
 
-    krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
+    zero_shear_counts()
     knms.decode_filter_nms_batch.launches = 0
     scalars = {}
     for name, (state, (step, metrics_step), batch) in runs.items():
@@ -2299,8 +2360,10 @@ def phase_zoo_trainer(tmp) -> dict:
               f"non-finite MobileNetV3 epoch metrics {out}")
         # the first batch's drawing, the metrics step, each val batch
         want = 2 + len(trainer.val_loader)
-        check(fit["decode_filter_nms"] == want and fit["shear_rows"] == 2 * steps
-              and fit["shear_cols"] == steps, f"MobileNetV3 Trainer launches {fit}")
+        rotating = steps + trainer.captured_step.warmed  # replays and warm-up bodies
+        check(fit["decode_filter_nms"] == want and fit["shear_rows"] == 2 * rotating
+              and fit["shear_cols"] == rotating and trainer.captured_step.replays == steps - 1,
+              f"MobileNetV3 Trainer launches {fit}")
         ckpt = latest_checkpoint(tmp / "checkpoints" / trainer.run_name)
         check(ckpt is not None and ckpt.name == f"step_{steps:08d}.pt", f"checkpoint {ckpt}")
 
@@ -2459,7 +2522,7 @@ def dp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         state = create_train_state(module, tcfg, 100)
         metrics_step = make_dp_train_step(module, tcfg, compute_metrics=True)
         start = [p.detach().clone() for p in module.parameters()]
-        krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
+        zero_shear_counts()
         knms.decode_filter_nms_batch.launches = 0
         scalars = [metrics_step(state, *batch)[1] for _ in range(DP_STEPS)]
         torch.cuda.synchronize()
@@ -2851,7 +2914,7 @@ def sp_nccl_family(family: str, mesh, device) -> dict:
     state = create_train_state(module, tcfg, 100)
     metrics_step = spatial_step(module, tcfg, augment=augment, compute_metrics=True)
     start = [p.detach().clone() for p in module.parameters()]
-    krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
+    zero_shear_counts()
     knms.decode_filter_nms_batch.launches = 0
     scalars = [metrics_step(state, *batch)[1] for _ in range(SP_STEPS)]
     torch.cuda.synchronize()
@@ -3640,6 +3703,280 @@ def phase_entry(card, tmp) -> int:
     return launches
 
 
+# -- phase 21: the train step in a CUDA graph -------------------------------------
+
+
+def graph_batch(b: int, size: int, seed: int):
+    """A train batch from ``seed``: random u8 frames and one to three faces
+    an image in a padded (B, 4, 5) box array."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 255, size=(b, size, size, 3), dtype=np.uint8)
+    boxes = np.zeros((b, 4, 5), dtype=np.float32)
+    wh = rng.uniform(24, size / 3, (b, 4, 2)).round()
+    boxes[..., 0] = 1.0
+    boxes[..., 1:3] = (rng.uniform(0, 1, (b, 4, 2)) * (size - wh)).round()
+    boxes[..., 3:5] = wh
+    masks = np.arange(4)[None] < rng.integers(1, 4, (b, 1))
+    boxes[~masks] = 0.0
+    return tuple(torch.from_numpy(a).to("cuda") for a in (images, boxes, masks))
+
+
+def graph_counts() -> dict:
+    """The launch counts of the kernels a train step can run, replays
+    included (:func:`kernel_counts`)."""
+    return {**kernel_counts(),
+            "photometric": kphoto.photometric_batch.launches + tgraphs.REPLAYED["photometric"]}
+
+
+def graph_state(label: str):
+    family, cfg, _, kw, _ = GRAPH_MODELS[label]
+    tcfg = TrainConfig(positional_crop=True, seed=SEED, **kw)
+    module = build_model(family, cfg, "cuda", torch.Generator().manual_seed(SEED),
+                         compute_dtype=torch.bfloat16)
+    return create_train_state(module, tcfg, 100, capturable=True), tcfg
+
+
+def state_tensors_named(state) -> list[tuple[str, torch.Tensor]]:
+    """The params, buffers and optimizer state of a train state, named."""
+    out = [(f"param {n}", p.detach()) for n, p in state.module.named_parameters()]
+    out += [(f"buffer {n}", b) for n, b in state.module.named_buffers()]
+    names = {id(p): n for n, p in state.module.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        out += [(f"adam {k} {names[id(p)]}", v) for k, v in st.items()
+                if isinstance(v, torch.Tensor)]
+    return out
+
+
+def graph_vs_eager(label: str) -> dict:
+    """21a for one model: five eager steps and five replays of the captured
+    step, each from its own copy of the same state (both built from the
+    seed), on five batches; returns what differs and the launches."""
+    family, cfg, b, _, augment = GRAPH_MODELS[label]
+    size = cfg.input_shape[0]
+    batches = [graph_batch(b, size, SEED + 100 + i) for i in range(GRAPH_STEPS)]
+    (eager, tcfg), (replayed, _) = graph_state(label), graph_state(label)
+    step = make_train_step(eager.module, tcfg, augment=augment)
+    captured = CapturedTrainStep(make_train_step(replayed.module, tcfg, augment=augment))
+    start = graph_counts()
+    want = [dict(step(eager, *batch)[1]) for batch in batches]
+    torch.cuda.synchronize()
+    eager_launches = {k: v - start[k] for k, v in graph_counts().items()}
+    start = tgraphs.wrapper_counts()
+    got = [dict(captured(replayed, *batch)[1]) for batch in batches]
+    torch.cuda.synchronize()
+    (g,) = captured.graphs.values()
+    warm = {k: start[k] + captured.warmup * g.per_replay[k] for k in start}
+    eager_launches = {k: eager_launches[k] for k in g.per_replay}
+    check(tgraphs.wrapper_counts() == warm, "a replay ticked a wrapper's count")
+    graph_launches = captured.launches()
+    differ = [f"step {i} {k}" for i, (w, g) in enumerate(zip(want, got)) for k in w
+              if not torch.equal(w[k], g[k])]
+    worst = 0.0
+    for (name, a), (_, c) in zip(state_tensors_named(eager), state_tensors_named(replayed)):
+        if not torch.equal(a, c):
+            differ.append(name)
+            worst = max(worst, (a.float() - c.float()).abs().max().item())
+    return {"differ": differ, "worst": worst, "eager_launches": eager_launches,
+            "graph_launches": graph_launches, "per_replay": g.per_replay,
+            "pool_bytes": g.pool_bytes, "capture_s": g.capture_s,
+            "losses": [round(s["loss"].item(), 4) for s in got],
+            "eager": (eager, step), "graph": (replayed, captured), "batch": batches[0]}
+
+
+def graph_milestones() -> None:
+    """21a, the learning rate: Adam and SGD across a milestone (epochs of
+    two steps, the rate times 0.1 from step 2), PoolResnet-128x10 b8/480
+    with rotation: four replays bit-equal to four eager steps; Adam's graph
+    reads the new rate from its tensor, SGD's step is captured again."""
+    family, cfg, b, kw, augment = GRAPH_MODELS["poolresnet-b8-480"]
+    batches = [graph_batch(b, cfg.input_shape[0], SEED + 200 + i) for i in range(4)]
+    for opt in ("adam", "sgd"):
+        tcfg = TrainConfig(positional_crop=True, seed=SEED, optimizer=opt, lr_milestones=(1,), **kw)
+        eager, replayed = (create_train_state(
+            build_model(family, cfg, "cuda", torch.Generator().manual_seed(SEED),
+                        compute_dtype=torch.bfloat16), tcfg, steps_per_epoch=2, capturable=True)
+            for _ in range(2))
+        step = make_train_step(eager.module, tcfg, augment=augment)
+        captured = CapturedTrainStep(make_train_step(replayed.module, tcfg, augment=augment))
+        for batch in batches:
+            step(eager, *batch)
+            captured(replayed, *batch)
+        differ = [n for (n, x), (_, y) in zip(state_tensors_named(eager),
+                                              state_tensors_named(replayed))
+                  if not torch.equal(x, y)]
+        check(not differ, f"{opt} across a milestone: {differ[:4]} differ")
+        recaptured = captured._retired_replays
+        check(captured.replays == 4 and recaptured == (2 if opt == "sgd" else 0),
+              f"{opt}: {captured.replays} replays, {recaptured} before a new capture")
+        rates = [eager.schedule(i) for i in range(4)]
+        print(f"[21 graph] {opt} across a milestone (rates {rates}): 4 replays = 4 eager steps "
+              f"bit for bit; {'captured again at the new rate' if recaptured else 'one graph'}")
+
+
+def graph_times(card: str, label: str, run: dict) -> dict:
+    """21c for one model (``--graph`` only): eager step against replay,
+    GRAPH_RUNS runs of GRAPH_TIMED_STEPS steps each by CUDA events, in
+    turns; then device busy ms and idle share of each under the profiler
+    (``profile_train.measure``): of the profiled window itself, which the
+    profiler lengthens, and of the timed median, which can read below 0.
+    Both arms run the capturable Adam."""
+    from fdtpu_torch.profile_train import measure
+
+    (es, step), (gs, captured), batch = run["eager"], run["graph"], run["batch"]
+    b = batch[0].shape[0]
+    arms = {"eager": lambda: step(es, *batch), "graph": lambda: captured(gs, *batch)}
+    ms = {"eager": [], "graph": []}
+    for _ in range(GRAPH_RUNS):
+        for arm, fn in arms.items():
+            ms[arm].append(event_ms(fn, GRAPH_TIMED_STEPS))
+    prof = {arm: measure(fn, GRAPH_PROFILED_STEPS) for arm, fn in arms.items()}
+    out = {}
+    for arm in arms:
+        med = statistics.median(ms[arm])
+        out[arm] = {"step_ms": med, "range": [min(ms[arm]), max(ms[arm])],
+                    "img_s": b * 1e3 / med, "busy_ms": prof[arm]["busy_ms"],
+                    "idle": prof[arm]["idle"], "idle_unprofiled": 1 - prof[arm]["busy_ms"] / med,
+                    "kernels": prof[arm]["kernels"],
+                    "launch_calls": prof[arm]["launch_calls"]}
+    e, g = out["eager"], out["graph"]
+    print(f"[21 graph] {label}: step ms median (range of {GRAPH_RUNS} x {GRAPH_TIMED_STEPS}) "
+          f"eager {e['step_ms']:.3f} ({ms_range(e['range'])}), graph {g['step_ms']:.3f} "
+          f"({ms_range(g['range'])}); img/s {e['img_s']:.1f} -> {g['img_s']:.1f}; device busy "
+          f"{e['busy_ms']:.3f} / {g['busy_ms']:.3f} ms, idle share of the profiled window "
+          f"{e['idle']:.3f} -> {g['idle']:.3f}, of the median {e['idle_unprofiled']:.3f} -> "
+          f"{g['idle_unprofiled']:.3f}; kernels a step {e['kernels']:.0f} / {g['kernels']:.0f}, host launch "
+          f"calls a step {e['launch_calls']:.0f} / {g['launch_calls']:.0f}; graph pool "
+          f"{run['pool_bytes'] / 2**20:.1f} MiB, warm-up + capture {run['capture_s']:.2f} s "
+          f"[{card}]")
+    return out
+
+
+def graph_trainer_fits(tmp, timings: bool) -> None:
+    """21b: the Trainer's fits on the card, streamed at
+    ``steps_per_dispatch`` 1 and 4 and with ``device_data``, each batch but
+    the metrics one replayed, against the fits with the captured step
+    taken away (eager, the same capturable Adam), and a resume in the
+    middle of a replayed fit against the straight one. With ``timings``
+    one more train epoch of each, by the host clock."""
+    from pathlib import Path
+
+    tmp = Path(tmp)
+    n_train, n_val = TRAINER_IMAGES
+    root = make_synthetic_widerface(tmp / "graph_data", n_train, split="train", seed=SEED)
+    make_synthetic_widerface(root, n_val, split="val", seed=SEED + 1)
+    base = TrainConfig(rotate_device=True, max_epochs=TRAINER_EPOCHS, seed=SEED,
+                       visualize_first_batch=False, log_every_steps=0)
+
+    def fit(name, epochs=TRAINER_EPOCHS, resume=False, eager=False, **kw):
+        cfg = dataclasses.replace(base, checkpoint_dir=str(tmp / f"ckpt_{name}"),
+                                  log_path=str(tmp / f"logs_{name}" / "out.log"), **kw)
+        train, val = trainer_loaders(root, shuffle=True)
+        t = Trainer(trainer_module(SEED), cfg, train, val, run_name=name, device="cuda")
+        check(type(t.driver).__name__ == ("ResidentDriver" if cfg.device_data
+                                          else "StreamedDriver"), f"{name}: {t.driver}")
+        captured = t.captured_step
+        if eager:
+            t.captured_step = None
+        if resume:
+            check(t.maybe_resume(), f"{name}: no checkpoint to resume")
+        out = t.fit(epochs)
+        torch.cuda.synchronize()
+        check((captured.replays == 0) == eager, f"{name}: {captured.replays} replays")
+        return t, out
+
+    def same(a, b, what):
+        (ta, oa), (tb, ob) = a, b
+        check(oa == ob, f"{what}: epoch metrics {oa} against {ob}")
+        check(ta.state.step == tb.state.step, f"{what}: steps {ta.state.step} / {tb.state.step}")
+        for (n, x), (_, y) in zip(state_tensors_named(ta.state), state_tensors_named(tb.state)):
+            check(torch.equal(x, y), f"{what}: {n} differs")
+
+    eager = fit("eager", eager=True)
+    streamed = fit("k1")
+    same(streamed, eager, "the replayed fit (steps_per_dispatch=1) against the eager fit")
+    grouped = fit("k4", steps_per_dispatch=4)
+    same(grouped, eager, "steps_per_dispatch=4 against the eager fit")
+    resident = fit("resident", device_data=True)
+    resident_eager = fit("resident_eager", device_data=True, eager=True)
+    same(resident, resident_eager, "device_data replayed against device_data eager")
+    fit("half", epochs=1)
+    resumed = fit("half", resume=True)
+    same(resumed, streamed, "a replayed fit resumed after one epoch against the straight one")
+    print(f"[21 graph] Trainer fits, PoolResnet-128x10 480px grid 10 b8 bf16 SAM+Adam, rotation "
+          f"on the card, {n_train} / {n_val} synthetic images, {TRAINER_EPOCHS} epochs: "
+          f"streamed replayed at steps_per_dispatch 1 and 4 = eager, device_data replayed = "
+          f"device_data eager, and a replayed fit resumed after epoch 1 = the straight one, bit "
+          f"for bit (epoch metrics, step, params, Adam moments and steps); train "
+          f"{eager[1]['train']}")
+    if not timings:
+        return
+    secs = {}  # one more train epoch of each, a sync at its end
+    for name, (t, _) in (("streamed replayed", streamed), ("eager", eager),
+                         ("resident replayed", resident), ("resident eager", resident_eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train_epoch()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    for (t, _), (u, _) in ((streamed, eager), (resident, resident_eager)):
+        same((t, None), (u, None), "one more epoch")
+    print("[21 graph] one more train epoch, host clock: " + ", ".join(
+        f"{name} {1e3 * v:.1f} ms ({n_train / v:.1f} img/s)" for name, v in secs.items()))
+
+
+def phase_graph(card: str, tmp, timings: bool = False) -> dict:
+    """21: the train step captured in a CUDA graph; ``timings`` (``--graph``)
+    adds 21c. Returns the kernel launches of the phase, the graphs' replays
+    included, and 21c's rows."""
+    t0 = time.perf_counter()
+    phase_start = graph_counts()
+    failures, rows = [], {}
+    for label in GRAPH_MODELS:
+        run = graph_vs_eager(label)
+        if run["differ"]:
+            failures.append(f"{label}: {len(run['differ'])} differ, first "
+                            f"{run['differ'][:4]}, worst {run['worst']:.3g}")
+        if run["graph_launches"] != run["eager_launches"]:
+            failures.append(f"{label}: launches {run['graph_launches']} in the replays against "
+                            f"{run['eager_launches']} eager")
+        print(f"[21 graph] {label}: {GRAPH_STEPS} replays against {GRAPH_STEPS} eager steps "
+              f"from the same state: {'bit-equal' if not run['differ'] else 'DIFFER'} (losses, "
+              f"grad norms, params, buffers, Adam moments and steps); losses {run['losses']}; "
+              f"kernel launches a replay {run['per_replay']}, eager {run['eager_launches']}; "
+              f"graph pool {run['pool_bytes'] / 2**20:.1f} MiB, warm-up + capture "
+              f"{run['capture_s']:.2f} s")
+        if timings:
+            rows[label] = graph_times(card, label, run)
+        del run
+        torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    graph_milestones()
+    graph_trainer_fits(tmp, timings)
+    # bench's graph rows, short loops
+    w = fbench.make_workload("cuda", rotate_device=True)
+    train_iters, infer_iters, latency_iters = BENCH_LOOPS
+    rates = fbench.measure_train_graph(w, train_iters, 1)
+    graph = fbench._graph_predict(w, w["data"][0])
+    infer = [graph(w["data"][0]) for _ in range(infer_iters)]
+    check(all(torch.equal(m, infer[0][1]) for _, m in infer), "GraphPredict b128 masks vary")
+    print(f"[21 graph] bench's graph rows, loops {train_iters} / {infer_iters}: train "
+          f"{rates[0]:.1f} img/s, b128 predict through GraphPredict ({graph.k1_per_replay} K1 "
+          f"a replay)")
+    launches = {k: v - phase_start[k] for k, v in graph_counts().items()}
+    launches["decode_filter_nms"] += graph.k1_per_replay * graph.replays
+    print(f"[21 graph] phase 21 took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return {"launches": launches, "rows": rows}
+
+
+def graph_only() -> None:
+    """``--graph``: the card, the build and phase 21 alone, with 21c's
+    timings."""
+    card, _ = phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_graph(card, tmp, timings=True)
+
+
 def deployment_only() -> None:
     """``--deployment``: the card, the build and phase 18 alone."""
     card, _ = phase_card()
@@ -3704,6 +4041,7 @@ def main() -> None:
         deploy_launches = phase_deploy(card, tmp)
         sp_launches = phase_spatial(card, tmp)
         entry_launches = phase_entry(card, tmp)
+        graph_launches = phase_graph(card, tmp)["launches"]
     k1_recorded_map_bounds()
 
     def entry(meta, launches, err, times, library_ms=None):
@@ -3721,18 +4059,19 @@ def main() -> None:
                         + trainer_launches["decode_filter_nms"] + ssd_launches
                         + zoo_launches["decode_filter_nms"] + dp_launches["decode_filter_nms"]
                         + deploy_launches + sp_launches["decode_filter_nms"]
-                        + entry_launches,
+                        + entry_launches + graph_launches["decode_filter_nms"],
                         worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
     path = (train_launches, photo_launches, trainer_launches, zoo_launches, dp_launches,
-            sp_launches)
+            sp_launches, graph_launches)
     shear_launches = {k: sum(p[k] for p in path) for k in SHEARS}
     shear_launches["shear_rows"] -= shear_launches["shear_rows_stacked"]  # K3a's alone
     for kname, meta in SHEARS.items():
         rows = [r for r in shear_rows if r["name"].split(",")[0] == kname]
         kernels.append({**entry({"name": kname, **meta}, shear_launches[kname], rot_worst[kname],
                                 row_times(rows[0]), rows[0]["library_ms"]), "shapes": rows})
-    kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"], photo_worst,
+    kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"]
+                         + graph_launches["photometric"], photo_worst,
                          fused_times["photometric"]))
     kernels.append({**entry(RESIDUAL_TAIL, tail_launches, 0.0, fused_times["residual_tail"]),
                     "shapes": fused_times["residual_tail_shapes"]})
@@ -3751,5 +4090,7 @@ if __name__ == "__main__":
         spatial_only()
     elif sys.argv[1:] == ["--entry"]:
         entry_only()
+    elif sys.argv[1:] == ["--graph"]:
+        graph_only()
     else:
         main()

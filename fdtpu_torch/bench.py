@@ -19,7 +19,20 @@ The workload is ``bench.py``'s: PoolResnet-128 at 320 px (grid 15), batch
 Each loop is an eager Python loop of ``bench.py``'s length (100, 300 and
 2,000 iterations), timed by CUDA events around the whole loop after
 warmup; each metric is the median of ``REPS`` = 3 such loops, with min and
-max. The loop lengths and reps are arguments of the measuring functions
+max.
+
+``bench.py`` times each loop as one scanned device program, "so per-call
+host dispatch doesn't pollute" the number. Beside the eager rows, which
+keep their keys and meaning, the graph rows are that measurement on the
+card: the train step captured in a CUDA graph
+(``fdtpu_torch.train.graphs.CapturedTrainStep``) replayed 100 times back to
+back (``train_graph_images_per_sec``), and the predict program
+(``export.PredictProgram``: u8 frames, ``/255``, the bf16 forward, K1 at
+0.5 / 0.5 / 64) through ``export.GraphPredict`` at b128
+(``infer_graph_images_per_sec``, 300 replays) and b1
+(``serving_latency_b1_graph_ms``, 2,000 replays of a u8 frame), each with
+its min and max; each replay copies its input in and its outputs out. On
+the CPU the graph rows are null. The loop lengths and reps are arguments of the measuring functions
 (:func:`measure_train`, :func:`measure_infer`, :func:`measure_latency`,
 :func:`run`), whose defaults are these values; the command line does not
 expose them. On the CPU (``--device cpu``, for tests) the host clock times
@@ -30,8 +43,8 @@ of ``bench.py``'s) by the H100 SXM's dense bf16 peak, 989 TFLOP/s. The
 ``vs_baseline`` fields divide by ``bench.py``'s torch-CPU constants.
 
 Prints ONE JSON line with ``bench.py``'s keys, plus ``card`` (nvidia-smi's
-name and power limit), ``serving_latency_b1_ms_min_max`` and
-``rotate_device``.
+name and power limit), ``serving_latency_b1_ms_min_max``,
+``rotate_device`` and the graph rows.
 """
 
 from __future__ import annotations
@@ -44,8 +57,10 @@ import numpy as np
 import torch
 
 from fdtpu_torch.bench_pool_fusion import card_line
+from fdtpu_torch.export.export import GraphPredict, PredictProgram
 from fdtpu_torch.models import Detector, build_model
-from fdtpu_torch.train.state import create_train_state
+from fdtpu_torch.train.graphs import CapturedTrainStep
+from fdtpu_torch.train.state import create_train_state, make_optimizer
 from fdtpu_torch.train.step import make_train_step
 from fdtpu_torch.utils.config import DetectorConfig, TrainConfig
 
@@ -132,7 +147,7 @@ def make_workload(device: torch.device | str = "cuda", rotate_device: bool = Fal
     sample_mask = np.ones((batch,), dtype=bool)
     return {
         "device": device, "size": size, "batch": batch, "filters": filters, "blocks": blocks,
-        "grid": grid, "rotate_device": rotate_device, "state": state,
+        "grid": grid, "rotate_device": rotate_device, "config": config, "state": state,
         "step": make_train_step(module, config, augment=True),
         "data": tuple(torch.from_numpy(a).to(device)
                       for a in (images, boxes, box_mask, sample_mask)),
@@ -193,6 +208,57 @@ def measure_latency(w: dict, iters: int = LATENCY_LOOP, reps: int = REPS) -> lis
     return [1e3 * s / iters for s in _timed(one, iters, reps, w["device"])]
 
 
+def measure_train_graph(w: dict, iters: int = TRAIN_LOOP, reps: int = REPS) -> list[float]:
+    """:func:`measure_train` through the step captured in a CUDA graph
+    (captured at its first call, kept as ``w["captured"]``), replayed back
+    to back. The eager rows' Adam is plain, as the eager data-parallel step's
+    is; the graph needs a capturable one, which starts here from the
+    trained params with fresh moments."""
+    state = w["state"]
+    state.optimizer = make_optimizer(w["config"], state.module.parameters(), capturable=True)
+    captured = w["captured"] = CapturedTrainStep(w["step"])
+    losses = []
+
+    def one():
+        w["state"], scalars = captured(w["state"], *w["data"])
+        losses.append(scalars["loss"])
+
+    for _ in range(WARMUP):
+        one()
+    losses.clear()
+    secs = _timed(one, iters, reps, w["device"])
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise RuntimeError("non-finite loss in the timed graph replays")
+    return [w["batch"] * iters / s for s in secs]
+
+
+def _graph_predict(w: dict, frames: torch.Tensor) -> GraphPredict:
+    """The predict program of the params after training (bf16, K1 at
+    0.5 / 0.5 / 64), captured at ``frames``' shape."""
+    program = PredictProgram(w["state"].module, 0.5, 0.5, CAPACITY, torch.bfloat16)
+    return GraphPredict(program, frames, warmup=WARMUP)
+
+
+def measure_infer_graph(w: dict, iters: int = INFER_LOOP, reps: int = REPS) -> list[float]:
+    """Infer img/s of the b128 u8 frames through :class:`GraphPredict`."""
+    graph = _graph_predict(w, w["data"][0])
+    return [w["batch"] * iters / s
+            for s in _timed(lambda: graph(w["data"][0]), iters, reps, w["device"])]
+
+
+def measure_latency_graph(w: dict, iters: int = LATENCY_LOOP, reps: int = REPS) -> list[float]:
+    """ms of one u8 frame through :class:`GraphPredict` at b1."""
+    frame = w["data"][0][:1]
+    graph = _graph_predict(w, frame)
+    return [1e3 * s / iters for s in _timed(lambda: graph(frame), iters, reps, w["device"])]
+
+
+def _median_range(values: list[float] | None):
+    if values is None:
+        return None, None
+    return float(np.median(values)), [min(values), max(values)]
+
+
 def run(device: torch.device | str = "cuda", rotate_device: bool = False,
         train_iters: int = TRAIN_LOOP, infer_iters: int = INFER_LOOP,
         latency_iters: int = LATENCY_LOOP, reps: int = REPS, **shape) -> dict:
@@ -205,6 +271,12 @@ def run(device: torch.device | str = "cuda", rotate_device: bool = False,
     latency = measure_latency(w, latency_iters, reps)
     dev = w["device"]
     on_card = dev.type == "cuda"
+    graph_train = measure_train_graph(w, train_iters, reps) if on_card else None
+    graph_infer = measure_infer_graph(w, infer_iters, reps) if on_card else None
+    graph_latency = measure_latency_graph(w, latency_iters, reps) if on_card else None
+    graph_train_img_s, graph_train_range = _median_range(graph_train)
+    graph_infer_img_s, graph_infer_range = _median_range(graph_infer)
+    graph_latency_ms, graph_latency_range = _median_range(graph_latency)
     train_img_s, infer_img_s = float(np.median(train)), float(np.median(infer))
     fwd = poolresnet_forward_flops(w["size"], w["filters"], w["blocks"], w["grid"])
     # SAM step = 2 points x (forward + backward); backward ~ 2x forward
@@ -229,6 +301,13 @@ def run(device: torch.device | str = "cuda", rotate_device: bool = False,
         # a CPU run measures no card: no MFU
         "train_mfu": train_img_s * train_per_img / PEAK_BF16_FLOPS if on_card else None,
         "infer_mfu": infer_img_s * fwd / PEAK_BF16_FLOPS if on_card else None,
+        # the graph rows: bench.py's scanned loops on the card (null on the CPU)
+        "train_graph_images_per_sec": graph_train_img_s,
+        "train_graph_img_s_min_max": graph_train_range,
+        "infer_graph_images_per_sec": graph_infer_img_s,
+        "infer_graph_img_s_min_max": graph_infer_range,
+        "serving_latency_b1_graph_ms": graph_latency_ms,
+        "serving_latency_b1_graph_ms_min_max": graph_latency_range,
     }
 
 

@@ -198,10 +198,10 @@ def train_state_from_fdtpu(state, module, config, steps_per_epoch: int = 1000):
     ``batch_stats``; optax Adam or SGD) as the port's train state around
     ``module``: the step, the params and BatchNorm statistics through
     :func:`state_dict_from_fdtpu`, and optax Adam's ``count``, ``mu`` and
-    ``nu`` as ``torch.optim.Adam``'s ``step``, ``exp_avg`` and
-    ``exp_avg_sq``. A step from the result can then be held against a step
-    of fdtpu's state."""
-    from fdtpu_torch.train.state import create_train_state
+    ``nu`` as ``torch.optim.Adam``'s ``step`` (on the card for a card's
+    capturable Adam), ``exp_avg`` and ``exp_avg_sq``. A step from the
+    result can then be held against a step of fdtpu's state."""
+    from fdtpu_torch.train.state import adam_step_count, create_train_state
 
     module.load_state_dict(state_dict_from_fdtpu(state.params, module,
                                                  state.batch_stats or None))
@@ -216,7 +216,7 @@ def train_state_from_fdtpu(state, module, config, steps_per_epoch: int = 1000):
     count = float(np.asarray(adam[0].count))
     for name, p in module.named_parameters():
         ts.optimizer.state[p] = {
-            "step": torch.tensor(count, dtype=torch.float32),
+            "step": adam_step_count(ts.optimizer, p, count),
             "exp_avg": torch.empty_like(p).copy_(mu[name]),
             "exp_avg_sq": torch.empty_like(p).copy_(nu[name]),
         }

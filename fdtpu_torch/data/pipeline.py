@@ -404,6 +404,12 @@ class DevicePrefetcher:
     and each tensor is registered with ``record_stream`` so the caching
     allocator keeps it until that stream is done with it. On
     ``torch.device("cpu")`` the batches become CPU tensors (no copy).
+
+    A train step captured in a CUDA graph (``train/graphs.py``) reads its
+    batch from static buffers: it copies each handed-out batch into them on
+    the compute stream, after the wait on the copy's event, so the feed
+    keeps its one-batch-ahead overlap and the buffers are written only
+    between replays.
     """
 
     def __init__(self, loader, device: torch.device | str):

@@ -6,6 +6,7 @@
     python -m fdtpu_torch.profile_train --model ssd [--batch 24] [--size 480]
     python -m fdtpu_torch.profile_train --model mobilenetv3 [--batch 8] [--size 480]
     python -m fdtpu_torch.profile_train --data-parallel [...]
+    python -m fdtpu_torch.profile_train --graph [...]
 
 Drives ``make_train_step`` at ``bench.py``'s train shape by default
 (PoolResnet-128, 10 blocks, bf16 compute with float32 params, SAM + Adam,
@@ -24,12 +25,25 @@ Prints, beside the card's nvidia-smi name and power limit:
 * ms per step by CUDA events over ``--steps`` steps after warmup, with no
   profiler attached;
 * under ``torch.profiler`` over ``--steps`` more steps: device busy time per
-  step (the union of kernel intervals), the idle share against the
-  unprofiled step time, kernels per step, host and device time of each
+  step (the union of kernel intervals), the idle share of that profiled
+  window (its length by CUDA events; the profiler lengthens it) and of the
+  unprofiled step (two runs, so it can read below 0), kernels per step, host and device time of each
   phase of the step (the ``train/*`` spans of ``fdtpu_torch/train/step.py``;
   device time is the sum of the kernels launched inside the phase, those of
   the backward passes included), device time by kernel class, and the top
   kernels.
+
+``--graph`` adds the graph arm after the eager one: the same step captured
+in a CUDA graph (``fdtpu_torch.train.graphs.CapturedTrainStep``) and
+replayed, with its step ms by CUDA events, device busy ms and idle share,
+and the host's CUDA launch calls a step (kernel launches, graph launches,
+copies and fills) beside the kernels a replay runs on the card. A replay
+passes no ``record_function`` span, so the graph arm has no phase
+breakdown: the graph is one span. It also prints the graph's private pool
+bytes and the seconds its warm-up and capture took. The graph needs a
+capturable Adam (``train/state.py``), which ``--graph`` builds for both
+arms, so that they run the same arithmetic; without it the eager arm's Adam
+is plain, as the data-parallel step's is.
 
 Fails without a CUDA card.
 """
@@ -50,7 +64,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from fdtpu_torch.models import FAMILIES, build_model, ssd_patch_sizes
 from fdtpu_torch.parallel import initialize_multihost, make_dp_train_step, shutdown
-from fdtpu_torch.train import create_train_state, make_train_step
+from fdtpu_torch.train import CapturedTrainStep, create_train_state, make_train_step
 from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 
 # kernel classes, the first match on the lower-cased kernel name wins
@@ -88,7 +102,7 @@ def busy_us(spans) -> float:
 
 
 def setup(batch: int, size: int, grid: int, rotate: bool, fused_photometric: bool = False,
-          model: str = "poolresnet", data_parallel: bool = False):
+          model: str = "poolresnet", data_parallel: bool = False, capturable: bool = False):
     if model == "ssd":
         cfg = SSDConfig(input_shape=(size, size), patch_sizes=ssd_patch_sizes((size, size)))
     else:
@@ -97,7 +111,7 @@ def setup(batch: int, size: int, grid: int, rotate: bool, fused_photometric: boo
                          compute_dtype=torch.bfloat16)
     tcfg = TrainConfig(rotate_device=rotate, positional_crop=True,
                        fused_photometric=fused_photometric)
-    state = create_train_state(module, tcfg, 100)
+    state = create_train_state(module, tcfg, 100, capturable=capturable)
     rng = np.random.default_rng(0)
     images = rng.integers(0, 255, size=(batch, size, size, 3), dtype=np.uint8)
     boxes = np.zeros((batch, 4, 5), dtype=np.float32)
@@ -120,6 +134,8 @@ def main() -> None:
     ap.add_argument("--fused-photometric", action="store_true")
     ap.add_argument("--data-parallel", action="store_true",
                     help="the data-parallel step, in a one-rank NCCL group")
+    ap.add_argument("--graph", action="store_true",
+                    help="add the arm of the step captured in a CUDA graph")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
@@ -145,30 +161,61 @@ def main() -> None:
         shutil.rmtree(rendezvous, ignore_errors=True)
 
 
-def profile_step(args, card: str, ssd: bool) -> None:
-    state, step, data = setup(args.batch, args.size, args.grid, not args.no_rotate,
-                              args.fused_photometric, args.model, args.data_parallel)
-    n = args.steps
+# the host's CUDA runtime and driver calls that put work on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
+
+def measure(run, n: int) -> dict:
+    """``run()`` (one train step) timed ``n`` times by CUDA events with no
+    profiler attached, after 5 warm-up calls, then ``n`` times under
+    ``torch.profiler``: ``step_ms``, ``host_ms`` (profiled, by host
+    clock), ``window_ms`` (profiled, by CUDA events around the same
+    steps), ``busy_ms`` (the union of kernel intervals a step),
+    ``kernel_ms`` (their sum), ``idle`` (1 - busy / window: one window, so
+    it cannot read below 0, but the profiler lengthens it: its host cost
+    an eager step's, its tracing of each kernel a replay's by ~0.5 µs a
+    kernel), ``idle_unprofiled`` (1 - busy / step: free of the profiler's
+    cost, but two runs, so it can read below 0), ``kernels`` and
+    ``launch_calls`` a step, and the profiler's ``events``."""
     for _ in range(5):
-        step(state, *data)
+        run()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n):
-        step(state, *data)
+        run()
     end.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / n
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         for _ in range(n):
-            step(state, *data)
+            run()
+        end.record()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
+    window_ms = start.elapsed_time(end) / n
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False) and not e.name.startswith("train/")]
+    calls = [e for e in events if e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS]
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3 / n
+    return {"step_ms": step_ms, "host_ms": host_ms, "window_ms": window_ms, "busy_ms": busy,
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n,
+            "idle": 1 - busy / window_ms, "idle_unprofiled": 1 - busy / step_ms,
+            "kernels": len(kernels) / n,
+            "launch_calls": len(calls) / n, "events": events, "kernel_events": kernels}
+
+
+def profile_step(args, card: str, ssd: bool) -> None:
+    state, step, data = setup(args.batch, args.size, args.grid, not args.no_rotate,
+                              args.fused_photometric, args.model, args.data_parallel,
+                              capturable=args.graph)
+    n = args.steps
+    eager = measure(lambda: step(state, *data), n)
+    step_ms, host_ms, busy = eager["step_ms"], eager["host_ms"], eager["busy_ms"]
+    kernel_ms, kernels, events = eager["kernel_ms"], eager["kernel_events"], eager["events"]
     spans = [e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("train/")]
     phases = defaultdict(lambda: [0.0, 0.0])
     for e in spans:
@@ -184,8 +231,6 @@ def profile_step(args, card: str, ssd: bool) -> None:
                 if s.time_range.start <= e.time_range.start <= s.time_range.end:
                     phases[s.name][1] += e.device_time_total / 1e3 / n
                     break
-    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3 / n
-    kernel_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
 
     if ssd:
         shape = (f"train SSD-16 b{args.batch} {args.size}px "
@@ -202,7 +247,9 @@ def profile_step(args, card: str, ssd: bool) -> None:
     print(f"step {step_ms:.3f} ms by CUDA events, unprofiled ({args.batch * 1e3 / step_ms:.1f} "
           f"img/s); under the profiler {host_ms:.3f} ms by host clock")
     print(f"device busy {busy:.3f} ms/step (kernels summed {kernel_ms:.3f} ms), idle share "
-          f"{1 - busy / step_ms:.3f} of the unprofiled step; {len(kernels) / n:.0f} kernels/step")
+          f"{eager['idle']:.3f} of the profiled window ({eager['window_ms']:.3f} ms/step by CUDA "
+          f"events), {eager['idle_unprofiled']:.3f} of the unprofiled step; "
+          f"{len(kernels) / n:.0f} kernels/step, {eager['launch_calls']:.0f} host launch calls/step")
     for name, (host, dev) in sorted(phases.items(), key=lambda kv: -kv[1][1]):
         print(f"  phase {name}: host {host:.3f} ms, device {dev:.3f} ms")
     print(f"  outside every phase: device {kernel_ms - sum(d for _, d in phases.values()):.3f} ms")
@@ -216,6 +263,28 @@ def profile_step(args, card: str, ssd: bool) -> None:
         print(f"  class {label}: {us / 1e3 / n:.3f} ms/step ({us / 1e3 / n / kernel_ms:.1%})")
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"  kernel {us / 1e3 / n:7.3f} ms/step x {count / n:5.1f}  {name[:110]}")
+    if args.graph:
+        if args.data_parallel:
+            raise SystemExit("--graph: the data-parallel step is not captured")
+        graph_arm(state, step, data, n, args.batch)
+
+
+def graph_arm(state, step, data, n: int, batch: int) -> dict:
+    """The step captured in a CUDA graph and replayed (``--graph``); prints
+    and returns :func:`measure`'s numbers with the graph's."""
+    captured = CapturedTrainStep(step)
+    sample_mask = torch.ones(data[0].shape[:1], dtype=torch.bool, device=data[0].device)
+    got = measure(lambda: captured(state, *data, sample_mask), n)
+    (g,) = captured.graphs.values()
+    print(f"graph arm: step {got['step_ms']:.3f} ms by CUDA events ({batch * 1e3 / got['step_ms']:.1f} "
+          f"img/s); device busy {got['busy_ms']:.3f} ms/step, idle share {got['idle']:.3f} of the "
+          f"profiled window ({got['window_ms']:.3f} ms/step), {got['idle_unprofiled']:.3f} of the "
+          f"unprofiled step; "
+          f"{got['kernels']:.0f} kernels a replay on the card, {got['launch_calls']:.0f} host "
+          f"launch calls a step; graph pool {g.pool_bytes / 2**20:.1f} MiB, warm-up + capture "
+          f"{g.capture_s:.2f} s; kernel launches a replay {g.per_replay}")
+    return {**{k: v for k, v in got.items() if k not in ("events", "kernel_events")},
+            "pool_bytes": g.pool_bytes, "capture_s": g.capture_s, "per_replay": g.per_replay}
 
 
 if __name__ == "__main__":

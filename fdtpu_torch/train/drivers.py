@@ -2,15 +2,20 @@
 
 * :class:`StreamedDriver` — per-batch host -> device streaming through
   :class:`~fdtpu_torch.data.pipeline.DevicePrefetcher`, one train step a
-  batch.
+  batch: on a card a replay of the Trainer's captured step (a CUDA graph,
+  ``train/graphs.py``); ``steps_per_dispatch`` sets fdtpu's group log
+  cadence (its ``ScanDispatchDriver``).
 * :class:`ResidentDriver` — ``device_data``: the dataset staged once on the
   device as ``(N, H, W, 3)`` u8 tensors plus boxes and masks; each epoch is
-  a permutation on the device and batches are gathered by index.
+  a permutation on the device and batches are gathered by index. On a card
+  without a group or ``nan_check`` every batch replays the captured step,
+  which gathers its rows inside the graph, so the epoch has one host sync,
+  at its end, as fdtpu's epoch is one device program.
 
 Drivers read and write training state through the owning ``Trainer``
-(``state``, ``epoch``, the step functions, ``config``, ``device``, and
-``rank``/``world`` under data parallelism); the Trainer keeps checkpointing,
-step construction, logging and the fit loop.
+(``state``, ``epoch``, the step functions, ``captured_step``, ``config``,
+``device``, and ``rank``/``world`` under data parallelism); the Trainer
+keeps checkpointing, step construction, logging and the fit loop.
 
 Under ``data_parallel`` every rank runs the same driver on its slice of
 each global batch, through the data-parallel steps (their reductions make
@@ -19,11 +24,9 @@ rank's ``BatchLoader(process_shard=...)``; resident, the rank stages its
 slice of every global batch (fdtpu's ``_stage_from_source_multihost``) and
 draws its own real-first permutation of it each epoch (fdtpu's
 ``_device_epoch_sharded``: a stratified shuffle, every global batch taking
-``B / world`` rows from each rank's pool). Only rank 0 draws.
-
-Not ported: ``ScanDispatchDriver`` (``steps_per_dispatch`` batches in one
-``lax.scan``, for the TPU's dispatch cost; the port runs eagerly, one step
-a batch).
+``B / world`` rows from each rank's pool). Only rank 0 draws. The
+data-parallel steps run eagerly (the Trainer holds no captured step there),
+and ``steps_per_dispatch`` > 1 with a group raises in the Trainer.
 """
 
 from __future__ import annotations
@@ -125,22 +128,44 @@ class EpochDriver:
 
 class StreamedDriver(EpochDriver):
     """Per-batch streaming feed (host decode -> prefetch -> one train step a
-    batch); eval has the same shape."""
+    batch); eval has the same shape.
+
+    On a card every batch but the metrics one replays the Trainer's
+    captured step (``t.captured_step``, a CUDA graph: ``train/graphs.py``),
+    as fdtpu runs one compiled dispatch a batch; on the CPU, with
+    ``nan_check`` or under data parallelism the eager step runs.
+    ``steps_per_dispatch`` = k sets the log cadence alone (fdtpu's
+    ``ScanDispatchDriver`` for k > 1): the batches go in fdtpu's groups of
+    k, one log line (a host sync) at the last step of every
+    ``log_every_steps // k``-th group. The final batch is the metrics
+    step's when ``train_metrics`` is on, a group of its own at k = 1
+    (fdtpu's per-batch loop) and of no group for k > 1. A replay copies its
+    batch into the graph's buffers, so no batch waits for its group."""
 
     def train_epoch(self) -> dict:
         t = self.t
+        k = t.config.steps_per_dispatch
+        step = t.captured_step if t.captured_step is not None else t.train_step
         losses = []
         det_metrics: dict = {}
         nb = len(t.train_loader)
+        grouped = nb - (1 if t.config.train_metrics and nb else 0)  # fdtpu's group_target
+        every = t.config.log_every_steps
+        log_groups = max(1, every // k) if every else 0
         for bi, batch in enumerate(DevicePrefetcher(t.train_loader, t.device)):
             args = (batch.images, batch.boxes, batch.box_mask, batch.sample_mask)
             if bi == 0 and t.config.visualize_first_batch:
                 self._visualize_batch(args, f"train_epoch_{t.epoch}")
-            t.state, scalars = self._step(bi == nb - 1)(t.state, *args)
+            if bi < grouped:
+                t.state, scalars = step(t.state, *args)
+            else:
+                t.state, scalars = t._metrics_train_step()(t.state, *args)
+                det_metrics = {key: scalars[key] for key in DETECTION_KEYS}
             losses.append(scalars["loss"])
-            if "iou" in scalars:
-                det_metrics = {k: scalars[k] for k in DETECTION_KEYS}
-            self._log_step(bi, scalars)
+            ends_group = (bi < grouped or k == 1) and ((bi + 1) % k == 0 or bi == grouped - 1)
+            if log_groups and t.primary and ends_group and (bi // k) % log_groups == 0:
+                print(f"epoch {t.epoch} step {bi}: step_loss={float(scalars['loss']):.4f}",
+                      flush=True)
         return _finalize_train_metrics(t, losses, det_metrics)
 
     def eval_epoch(self, loader, split: str) -> dict:
@@ -260,10 +285,17 @@ class ResidentDriver(EpochDriver):
         if t.config.visualize_first_batch:
             self._visualize_batch(rows(0), f"train_epoch_{t.epoch}")
         losses = []
+        captured = t.captured_step
         for i in range(nb):
-            t.state, scalars = self._step(i == nb - 1)(t.state, *rows(i))
+            if captured is not None and not (i == nb - 1 and t.config.train_metrics):
+                # fdtpu's epoch scan: the rows gathered inside the graph, no
+                # per-step log line (each would wait for the card)
+                data = (imgs, boxes, bm, sm)
+                t.state, scalars = captured.gather(t.state, data, perm[i * batch:(i + 1) * batch])
+            else:
+                t.state, scalars = self._step(i == nb - 1)(t.state, *rows(i))
+                self._log_step(i, scalars)
             losses.append(scalars["loss"])
-            self._log_step(i, scalars)
         det = {k: scalars[k] for k in DETECTION_KEYS} if "iou" in scalars else {}
         return _finalize_train_metrics(t, losses, det)
 
@@ -291,7 +323,8 @@ class ResidentDriver(EpochDriver):
 
 
 def make_driver(trainer) -> EpochDriver:
-    """Resolve the feed mode: ``device_data`` -> resident, else streamed."""
+    """Resolve the feed mode as fdtpu does: ``device_data`` wins, then the
+    streamed feed, which takes ``steps_per_dispatch`` as its log cadence."""
     if trainer.config.device_data:
         return ResidentDriver(trainer)
     return StreamedDriver(trainer)

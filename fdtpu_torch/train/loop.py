@@ -30,6 +30,17 @@ normalise by the global batch's statistics. The Trainer broadcasts rank 0's
 initial params and buffers; rank 0 writes the logs, drawings and
 checkpoints, and every rank waits for each checkpoint before it goes on;
 every rank reads the checkpoint on ``maybe_resume``.
+
+Dispatch (fdtpu's jitted step, its ``steps_per_dispatch`` scan and its
+resident epoch scan): on a card, without a data-parallel group (fdtpu's
+mesh) and without ``nan_check``, the Trainer holds :attr:`captured_step`,
+its train step captured in a CUDA graph (``train/graphs.py``) with a
+capturable Adam, which both drivers replay for every batch but the metrics
+step; ``steps_per_dispatch`` sets the streamed feed's log cadence.
+``steps_per_dispatch`` > 1 with ``nan_check`` (anomaly mode checks each
+backward on the host) or a group raises: the data-parallel step under a
+graph is not built yet. On the CPU, with ``nan_check`` or a group the
+eager step runs.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from fdtpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from fdtpu_torch.train.drivers import make_driver
+from fdtpu_torch.train.graphs import CapturedTrainStep
 from fdtpu_torch.train.state import create_train_state
 from fdtpu_torch.train.step import make_eval_step, make_train_step
 from fdtpu_torch.utils.config import TrainConfig
@@ -94,12 +106,19 @@ class Trainer:
             self.config = config
 
         self.group = self._data_parallel_group(config, train_loader, val_loader)
+        if config.steps_per_dispatch > 1 and (config.nan_check or self.group is not None):
+            raise ValueError(
+                f"steps_per_dispatch={config.steps_per_dispatch} groups replays of the captured "
+                "step, which is built neither with nan_check (anomaly mode checks each backward "
+                "on the host) nor under a data-parallel group: use steps_per_dispatch=1 there")
         self.rank = dist.get_rank(self.group) if self.group is not None else 0
         self.world = dist.get_world_size(self.group) if self.group is not None else 1
         self.primary = self.rank == 0  # writes logs, drawings and checkpoints
 
+        # one process on a card replays its step from a CUDA graph
+        replays = self.device.type == "cuda" and self.group is None and not config.nan_check
         self.state = create_train_state(
-            self.module, config, steps_per_epoch=max(len(train_loader), 1))
+            self.module, config, steps_per_epoch=max(len(train_loader), 1), capturable=replays)
         if self.group is not None:
             broadcast_module(self.module, self.group)  # every rank starts from rank 0's
         self._augment = augment
@@ -116,6 +135,8 @@ class Trainer:
         # the first-batch drawings: rank 0's own rows, no collective
         self.local_eval_step = self.eval_step if self.group is None else make_eval_step(
             self.module, nms_params=nms_params, return_boxes=True, **self._loss_kw)
+        # the train step in a CUDA graph, captured at its first replay
+        self.captured_step = CapturedTrainStep(self.train_step) if replays else None
         self.epoch = 0
         self.profile_dir: str | None = None  # set to trace the next train epoch
         # feed mode (streamed / resident) -> one driver

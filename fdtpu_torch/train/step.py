@@ -22,6 +22,12 @@ here it runs eagerly and updates the state in place. Every random choice of
 a step (augmentation and dropout) is drawn from the state's generator
 reseeded from ``(config.seed, step)``, so a step repeats exactly.
 
+A step is a host prologue (reseed the generator, set the learning rate
+from the schedule) and a device body (``step.prologue``, ``step.body``);
+the body of a step without metrics, group or mesh is what
+``train/graphs.py`` captures in a CUDA graph, fdtpu's jit, and replays
+after the same prologue.
+
 BatchNorm state (MobileNetV3): the train step's forwards normalise by the
 batch's statistics and the eval step's by the running ones, whatever
 ``nn.Module.training`` says. The running statistics are updated once a
@@ -106,7 +112,7 @@ from fdtpu_torch.parallel.dp import (
 from fdtpu_torch.parallel.spatial import spatial_forward, spatial_plan
 from fdtpu_torch.train.metrics import detection_metrics
 from fdtpu_torch.train.sam import global_norm, sam_gradients
-from fdtpu_torch.train.state import TrainState
+from fdtpu_torch.train.state import TrainState, set_learning_rate
 from fdtpu_torch.utils.config import TrainConfig
 
 
@@ -250,12 +256,19 @@ def make_train_step(
             return spatial_forward(module, images[:, a:b], plans[h], mesh, masks, train,
                                    update_stats)
 
-    def step(state: TrainState, images, boxes, box_mask, sample_mask=None):
+    def prologue(state: TrainState) -> None:
+        """The step's host part: reseed the generator and set the rate."""
+        state.generator.manual_seed(step_seed(config.seed, state.step, rank))
+        set_learning_rate(state.optimizer, state.schedule(state.step))
+
+    def body(state: TrainState, images, boxes, box_mask, sample_mask) -> dict:
+        """The step's device part, after :func:`prologue`: the params,
+        the optimizer and the BatchNorm statistics change in place; the
+        step count does not. Without metrics, a group or a mesh it makes
+        no host sync and no shape that depends on the data, so a CUDA
+        graph can capture it (``train/graphs.py``)."""
         net = state.module
-        if sample_mask is None:
-            sample_mask = torch.ones(images.shape[:1], dtype=torch.bool, device=images.device)
         gen = state.generator
-        gen.manual_seed(step_seed(config.seed, state.step, rank))
         with record_function("train/augment"):
             imgs, bx, bm = _prepare_inputs(
                 images, boxes, box_mask, gen if augment else None,
@@ -305,13 +318,10 @@ def make_train_step(
 
         with record_function("train/optimizer"):
             opt = state.optimizer
-            for param_group in opt.param_groups:
-                param_group["lr"] = state.schedule(state.step)
             for p, g in zip(params, grads):
                 p.grad = g
             opt.step()
             opt.zero_grad(set_to_none=True)
-            state.step += 1
             scalars = {"loss": loss_sum.detach(), "grad_norm": global_norm(grads)}
 
         if compute_metrics:
@@ -322,8 +332,19 @@ def make_train_step(
                 if group is not None:
                     det = weighted_metric_reduce(scalar_group, det, sample_mask)
                 scalars.update(det)
+        return scalars
+
+    def step(state: TrainState, images, boxes, box_mask, sample_mask=None):
+        if sample_mask is None:
+            sample_mask = torch.ones(images.shape[:1], dtype=torch.bool, device=images.device)
+        prologue(state)
+        scalars = body(state, images, boxes, box_mask, sample_mask)
+        state.step += 1
         return state, scalars
 
+    # what a captured step (train/graphs.py) needs to know and run
+    step.prologue, step.body = prologue, body
+    step.compute_metrics, step.group, step.mesh = compute_metrics, group, mesh
     return step
 
 

@@ -22,11 +22,16 @@ torchrun's group, and N must be its world size (-1 takes it).
 ``--data-parallel -1``. ``--batch-size`` is the global batch; rank 0 writes
 the logs and checkpoints.
 
-Left out: ``--steps-per-dispatch`` (not ported by design: it amortizes the
-TPU's dispatch cost); ``--no-fast-stem`` (the port runs the plain stem,
-whose math the fast stem shares), ``--platform`` (``--device`` names the
-device) and ``--pretrained-backbone official`` (name the checkpoint's
-path). The SSD trains through ``fdtpu_torch.train_model_ssd``.
+On the card (one process) every train batch but the metrics one replays
+the step captured in a CUDA graph, streamed or with ``--device-data``.
+``--steps-per-dispatch K`` groups the streamed batches by K as fdtpu does:
+one log line every ``log_every_steps // K`` groups; with more than one
+process it raises for K > 1.
+
+Left out: ``--no-fast-stem`` (the port runs the plain stem, whose math the
+fast stem shares), ``--platform`` (``--device`` names the device) and
+``--pretrained-backbone official`` (name the checkpoint's path). The SSD
+trains through ``fdtpu_torch.train_model_ssd``.
 """
 
 from __future__ import annotations
@@ -82,6 +87,9 @@ def parse_args(argv=None):
     p.add_argument("--device-data", action="store_true",
                    help="stage the training set on the device once and draw each epoch "
                         "as a permutation there (implies no host rotation)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="train steps a dispatch, fdtpu's groups of streamed batches: the "
+                        "log cadence (each batch replays the captured step on a card)")
     p.add_argument("--rotate-device", action="store_true",
                    help="run the Rotate augmentation on the device (the three-shear "
                         "kernels) instead of host-side PIL")
@@ -134,6 +142,7 @@ def build_trainer(args) -> Trainer:
         rotate_device=args.rotate_device,
         device_data=args.device_data,
         data_parallel=args.data_parallel,
+        steps_per_dispatch=args.steps_per_dispatch,
     )
 
     download_dataset_files(args.data_dir)

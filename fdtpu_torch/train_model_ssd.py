@@ -15,8 +15,10 @@ permutation). Logs go to ``logs/out_<run>.log`` (+ ``.jsonl``,
 
 ``--data-parallel N`` and ``--multihost`` as in ``fdtpu_torch.train_model``
 (fdtpu's SSD entry point has ``--data-parallel`` only; the port gives it
-both). Left out, as there: ``--steps-per-dispatch`` (it amortizes the TPU's
-dispatch cost) and ``--platform`` (``--device`` names the device).
+both), and ``--steps-per-dispatch K``: fdtpu's groups of K streamed
+batches, the log cadence (on a card every batch but the metrics one
+replays the step captured in a CUDA graph, whatever K; one process only
+for K > 1). Left out, as there: ``--platform`` (``--device`` names the device).
 """
 
 from __future__ import annotations
@@ -65,6 +67,8 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--max-train-images", type=int, default=0,
                    help="subset for quick runs (0 = all)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="train steps a dispatch (see fdtpu_torch.train_model)")
     p.add_argument("--device-data", action="store_true",
                    help="stage the training set on the device once; each quarter-epoch is "
                         "drawn there from a fresh permutation")
@@ -105,6 +109,7 @@ def build_trainer(args) -> Trainer:
         checkpoint_dir="checkpoints",
         device_data=args.device_data,
         data_parallel=args.data_parallel,
+        steps_per_dispatch=args.steps_per_dispatch,
     )
 
     download_dataset_files(args.data_dir)

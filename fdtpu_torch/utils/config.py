@@ -65,11 +65,14 @@ class SSDConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The fields of ``fdtpu/utils/config.py:TrainConfig``, with the same
-    defaults (the reference's config of record), but ``steps_per_dispatch``:
-    it exists for the TPU's dispatch cost, and the port runs one step a
-    batch. ``data_parallel``: None, 0 or 1 for one process, ``n > 1`` for
-    ``n`` ranks of a ``torch.distributed`` group, -1 for the group's size
-    (the Trainer checks the group and the batch)."""
+    defaults (the reference's config of record). ``steps_per_dispatch``:
+    fdtpu's k steps in one ``lax.scan``; the port replays the train step
+    captured in a CUDA graph for every batch on a card whatever k, and k
+    groups the streamed batches for the log lines as fdtpu does
+    (``train/drivers.py``: ``StreamedDriver``).
+    ``data_parallel``: None, 0 or 1 for one process, ``n > 1`` for ``n``
+    ranks of a ``torch.distributed`` group, -1 for the group's size (the
+    Trainer checks the group and the batch)."""
 
     learning_rate: float = 1e-4
     optimizer: str = "adam"  # "adam" (reference SAMSGD base) or "sgd"
@@ -90,6 +93,8 @@ class TrainConfig:
     # autograd anomaly detection (fdtpu: jax_debug_nans), see train/loop.py
     nan_check: bool = False
     data_parallel: int | None = None
+    # train steps a dispatch: fdtpu's groups of k streamed batches (its scan)
+    steps_per_dispatch: int = 1
     # stage the whole training set on the card once; each epoch is a
     # permutation on the card (train/drivers.py:ResidentDriver)
     device_data: bool = False
@@ -103,6 +108,8 @@ class TrainConfig:
     fused_photometric: bool = False
 
     def __post_init__(self):
+        if self.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch={self.steps_per_dispatch}: want 1 or more")
         if self.data_parallel is not None and self.data_parallel < -1:
             raise ValueError(f"data_parallel={self.data_parallel}: want None, -1 (the world "
                              "size), 0 or 1 (one process), or a number of ranks")

@@ -149,7 +149,11 @@ def test_bench_gives_bench_py_keys():
     assert {"metric", "value", "vs_baseline", "serving_latency_b1_ms", "train_mfu"} <= want
     r = bench.run("cpu", rotate_device=True, train_iters=2, infer_iters=2, latency_iters=2,
                   reps=2, size=160, batch=4, filters=16, blocks=2, grid=5)
-    assert set(r) == want | {"card", "serving_latency_b1_ms_min_max", "rotate_device"}
+    graph_rows = {"train_graph_images_per_sec", "train_graph_img_s_min_max",
+                  "infer_graph_images_per_sec", "infer_graph_img_s_min_max",
+                  "serving_latency_b1_graph_ms", "serving_latency_b1_graph_ms_min_max"}
+    assert set(r) == want | {"card", "serving_latency_b1_ms_min_max", "rotate_device"} | graph_rows
+    assert all(r[k] is None for k in graph_rows)  # CUDA graphs: the card's rows only
     assert r["metric"] == "train_images_per_sec_per_chip_320px" and r["reps"] == 2
     assert r["device"] == "cpu" and r["card"] is None
     assert r["train_mfu"] is None and r["infer_mfu"] is None  # no card, no MFU

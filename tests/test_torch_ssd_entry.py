@@ -63,7 +63,7 @@ def reference_defaults() -> dict:
 def test_flags_and_defaults_match_train_model_ssd_py():
     got = vars(train_model_ssd.parse_args([]))
     want = reference_defaults()
-    left_out = {"platform", "steps_per_dispatch"}
+    left_out = {"platform"}
     assert set(got) == set(want) - left_out | {"device", "multihost"}
     assert {k: got[k] for k in want if k not in left_out} == {
         k: v for k, v in want.items() if k not in left_out}
