@@ -164,7 +164,19 @@ non-zero; without a CUDA card it fails at once and prints no result):
     rtol 1e-6, update rel. L2 1e-4), then three DP steps with rotation on
     the card and train metrics (K1 once, the shears three times a step);
     the plain and the DP step timed in turns, three runs, and the gradient
-    reduction alone; (b) two gloo ranks on the card (CUDA tensors staged
+    reduction alone; then the DP step captured in a CUDA graph with its
+    NCCL all-reduces (``CapturedTrainStep``), SAM + Adam with rotation on
+    the card: five replays against five eager DP steps, bit-equal (losses,
+    grad norms, params, buffers, Adam moments and steps, and the shears'
+    launches), on PoolResnet-128x10 at b128/320 and on MobileNetV3-Small at
+    b16/480 (its BatchNorm ``pmean`` inside the graph too); the b128 DP step
+    eager, replayed and the replayed plain step in turns (median and range
+    of three runs of 50, device busy ms and idle share by both readings),
+    the graph's pool and capture s; and the Trainer over the world-1 NCCL
+    group (``GroupTrainer``) at ``DetectorConfig()`` b8 with rotation,
+    phase 14's images, two epochs, streamed at ``steps_per_dispatch`` 1 and
+    2 and with ``device_data``, each replaying its DP step, bit-equal to
+    the same fits eager; (b) two gloo ranks on the card (CUDA tensors staged
     through the host), float32 SAM + SGD, against the one-process step on
     the global batch at phase 8's tolerances: PoolResnet-128 at b128/320
     (64 + 64, one padded sample) and SSD-16 at b24/480 (12 + 12, uneven
@@ -210,7 +222,12 @@ non-zero; without a CUDA card it fails at once and prints no result):
     rtol 1e-6, update rel. L2 1e-4), then three steps with the family's
     augmentation (rotation on the card; none for the SSD, as it trains)
     and train metrics (K1 once a step, three shear launches a rotating
-    step); the plain and the spatial step timed in turns, three runs;
+    step); the plain and the spatial step timed in turns, three runs; then
+    the spatial step captured in a CUDA graph (SAM + Adam, rotation on the
+    card but for the SSD): five replays against five eager spatial steps,
+    bit-equal as in 17a, and the spatial step eager and replayed against
+    the replayed plain step, in turns (median and range of three runs of
+    50, of 10 for the eager arm), with the graph's pool and capture s;
     (b) four gloo ranks on the card: a 1 x 2 mesh on ranks 0 and 1, then
     a 2 x 2 mesh on all four, float32 SAM + SGD, global batch 8 with one
     padded sample, each against the one-process step on the global batch
@@ -283,7 +300,8 @@ The line before the last is a JSON object with each kernel's launches (from
 the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment,
 spatial, camera and graph paths; a CUDA graph's replays, which launch K1, the
 shears and K5 without their wrappers, are counted by each graph: the launches
-its capture recorded times its replays), error, times, and
+its capture recorded times its replays, 17a's and 19a's in their ranks too),
+error, times, and
 its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
@@ -439,6 +457,13 @@ DP_STEPS, DP_TIMED_STEPS = 3, 10
 DP_MOBILENET_BATCH = 8  # a rank's
 DP_TRAINER_BATCH = 8  # global: 4 + 4
 DP_TRAINER_IMAGES = (16, 8)  # two steps an epoch, one val batch
+# 17a replayed: the DP step captured with its NCCL collectives, label ->
+# GRAPH_MODELS' tuple (both on fdtpu's shard_map route: rotation on the card)
+DP_GRAPH_MODELS = {
+    "poolresnet-b128-320": ("poolresnet", BENCH_CFG, DP_BATCH, {"rotate_device": True}, True),
+    "mobilenetv3-b16-480": ("mobilenetv3", ZOO["mobilenetv3"], 2 * DP_MOBILENET_BATCH,
+                            {"rotate_device": True}, True),
+}
 # phase 18: deployment
 DEPLOY_SIZE = 480
 DEPLOY_BATCHES = (1, 8)
@@ -457,10 +482,18 @@ K1_RECORDED = (("trained PoolResnet val maps", (8, 100, 64), 2.29),
 SP_RANK_TIMEOUT_S = 600
 SP_BATCH = 8  # 19a's batch and 19b's global batch
 SP_STEPS, SP_TIMED_STEPS = 3, 5
+SP_EAGER_TIMED_STEPS = 10  # 19a replayed: the eager spatial arm's steps a run (host-bound, slow)
 SP_NAMES = {"poolresnet": "PoolResnet-128x10 grid 10", "ssd": "SSD-16",
             "mobilenetv3": "MobileNetV3-Small grid 15", "resnet": "Resnet-64x10 grid 15",
             "separable": "SeparableCNN-128x10 grid 10"}
 SP_FAMILIES = tuple(SP_NAMES)
+# 19a replayed: each family's spatial step on the 1 x 1 mesh captured, as
+# GRAPH_MODELS' tuples (rotation on the card; none for the SSD, as it trains)
+SP_GRAPH_MODELS = {
+    family: (family, {"poolresnet": DetectorConfig(), "ssd": SSD_CFG}.get(family, ZOO.get(family)),
+             SP_BATCH, {} if family == "ssd" else {"rotate_device": True}, family != "ssd")
+    for family in SP_FAMILIES
+}
 # phase 20: the last entry points
 CAMERA_ARGS = ["--filters", "128", "--prob-threshold", "0.5"]  # the README's serving flags
 CAMERA_FRAMES = 30
@@ -689,7 +722,7 @@ def phase_kernel_vs_plain() -> float:
     rng = np.random.default_rng(SEED)
     worst, runs = 0.0, 0
 
-    def same(vals, tables, prob, iou, cap, where):
+    def same_fit(vals, tables, prob, iou, cap, where):
         nonlocal worst, runs
         b = vals.shape[0]
         # the kernel writes every entry: uninitialised outputs full of 0xFF
@@ -712,7 +745,7 @@ def phase_kernel_vs_plain() -> float:
                     vals = candidates(rng, b, n, case)
                     for prob, iou in ((0.5, 0.5), (0.7, 0.01)):
                         where = f"B={b} N={n} cap={cap} {case} {prob}/{iou}"
-                        gm = same(vals, tables, prob, iou, cap, where)
+                        gm = same_fit(vals, tables, prob, iou, cap, where)
                         if case == "saturated" and prob == 0.5 and n / 2 > 1.5 * cap:
                             check(bool(gm.all()), f"not saturated at {where}")
                         if case == "empty":
@@ -720,14 +753,14 @@ def phase_kernel_vs_plain() -> float:
                 # thresholds below -0.5: negative scores, and +0.0 / -0.0 ties
                 for case, prob in (("negative", -0.7), ("signed zeros", -0.3)):
                     vals = candidates(rng, b, n, case)
-                    same(vals, tables, prob, 0.5, cap, f"B={b} N={n} cap={cap} {case} {prob}/0.5")
+                    same_fit(vals, tables, prob, 0.5, cap, f"B={b} N={n} cap={cap} {case} {prob}/0.5")
                 # eligible counts at the edges: capacity, one above it, and
                 # the rank sort's limit of 256 against the bitonic sort's 257
                 for m in (cap, cap + 1, 256, 257):
                     if m > n:
                         continue
                     vals = candidates(rng, b, n, None, eligible=m)
-                    gm = same(vals, tables, 0.5, 0.5, cap, f"B={b} N={n} cap={cap} M={m}")
+                    gm = same_fit(vals, tables, 0.5, 0.5, cap, f"B={b} N={n} cap={cap} M={m}")
                     check(bool((gm.sum(-1) == min(m, cap)).all()), f"M={m} kept != {min(m, cap)}")
     # past the shared-memory limit: the same kernel on global scratch
     large = large_n()
@@ -736,7 +769,7 @@ def phase_kernel_vs_plain() -> float:
             tables = tables_for(n)
             for case in ("random", "saturated", "tie"):
                 vals = candidates(rng, b, n, case)
-                gm = same(vals, tables, 0.5, 0.5, 128, f"B={b} N={n} cap=128 {case} (scratch)")
+                gm = same_fit(vals, tables, 0.5, 0.5, 128, f"B={b} N={n} cap=128 {case} (scratch)")
                 if case == "saturated":
                     check(bool(gm.all()), f"not saturated at B={b} N={n}")
     print(f"[3 kernel=plain] {runs} cases bit-equal (masks, scores, coordinates; outputs "
@@ -971,7 +1004,7 @@ def phase_rotate_vs_plain() -> dict:
     worst = dict.fromkeys(SHEARS, 0.0)
     runs = 0
 
-    def same(got, want, kname, what):
+    def same_fit(got, want, kname, what):
         nonlocal runs
         err = (got.float() - want.float()).abs().max().item()
         worst[kname] = max(worst[kname], err)
@@ -988,18 +1021,18 @@ def phase_rotate_vs_plain() -> dict:
                 cases = [pattern[i : i + 1] for i in range(4)] if b == 1 else [pattern[:b]]
                 for ang in cases:
                     where = f"B={b} S={s} {dtype} angles {[round(a, 4) for a in ang.tolist()[:4]]}"
-                    same(krot.rotate_batch(x, ang), krot.rotate_batch_reference(x, ang),
+                    same_fit(krot.rotate_batch(x, ang), krot.rotate_batch_reference(x, ang),
                          "shear_rows", f"rotate_batch at {where}")
-                    same(krot.rotate_batch_transposed(x, ang),
+                    same_fit(krot.rotate_batch_transposed(x, ang),
                          krot.rotate_batch_transposed_reference(x, ang),
                          "shear_rows_stacked", f"rotate_batch_transposed (K4) at {where}")
                 # every pass on its own, each fed the kernel's previous output
                 planes, k1, k2, center = shear_inputs(x, pattern[:b])
                 p1 = krot.shear_rows(planes, k1, 3, 0, center)
-                same(p1, krot.shear_rows_reference(planes, k1, 3, 0, center), "shear_rows",
+                same_fit(p1, krot.shear_rows_reference(planes, k1, 3, 0, center), "shear_rows",
                      f"shear_rows pass 1 at B={b} S={s} {dtype}")
                 p2 = krot.shear_cols(p1, k2, 3, center)
-                same(p2, krot.shear_cols_reference(p1, k2, 3, center), "shear_cols",
+                same_fit(p2, krot.shear_cols_reference(p1, k2, 3, center), "shear_cols",
                      f"shear_cols pass 2 at B={b} S={s} {dtype}")
     # the shear kernels' edges (SHEAR_EDGES), one plane per k: no shear,
     # +-sin of the limit, and shears steep enough that shear_cols stages a
@@ -1016,10 +1049,10 @@ def phase_rotate_vs_plain() -> dict:
         center = edge_center(rows, row_mod)
         where = f"({len(ks)}, {rows}, {lanes}) c={c} row_mod={row_mod} {dtype} offset {offset}"
         if not row_mod:
-            same(krot.shear_cols(planes, ks, c, center),
+            same_fit(krot.shear_cols(planes, ks, c, center),
                  krot.shear_cols_reference(planes, ks, c, center), "shear_cols",
                  f"shear_cols edges {where}")
-        same(krot.shear_rows(planes, ks, c, row_mod, center),
+        same_fit(krot.shear_rows(planes, ks, c, row_mod, center),
              krot.shear_rows_reference(planes, ks, c, row_mod, center),
              "shear_rows_stacked" if c == 1 else "shear_rows", f"shear_rows edges {where}")
     torch.cuda.synchronize()
@@ -1475,7 +1508,7 @@ def phase_tail_vs_plain() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     runs = 0
 
-    def same(c2, skip, pool, bias, where):
+    def same_fit(c2, skip, pool, bias, where):
         nonlocal runs
         fmt = torch.contiguous_format if c2.is_contiguous() else torch.channels_last
         got = kep.fused_residual_tail(c2, skip, pool=pool, bias=bias)
@@ -1496,15 +1529,15 @@ def phase_tail_vs_plain() -> None:
                     if pool and (shape[2] % 2 or shape[3] % 2):
                         continue
                     for b in (None, bias):
-                        same(c2, skip, pool, b, f"{shape} {dtype} {fmt} pool={pool} "
+                        same_fit(c2, skip, pool, b, f"{shape} {dtype} {fmt} pool={pool} "
                                                 f"bias={b is not None}")
                 # inputs 16-byte misaligned: both (out stays aligned), or c2 alone
                 c2o, skipo, _ = tail_operands(gen, shape, dtype, fmt, offset=1)
                 for pool in (True, False):
                     if pool and (shape[2] % 2 or shape[3] % 2):
                         continue
-                    same(c2o, skipo, pool, bias, f"{shape} {dtype} {fmt} pool={pool} offset 1")
-                    same(c2o, skip, pool, None, f"{shape} {dtype} {fmt} pool={pool} c2 offset 1")
+                    same_fit(c2o, skipo, pool, bias, f"{shape} {dtype} {fmt} pool={pool} offset 1")
+                    same_fit(c2o, skip, pool, None, f"{shape} {dtype} {fmt} pool={pool} c2 offset 1")
     torch.cuda.synchronize()
     print(f"[12 tail=plain] {runs} cases bit-equal (float32 and bfloat16, pooled and "
           f"unpooled, channels_last and contiguous, with and without the bias; C = 12 and 5, "
@@ -2546,14 +2579,90 @@ def dp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
             for name, step in (("plain", plain), ("dp", dp)):
                 times[name].append(step_ms(state, step, batch, DP_TIMED_STEPS))
         reduce_ms = event_ms(lambda: reduce(grads), 20)
+        grad_floats = sum(g.numel() for g in grads)
+        del module, state, plain, dp, grads, metrics_step
+        torch.cuda.empty_cache()
+
+        # replayed: the DP step captured with its collectives, five replays
+        # against five eager DP steps; the b128 step's arms in turns; the
+        # Trainer over this group
+        start = kernel_counts()
+        graph, rows = {}, None
+        for label, spec in DP_GRAPH_MODELS.items():
+            run = graph_vs_eager(spec, make_dp_train_step)
+            failures = graph_failures(f"17a replayed {label}", run)
+            check(not failures, "; ".join(failures))
+            graph[label] = graph_summary(run)
+            if spec[1] is BENCH_CFG:
+                (es, step), (gs, captured), gb = run["eager"], run["graph"], run["batch"]
+                rows = arm_rows({"DP eager": lambda: step(es, *gb),
+                                 "DP graph": lambda: captured(gs, *gb),
+                                 "plain graph": plain_replay(spec, gb)}, DP_BATCH)
+                del es, step, gs, captured, gb
+            del run
+            torch.cuda.empty_cache()
+        fits = dp_trainer_fits(out_dir)
         with open(os.path.join(out_dir, "dp_nccl.json"), "w") as f:
             json.dump({"loss": [l_p, l_d], "loss_err": loss_err, "update_err": upd_err,
                        "worst_tensor": worst, "launches": launches,
                        "metrics": {k: v.item() for k, v in scalars[-1].items()},
                        "times": times, "reduce_ms": reduce_ms,
-                       "grad_floats": sum(g.numel() for g in grads)}, f)
+                       "grad_floats": grad_floats,
+                       "graph": graph, "graph_rows": rows, "trainer": fits,
+                       "graph_launches": counts_since(start)}, f)
     finally:
         shutdown()
+
+
+class GroupTrainer(Trainer):
+    """The Trainer over the default process group whatever its size: at
+    world size 1 ``Trainer`` itself takes no group (one process), and 17a
+    drives the data-parallel path through its world-1 NCCL group."""
+
+    @staticmethod
+    def _data_parallel_group(config, train_loader, val_loader):
+        return dist.group.WORLD
+
+
+def dp_trainer_fits(tmp) -> dict:
+    """17a: ``GroupTrainer`` over the world-1 NCCL group at
+    ``DetectorConfig()`` b8 with rotation on phase 14's 48 / 16 images, two
+    epochs: streamed at ``steps_per_dispatch`` 1 and 2 and with
+    ``device_data``, each replaying its captured DP step (fdtpu's shard_map
+    route), bit-equal to the same fits with the captured step taken away."""
+    from pathlib import Path
+
+    tmp = Path(tmp)
+    n_train, n_val = TRAINER_IMAGES
+    root = make_synthetic_widerface(tmp / "dp_graph_data", n_train, split="train", seed=SEED)
+    make_synthetic_widerface(root, n_val, split="val", seed=SEED + 1)
+    base = TrainConfig(rotate_device=True, max_epochs=TRAINER_EPOCHS, seed=SEED,
+                       visualize_first_batch=False, log_every_steps=0)
+    replays = {}
+
+    def fit(name, eager=False, **kw):
+        cfg = dataclasses.replace(base, checkpoint_dir=str(tmp / f"dp_ckpt_{name}"),
+                                  log_path=str(tmp / f"dp_logs_{name}" / "out.log"), **kw)
+        train, val = trainer_loaders(root, shuffle=True)
+        t = GroupTrainer(trainer_module(SEED), cfg, train, val, run_name=name, device="cuda")
+        captured = t.captured_step
+        check(t.group is dist.group.WORLD and t.route == "shard_map" and captured is not None
+              and captured.step.group is t.group,
+              f"17a {name}: group {t.group}, route {t.route}, captured step {captured}")
+        if eager:
+            t.captured_step = None
+        out = t.fit()
+        torch.cuda.synchronize()
+        replays[name] = captured.replays
+        check((captured.replays == 0) == eager, f"17a {name}: {captured.replays} replays")
+        return t, out
+
+    eager = fit("eager", eager=True)
+    same_fit(fit("k1"), eager, "17a the replayed DP fit against the eager one")
+    same_fit(fit("k2", steps_per_dispatch=2), eager, "17a steps_per_dispatch=2 against eager")
+    same_fit(fit("resident", device_data=True), fit("resident_eager", device_data=True, eager=True),
+             "17a device_data replayed against device_data eager")
+    return {"train": eager[1]["train"], "replays": replays}
 
 
 def dp_against_global(make_module, batch, rank: int, world: int, what: str) -> dict:
@@ -2789,6 +2898,22 @@ def phase_dp(card, tmp) -> dict:
           f"rotation on); the gradient reduction alone (flatten of {a['grad_floats']:,} "
           f"floats, all_reduce, divide) {a['reduce_ms']:.4f} ms [{card}]")
 
+    for label, g in a["graph"].items():
+        print(f"[17a graph] {label} bf16 SAM + Adam, rotation on the card, the DP step over the "
+              f"world-1 NCCL group captured with its all-reduces: {GRAPH_STEPS} replays = "
+              f"{GRAPH_STEPS} eager DP steps bit for bit (losses, grad norms, params, buffers, Adam "
+              f"moments and steps); losses {g['losses']}; kernel launches a replay "
+              f"{g['per_replay']}, eager {g['eager_launches']}; graph pool "
+              f"{g['pool_bytes'] / 2**20:.1f} MiB, warm-up + capture {g['capture_s']:.2f} s")
+    print(f"[17a graph time] PoolResnet-128x10 320px b{DP_BATCH}, rotation on, medians in "
+          f"turns: {arm_line(a['graph_rows'])} [{card}]")
+    t = a["trainer"]
+    print(f"[17a trainer] the Trainer over the world-1 NCCL group (fdtpu's shard_map route), "
+          f"DetectorConfig() b8 bf16, rotation on, {TRAINER_IMAGES[0]} / {TRAINER_IMAGES[1]} "
+          f"images, {TRAINER_EPOCHS} epochs: streamed at steps_per_dispatch 1 and 2 and "
+          f"device_data replayed = the same fits eager, bit for bit; replays {t['replays']}; "
+          f"train {t['train']}")
+
     launch_local_ranks(dp_gloo_rank, 2, args=(tmp, str(root)), timeout=DP_RANK_TIMEOUT_S)
     ranks = []
     for r in range(2):
@@ -2832,7 +2957,7 @@ def phase_dp(card, tmp) -> dict:
           f"(train {c['streamed']['metrics']['train']}, val {c['streamed']['metrics']['val']}); "
           f"K1 {c['streamed']['k1']} + {c['resident']['k1']} launches on each rank; resume from "
           f"rank 0's {c['ckpts']} bit-equal")
-    launches = dict(a["launches"])
+    launches = {k: v + a["graph_launches"][k] for k, v in a["launches"].items()}
     launches["decode_filter_nms"] += sum(r["trainer"]["streamed"]["k1"]
                                          + r["trainer"]["resident"]["k1"] for r in ranks)
     print(f"[17 dp] launches on the DP paths {launches}; phase 17 took "
@@ -2937,10 +3062,27 @@ def sp_nccl_family(family: str, mesh, device) -> dict:
             times[name].append(step_ms(state, step, batch, SP_TIMED_STEPS))
     del module, state, plain, spatial, metrics_step
     torch.cuda.empty_cache()
+
+    # replayed: five replays of the captured spatial step against five eager
+    # spatial steps; the spatial step eager and replayed against the
+    # replayed plain step, in turns
+    spec = SP_GRAPH_MODELS[family]
+    start = kernel_counts()
+    run = graph_vs_eager(spec, spatial_step)
+    failures = graph_failures(f"19a replayed {family}", run)
+    check(not failures, "; ".join(failures))
+    (es, step), (gs, captured), gb = run["eager"], run["graph"], run["batch"]
+    rows = arm_rows({"spatial eager": lambda: step(es, *gb),
+                     "spatial graph": lambda: captured(gs, *gb),
+                     "plain graph": plain_replay(spec, gb)}, SP_BATCH, profiled=False,
+                    steps={"spatial eager": SP_EAGER_TIMED_STEPS})
+    graph = dict(graph_summary(run), rows=rows, launches=counts_since(start))
+    del run, es, step, gs, captured, gb
+    torch.cuda.empty_cache()
     return {"loss": [l_p, l_s], "loss_err": loss_err, "update_err": upd_err,
             "worst_tensor": worst, "launches": launches,
             "metrics": {k: v.item() for k, v in scalars[-1].items()}, "times": times,
-            "augment": augment}
+            "augment": augment, "graph": graph}
 
 
 def sp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
@@ -3163,6 +3305,15 @@ def phase_spatial(card, tmp) -> dict:
         print(f"[19a time] {family}: plain step {p_lo:.3f}-{p_hi:.3f} ms, spatial step (NCCL, "
               f"1 x 1) {s_lo:.3f}-{s_hi:.3f} ms (three runs of {SP_TIMED_STEPS} steps each, in "
               f"turns) [{card}]")
+        g = a["graph"]
+        print(f"[19a graph] {family} b{SP_BATCH} bf16 SAM + Adam, "
+              f"{'rotation on the card' if a['augment'] else 'augmentation off'}, the spatial step "
+              f"on the NCCL 1 x 1 mesh captured: {GRAPH_STEPS} replays = {GRAPH_STEPS} eager "
+              f"spatial steps bit for bit (losses, grad norms, params, buffers, Adam moments and "
+              f"steps); losses {g['losses']}; kernel launches a replay {g['per_replay']}, eager "
+              f"{g['eager_launches']}; graph pool {g['pool_bytes'] / 2**20:.1f} MiB, warm-up + "
+              f"capture {g['capture_s']:.2f} s")
+        print(f"[19a graph time] {family}, medians in turns: {arm_line(g['rows'])} [{card}]")
 
     t1 = time.perf_counter()
     launch_local_ranks(sp_gloo_rank, 4, args=(tmp,), timeout=SP_RANK_TIMEOUT_S)
@@ -3206,7 +3357,8 @@ def phase_spatial(card, tmp) -> dict:
                   f"{ms_range([t for x in on for t in x['step_ms']])} ms a step; collectives "
                   f"{spent}; the one-process step on the global batch "
                   f"{ms_range(b['reference_step_ms'])} ms [{card}]")
-    launches = {k: sum(a["launches"][k] for a in nccl.values()) for k in kernel_counts()}
+    launches = {k: sum(a["launches"][k] + a["graph"]["launches"][k] for a in nccl.values())
+                for k in kernel_counts()}
     print(f"[19 spatial] launches on the spatial paths {launches}; 19a took {t1 - t0:.1f} s, "
           f"19b and 19c {time.perf_counter() - t1:.1f} s, phase 19 "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3728,8 +3880,10 @@ def graph_counts() -> dict:
             "photometric": kphoto.photometric_batch.launches + tgraphs.REPLAYED["photometric"]}
 
 
-def graph_state(label: str):
-    family, cfg, _, kw, _ = GRAPH_MODELS[label]
+def graph_state(spec: tuple):
+    """A capturable state of ``spec`` (a value of :data:`GRAPH_MODELS`)
+    from the seed, and its TrainConfig."""
+    family, cfg, _, kw, _ = spec
     tcfg = TrainConfig(positional_crop=True, seed=SEED, **kw)
     module = build_model(family, cfg, "cuda", torch.Generator().manual_seed(SEED),
                          compute_dtype=torch.bfloat16)
@@ -3747,16 +3901,18 @@ def state_tensors_named(state) -> list[tuple[str, torch.Tensor]]:
     return out
 
 
-def graph_vs_eager(label: str) -> dict:
-    """21a for one model: five eager steps and five replays of the captured
-    step, each from its own copy of the same state (both built from the
-    seed), on five batches; returns what differs and the launches."""
-    family, cfg, b, _, augment = GRAPH_MODELS[label]
+def graph_vs_eager(spec: tuple, make=make_train_step) -> dict:
+    """21a for one model (``spec``, a value of :data:`GRAPH_MODELS`; 17a and
+    19a with ``make`` a data-parallel or spatial step builder): five eager
+    steps and five replays of the captured step, each from its own copy of
+    the same state (both built from the seed), on five batches; returns
+    what differs and the launches."""
+    family, cfg, b, _, augment = spec
     size = cfg.input_shape[0]
     batches = [graph_batch(b, size, SEED + 100 + i) for i in range(GRAPH_STEPS)]
-    (eager, tcfg), (replayed, _) = graph_state(label), graph_state(label)
-    step = make_train_step(eager.module, tcfg, augment=augment)
-    captured = CapturedTrainStep(make_train_step(replayed.module, tcfg, augment=augment))
+    (eager, tcfg), (replayed, _) = graph_state(spec), graph_state(spec)
+    step = make(eager.module, tcfg, augment=augment)
+    captured = CapturedTrainStep(make(replayed.module, tcfg, augment=augment))
     start = graph_counts()
     want = [dict(step(eager, *batch)[1]) for batch in batches]
     torch.cuda.synchronize()
@@ -3781,6 +3937,80 @@ def graph_vs_eager(label: str) -> dict:
             "pool_bytes": g.pool_bytes, "capture_s": g.capture_s,
             "losses": [round(s["loss"].item(), 4) for s in got],
             "eager": (eager, step), "graph": (replayed, captured), "batch": batches[0]}
+
+
+def graph_failures(label: str, run: dict) -> list[str]:
+    """What makes ``run`` (:func:`graph_vs_eager`) fail: a state tensor or
+    scalar that differs, or replays that launch other kernels than the
+    eager steps."""
+    out = []
+    if run["differ"]:
+        out.append(f"{label}: {len(run['differ'])} differ, first {run['differ'][:4]}, worst "
+                   f"{run['worst']:.3g}")
+    if run["graph_launches"] != run["eager_launches"]:
+        out.append(f"{label}: launches {run['graph_launches']} in the replays against "
+                   f"{run['eager_launches']} eager")
+    return out
+
+
+def graph_summary(run: dict) -> dict:
+    """The printed part of a :func:`graph_vs_eager` run."""
+    return {k: run[k] for k in ("losses", "per_replay", "eager_launches", "pool_bytes",
+                                "capture_s")}
+
+
+def plain_replay(spec: tuple, batch):
+    """One replay of the one-process step of ``spec`` captured on its own
+    state, on ``batch``: the arm the data-parallel and spatial replays are
+    timed against."""
+    state, tcfg = graph_state(spec)
+    captured = CapturedTrainStep(make_train_step(state.module, tcfg, augment=spec[4]))
+    return lambda: captured(state, *batch)
+
+
+def arm_rows(arms: dict, b: int, profiled: bool = True, steps: dict | None = None) -> dict:
+    """Each arm (name -> one step) timed GRAPH_RUNS times over
+    GRAPH_TIMED_STEPS steps (or ``steps[arm]``) by CUDA events, in turns:
+    the median step ms, its range, the steps a run and img/s; with
+    ``profiled`` also device busy ms and idle
+    share under the profiler (``profile_train.measure``), of the profiled
+    window itself, which the profiler lengthens, and of the timed median,
+    which can read below 0, kernels and host launch calls a step."""
+    from fdtpu_torch.profile_train import measure
+
+    steps = {arm: (steps or {}).get(arm, GRAPH_TIMED_STEPS) for arm in arms}
+    ms = {arm: [] for arm in arms}
+    for _ in range(GRAPH_RUNS):
+        for arm, fn in arms.items():
+            ms[arm].append(event_ms(fn, steps[arm]))
+    out = {}
+    for arm, fn in arms.items():
+        med = statistics.median(ms[arm])
+        out[arm] = {"step_ms": med, "range": [min(ms[arm]), max(ms[arm])],
+                    "steps": steps[arm], "img_s": b * 1e3 / med}
+        if profiled:
+            prof = measure(fn, GRAPH_PROFILED_STEPS)
+            out[arm].update({"busy_ms": prof["busy_ms"], "idle": prof["idle"],
+                             "idle_unprofiled": 1 - prof["busy_ms"] / med,
+                             "kernels": prof["kernels"], "launch_calls": prof["launch_calls"]})
+    return out
+
+
+def arm_line(rows: dict) -> str:
+    """The step ms of each arm of :func:`arm_rows`, median (range), and
+    where profiled the busy ms, both idle shares and the kernels and host
+    launch calls a step."""
+    parts = []
+    for arm, r in rows.items():
+        lo, hi = r["range"]
+        part = (f"{arm} {r['step_ms']:.3f} ({lo:.3f}-{hi:.3f}; {GRAPH_RUNS} x {r['steps']}) ms, "
+                f"{r['img_s']:.1f} img/s")
+        if "busy_ms" in r:
+            part += (f", busy {r['busy_ms']:.3f} ms, idle {r['idle']:.3f} of the profiled "
+                     f"window / {r['idle_unprofiled']:.3f} of the median, {r['kernels']:.0f} "
+                     f"kernels / {r['launch_calls']:.0f} host launch calls a step")
+        parts.append(part)
+    return "; ".join(parts)
 
 
 def graph_milestones() -> None:
@@ -3814,30 +4044,11 @@ def graph_milestones() -> None:
 
 
 def graph_times(card: str, label: str, run: dict) -> dict:
-    """21c for one model (``--graph`` only): eager step against replay,
-    GRAPH_RUNS runs of GRAPH_TIMED_STEPS steps each by CUDA events, in
-    turns; then device busy ms and idle share of each under the profiler
-    (``profile_train.measure``): of the profiled window itself, which the
-    profiler lengthens, and of the timed median, which can read below 0.
-    Both arms run the capturable Adam."""
-    from fdtpu_torch.profile_train import measure
-
+    """21c for one model (``--graph`` only): eager step against replay
+    (:func:`arm_rows`). Both arms run the capturable Adam."""
     (es, step), (gs, captured), batch = run["eager"], run["graph"], run["batch"]
-    b = batch[0].shape[0]
-    arms = {"eager": lambda: step(es, *batch), "graph": lambda: captured(gs, *batch)}
-    ms = {"eager": [], "graph": []}
-    for _ in range(GRAPH_RUNS):
-        for arm, fn in arms.items():
-            ms[arm].append(event_ms(fn, GRAPH_TIMED_STEPS))
-    prof = {arm: measure(fn, GRAPH_PROFILED_STEPS) for arm, fn in arms.items()}
-    out = {}
-    for arm in arms:
-        med = statistics.median(ms[arm])
-        out[arm] = {"step_ms": med, "range": [min(ms[arm]), max(ms[arm])],
-                    "img_s": b * 1e3 / med, "busy_ms": prof[arm]["busy_ms"],
-                    "idle": prof[arm]["idle"], "idle_unprofiled": 1 - prof[arm]["busy_ms"] / med,
-                    "kernels": prof[arm]["kernels"],
-                    "launch_calls": prof[arm]["launch_calls"]}
+    out = arm_rows({"eager": lambda: step(es, *batch), "graph": lambda: captured(gs, *batch)},
+                   batch[0].shape[0])
     e, g = out["eager"], out["graph"]
     print(f"[21 graph] {label}: step ms median (range of {GRAPH_RUNS} x {GRAPH_TIMED_STEPS}) "
           f"eager {e['step_ms']:.3f} ({ms_range(e['range'])}), graph {g['step_ms']:.3f} "
@@ -3849,6 +4060,16 @@ def graph_times(card: str, label: str, run: dict) -> dict:
           f"{run['pool_bytes'] / 2**20:.1f} MiB, warm-up + capture {run['capture_s']:.2f} s "
           f"[{card}]")
     return out
+
+
+def same_fit(a, b, what: str) -> None:
+    """Two ``(trainer, fit result)`` pairs bit for bit: the epoch metrics,
+    the step, the params, buffers and Adam state."""
+    (ta, oa), (tb, ob) = a, b
+    check(oa == ob, f"{what}: epoch metrics {oa} against {ob}")
+    check(ta.state.step == tb.state.step, f"{what}: steps {ta.state.step} / {tb.state.step}")
+    for (n, x), (_, y) in zip(state_tensors_named(ta.state), state_tensors_named(tb.state)):
+        check(torch.equal(x, y), f"{what}: {n} differs")
 
 
 def graph_trainer_fits(tmp, timings: bool) -> None:
@@ -3884,24 +4105,17 @@ def graph_trainer_fits(tmp, timings: bool) -> None:
         check((captured.replays == 0) == eager, f"{name}: {captured.replays} replays")
         return t, out
 
-    def same(a, b, what):
-        (ta, oa), (tb, ob) = a, b
-        check(oa == ob, f"{what}: epoch metrics {oa} against {ob}")
-        check(ta.state.step == tb.state.step, f"{what}: steps {ta.state.step} / {tb.state.step}")
-        for (n, x), (_, y) in zip(state_tensors_named(ta.state), state_tensors_named(tb.state)):
-            check(torch.equal(x, y), f"{what}: {n} differs")
-
     eager = fit("eager", eager=True)
     streamed = fit("k1")
-    same(streamed, eager, "the replayed fit (steps_per_dispatch=1) against the eager fit")
+    same_fit(streamed, eager, "the replayed fit (steps_per_dispatch=1) against the eager fit")
     grouped = fit("k4", steps_per_dispatch=4)
-    same(grouped, eager, "steps_per_dispatch=4 against the eager fit")
+    same_fit(grouped, eager, "steps_per_dispatch=4 against the eager fit")
     resident = fit("resident", device_data=True)
     resident_eager = fit("resident_eager", device_data=True, eager=True)
-    same(resident, resident_eager, "device_data replayed against device_data eager")
+    same_fit(resident, resident_eager, "device_data replayed against device_data eager")
     fit("half", epochs=1)
     resumed = fit("half", resume=True)
-    same(resumed, streamed, "a replayed fit resumed after one epoch against the straight one")
+    same_fit(resumed, streamed, "a replayed fit resumed after one epoch against the straight one")
     print(f"[21 graph] Trainer fits, PoolResnet-128x10 480px grid 10 b8 bf16 SAM+Adam, rotation "
           f"on the card, {n_train} / {n_val} synthetic images, {TRAINER_EPOCHS} epochs: "
           f"streamed replayed at steps_per_dispatch 1 and 4 = eager, device_data replayed = "
@@ -3919,7 +4133,7 @@ def graph_trainer_fits(tmp, timings: bool) -> None:
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t0
     for (t, _), (u, _) in ((streamed, eager), (resident, resident_eager)):
-        same((t, None), (u, None), "one more epoch")
+        same_fit((t, None), (u, None), "one more epoch")
     print("[21 graph] one more train epoch, host clock: " + ", ".join(
         f"{name} {1e3 * v:.1f} ms ({n_train / v:.1f} img/s)" for name, v in secs.items()))
 
@@ -3931,14 +4145,9 @@ def phase_graph(card: str, tmp, timings: bool = False) -> dict:
     t0 = time.perf_counter()
     phase_start = graph_counts()
     failures, rows = [], {}
-    for label in GRAPH_MODELS:
-        run = graph_vs_eager(label)
-        if run["differ"]:
-            failures.append(f"{label}: {len(run['differ'])} differ, first "
-                            f"{run['differ'][:4]}, worst {run['worst']:.3g}")
-        if run["graph_launches"] != run["eager_launches"]:
-            failures.append(f"{label}: launches {run['graph_launches']} in the replays against "
-                            f"{run['eager_launches']} eager")
+    for label, spec in GRAPH_MODELS.items():
+        run = graph_vs_eager(spec)
+        failures += graph_failures(label, run)
         print(f"[21 graph] {label}: {GRAPH_STEPS} replays against {GRAPH_STEPS} eager steps "
               f"from the same state: {'bit-equal' if not run['differ'] else 'DIFFER'} (losses, "
               f"grad norms, params, buffers, Adam moments and steps); losses {run['losses']}; "

@@ -9,8 +9,9 @@ statistics and the running statistics are ``pmean``'d afterwards. For a
 model without BatchNorm the two compute the same step; for MobileNetV3
 they do not (one step apart by order 1e-2). fdtpu's Trainer takes
 shard_map's whenever the step launches a Pallas kernel per shard
-(``rotate_device``) or the epoch runs on device-resident data
-(``device_data``), and GSPMD's otherwise: :func:`trainer_route`.
+(``rotate_device``), the epoch runs on device-resident data
+(``device_data``) or a dispatch scans several steps
+(``steps_per_dispatch`` > 1), and GSPMD's otherwise: :func:`trainer_route`.
 
 Every rank here is a process that runs the step on its own slice of the
 batch, and :func:`make_dp_train_step` builds either route
@@ -143,9 +144,10 @@ def batch_norm_over(module: torch.nn.Module, group):
 
 def trainer_route(config) -> str:
     """The route fdtpu's Trainer takes (``fdtpu/train/loop.py``):
-    shard_map's with ``rotate_device`` or ``device_data``, GSPMD's
-    otherwise."""
-    return "shard_map" if config.rotate_device or config.device_data else "gspmd"
+    shard_map's with ``rotate_device``, ``device_data`` or
+    ``steps_per_dispatch`` > 1, GSPMD's otherwise."""
+    shard_map = config.rotate_device or config.device_data or config.steps_per_dispatch > 1
+    return "shard_map" if shard_map else "gspmd"
 
 
 def reduce_loss_sum(group, loss_sum: torch.Tensor, norm: torch.Tensor,

@@ -46,6 +46,18 @@ host seconds of the collectives (the device synchronised before and after
 each): the row exchanges under ``forward`` and ``backward``, a
 :func:`sum_over` under its own ``kind``: the measurement of
 ``chip_smoke.py`` phase 19.
+
+**Under a CUDA graph** (``train/graphs.py``). The tables are host
+constants of the plan, so every buffer's shape follows from the layer's
+geometry alone, never from the data, and nothing here waits for the card
+unless ``timer`` is set, which a capture refuses. Over NCCL each
+``all_reduce`` is a kernel the capture records, and a replay runs the same
+exchanges with the rows then in the buffers. No collective has an empty
+buffer: where no rank reads another's rows (every layer of a 1 x 1 mesh, and
+a 1 x 2 mesh's 1x1 convolutions) :func:`halo` runs none and returns a view,
+and :func:`gather_rows` over one rank returns its input. So on a 1 x 1 mesh
+a replay runs the model's own layers and no row collective; the step's
+collectives there are the gradient and loss reductions over the mesh.
 """
 
 from __future__ import annotations

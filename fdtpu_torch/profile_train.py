@@ -6,7 +6,7 @@
     python -m fdtpu_torch.profile_train --model ssd [--batch 24] [--size 480]
     python -m fdtpu_torch.profile_train --model mobilenetv3 [--batch 8] [--size 480]
     python -m fdtpu_torch.profile_train --data-parallel [...]
-    python -m fdtpu_torch.profile_train --graph [...]
+    python -m fdtpu_torch.profile_train --graph [--data-parallel] [...]
 
 Drives ``make_train_step`` at ``bench.py``'s train shape by default
 (PoolResnet-128, 10 blocks, bf16 compute with float32 params, SAM + Adam,
@@ -43,7 +43,9 @@ breakdown: the graph is one span. It also prints the graph's private pool
 bytes and the seconds its warm-up and capture took. The graph needs a
 capturable Adam (``train/state.py``), which ``--graph`` builds for both
 arms, so that they run the same arithmetic; without it the eager arm's Adam
-is plain, as the data-parallel step's is.
+is plain. ``--data-parallel --graph`` times the data-parallel step in the
+one-rank NCCL group eager against replayed, its two all-reduces a SAM step
+captured in the graph.
 
 Fails without a CUDA card.
 """
@@ -264,8 +266,6 @@ def profile_step(args, card: str, ssd: bool) -> None:
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"  kernel {us / 1e3 / n:7.3f} ms/step x {count / n:5.1f}  {name[:110]}")
     if args.graph:
-        if args.data_parallel:
-            raise SystemExit("--graph: the data-parallel step is not captured")
         graph_arm(state, step, data, n, args.batch)
 
 

@@ -7,10 +7,11 @@
   cadence (its ``ScanDispatchDriver``).
 * :class:`ResidentDriver` — ``device_data``: the dataset staged once on the
   device as ``(N, H, W, 3)`` u8 tensors plus boxes and masks; each epoch is
-  a permutation on the device and batches are gathered by index. On a card
-  without a group or ``nan_check`` every batch replays the captured step,
-  which gathers its rows inside the graph, so the epoch has one host sync,
-  at its end, as fdtpu's epoch is one device program.
+  a permutation on the device and batches are gathered by index. Where the
+  Trainer replays, every batch but the metrics one replays the captured
+  step, which gathers its rows inside the graph, so the epoch has one host
+  sync, at its end, as fdtpu's epoch is one device program; it prints no
+  step line, as fdtpu's epoch scan prints none.
 
 Drivers read and write training state through the owning ``Trainer``
 (``state``, ``epoch``, the step functions, ``captured_step``, ``config``,
@@ -24,9 +25,12 @@ rank's ``BatchLoader(process_shard=...)``; resident, the rank stages its
 slice of every global batch (fdtpu's ``_stage_from_source_multihost``) and
 draws its own real-first permutation of it each epoch (fdtpu's
 ``_device_epoch_sharded``: a stratified shuffle, every global batch taking
-``B / world`` rows from each rank's pool). Only rank 0 draws. The
-data-parallel steps run eagerly (the Trainer holds no captured step there),
-and ``steps_per_dispatch`` > 1 with a group raises in the Trainer.
+``B / world`` rows from each rank's pool). Only rank 0 draws. Over an NCCL
+group on the cards every rank replays its captured data-parallel step, as
+fdtpu scans its ``shard_map``'d step: streamed (fdtpu's
+``ScanDispatchDriver`` under ``shard_map``, with its group log cadence) and
+resident, where each rank's graph gathers its rows by its own permutation.
+Over gloo the data-parallel steps run eagerly.
 """
 
 from __future__ import annotations
@@ -116,24 +120,15 @@ class EpochDriver:
         draw_bbx(batch_args[0][0].cpu().numpy(), pred_boxes[0].cpu().numpy(),
                  mask=pred_mask[0].cpu().numpy(), save_name=save_name)
 
-    def _log_step(self, bi: int, scalars: dict) -> None:
-        """Per-step progress line (the reference's step_loss prog-bar
-        logging, ModelMeta.py:226), throttled: each line waits for the
-        device. Rank 0 prints."""
-        every = self.t.config.log_every_steps
-        if every and self.t.primary and bi % every == 0:
-            print(f"epoch {self.t.epoch} step {bi}: step_loss={float(scalars['loss']):.4f}",
-                  flush=True)
-
 
 class StreamedDriver(EpochDriver):
     """Per-batch streaming feed (host decode -> prefetch -> one train step a
     batch); eval has the same shape.
 
-    On a card every batch but the metrics one replays the Trainer's
-    captured step (``t.captured_step``, a CUDA graph: ``train/graphs.py``),
-    as fdtpu runs one compiled dispatch a batch; on the CPU, with
-    ``nan_check`` or under data parallelism the eager step runs.
+    Where the Trainer replays (``Trainer.replays``) every batch but the
+    metrics one replays its captured step (``t.captured_step``, a CUDA
+    graph: ``train/graphs.py``), as fdtpu runs one compiled dispatch a
+    batch; on the CPU, with ``nan_check`` or over gloo the eager step runs.
     ``steps_per_dispatch`` = k sets the log cadence alone (fdtpu's
     ``ScanDispatchDriver`` for k > 1): the batches go in fdtpu's groups of
     k, one log line (a host sync) at the last step of every
@@ -286,15 +281,13 @@ class ResidentDriver(EpochDriver):
             self._visualize_batch(rows(0), f"train_epoch_{t.epoch}")
         losses = []
         captured = t.captured_step
-        for i in range(nb):
+        for i in range(nb):  # fdtpu's epoch scan: no step line (each would wait for the card)
             if captured is not None and not (i == nb - 1 and t.config.train_metrics):
-                # fdtpu's epoch scan: the rows gathered inside the graph, no
-                # per-step log line (each would wait for the card)
+                # the rows gathered inside the graph
                 data = (imgs, boxes, bm, sm)
                 t.state, scalars = captured.gather(t.state, data, perm[i * batch:(i + 1) * batch])
             else:
                 t.state, scalars = self._step(i == nb - 1)(t.state, *rows(i))
-                self._log_step(i, scalars)
             losses.append(scalars["loss"])
         det = {k: scalars[k] for k in DETECTION_KEYS} if "iou" in scalars else {}
         return _finalize_train_metrics(t, losses, det)

@@ -41,10 +41,25 @@ does not: each graph keeps the launches its capture recorded
 :attr:`Graph.replays`, and every replay adds its launches to
 :data:`REPLAYED`, the count of all graphs' replays by wrapper.
 
-A step with metrics (K1's decode and the metrics' host copy), a
-data-parallel group or a spatial mesh is not captured: those run eagerly.
-On a CPU device a ``CapturedTrainStep`` raises ValueError, and a failed
-capture raises; nothing falls back to the eager step.
+A data-parallel or spatial step (``make_dp_train_step``) is captured with
+its collectives: over an NCCL group each ``dist.all_reduce`` is a kernel on
+NCCL's stream, which the capture records as it records any other, so a
+replay runs the gradient all-reduce at both SAM points, the loss and
+BatchNorm reductions and the spatial row exchanges and gather
+(``parallel/halo.py``) without the host. Every rank of the group captures
+the same collectives in the same order, as every rank runs the same step.
+Before the warm-up each of the step's groups runs one eager all-reduce,
+which makes its NCCL communicator, since none can be made inside a capture.
+A gloo group's collectives run on the host, so a step over one raises, as
+does one with ``parallel.halo.timer`` set (its timing synchronises the card
+around each collective). The prologue folds the rank into the generator's
+seed (``train/step.py``: ``step_seed``), so a rank's replay draws what its
+eager step draws.
+
+A step with metrics (K1's decode and the metrics' host copy) is not
+captured: it runs eagerly. On a CPU device a ``CapturedTrainStep`` raises
+ValueError, and a failed capture raises, naming the rank; nothing falls
+back to the eager step.
 """
 
 from __future__ import annotations
@@ -54,9 +69,11 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from fdtpu_torch.kernels.photometric import photometric_batch
 from fdtpu_torch.kernels.rotate import shear_cols, shear_rows
+from fdtpu_torch.parallel import halo
 from fdtpu_torch.train.state import TrainState, init_optimizer_state, is_capturable
 
 # the wrappers whose launches a graph counts (a captured step has no
@@ -110,9 +127,39 @@ class Graph:
     replays: int = 0
 
 
+def step_groups(step) -> list:
+    """The process groups whose collectives ``step`` runs: its group and,
+    on a mesh, the mesh's data and spatial groups."""
+    if step.group is None:
+        return []
+    groups = [step.group]
+    if step.mesh is not None:
+        groups += [g for g in (step.mesh.data_group, step.mesh.spatial_group)
+                   if g is not None and g not in groups]
+    return groups
+
+
+def check_capturable(step) -> None:
+    """Raise ValueError where ``step`` cannot be captured: it has metrics,
+    it runs over a group whose backend is not NCCL, or
+    ``parallel.halo.timer`` is set."""
+    if step.compute_metrics:
+        raise ValueError("a train step with metrics is not captured (K1's decode and the "
+                         "metrics' host copy run eagerly)")
+    for group in step_groups(step):
+        backend = dist.get_backend(group)
+        if backend != "nccl":
+            raise ValueError(f"a step over a {backend} group is not captured: its collectives "
+                             "run on the host; an NCCL group's are captured")
+    if halo.timer is not None:
+        raise ValueError("parallel.halo.timer synchronises the card around each collective, "
+                         "which a capture cannot: set it to None")
+
+
 class CapturedTrainStep:
-    """``step`` (a ``make_train_step`` without metrics, group or mesh)
-    captured in a CUDA graph per input shape.
+    """``step`` (a ``make_train_step`` or ``make_dp_train_step`` without
+    metrics, over no group or an NCCL one) captured in a CUDA graph per
+    input shape.
 
     ``captured(state, images_u8, boxes, box_mask, sample_mask=None) ->
     (state, scalars)`` is the eager step's contract (clones of ``loss`` and
@@ -124,9 +171,9 @@ class CapturedTrainStep:
     warmup = 2  # body runs before a capture
 
     def __init__(self, step: Callable):
-        if step.compute_metrics or step.group is not None or step.mesh is not None:
-            raise ValueError("only a train step without metrics, group or mesh is captured")
+        check_capturable(step)
         self.step = step
+        self.rank = dist.get_rank(step.group) if step.group is not None else None
         self.graphs: dict[tuple, Graph] = {}
         self._retired = {k: 0 for k in COUNTED}  # launches of graphs an SGD rate replaced
         self._retired_replays = 0
@@ -188,6 +235,14 @@ class CapturedTrainStep:
         return g
 
     def _capture(self, state: TrainState, inputs, feed, lr) -> Graph:
+        check_capturable(self.step)
+        try:
+            return self._warm_and_capture(state, inputs, feed, lr)
+        except Exception as e:
+            where = "" if self.rank is None else f" on rank {self.rank}"
+            raise RuntimeError(f"capturing the train step failed{where}: {e}") from e
+
+    def _warm_and_capture(self, state: TrainState, inputs, feed, lr) -> Graph:
         device = next(state.module.parameters()).device
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(f"torch {torch.__version__} cannot register the step's generator "
@@ -195,10 +250,13 @@ class CapturedTrainStep:
         t0 = time.perf_counter()
         init_optimizer_state(state.optimizer)
         saved = [t.clone() for t in state_tensors(state)]
-        # warm up from the state, on a side stream, then put the state back
+        # warm up from the state, on a side stream, then put the state back;
+        # one eager all-reduce a group first makes its NCCL communicator
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
+            for group in step_groups(self.step):
+                dist.all_reduce(torch.zeros(1, device=device), group=group)
             for _ in range(self.warmup):
                 self.step.prologue(state)
                 self.step.body(state, *feed(inputs))

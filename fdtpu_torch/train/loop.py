@@ -24,23 +24,24 @@ each rank of an initialised ``torch.distributed`` group of that size builds
 its own Trainer on its own device, with loaders built with
 ``process_shard=(rank, world)``, and takes the data-parallel train and eval
 steps (``fdtpu_torch/parallel/dp.py``) by the route fdtpu's Trainer takes
-(``parallel.trainer_route``): shard_map's with ``rotate_device`` or
-``device_data``, GSPMD's otherwise, whose BatchNorms (MobileNetV3's)
-normalise by the global batch's statistics. The Trainer broadcasts rank 0's
-initial params and buffers; rank 0 writes the logs, drawings and
-checkpoints, and every rank waits for each checkpoint before it goes on;
-every rank reads the checkpoint on ``maybe_resume``.
+(``parallel.trainer_route``): shard_map's with ``rotate_device``,
+``device_data`` or ``steps_per_dispatch`` > 1, GSPMD's otherwise, whose
+BatchNorms (MobileNetV3's) normalise by the global batch's statistics. The
+Trainer broadcasts rank 0's initial params and buffers; rank 0 writes the
+logs, drawings and checkpoints, and every rank waits for each checkpoint
+before it goes on; every rank reads the checkpoint on ``maybe_resume``.
 
 Dispatch (fdtpu's jitted step, its ``steps_per_dispatch`` scan and its
-resident epoch scan): on a card, without a data-parallel group (fdtpu's
-mesh) and without ``nan_check``, the Trainer holds :attr:`captured_step`,
-its train step captured in a CUDA graph (``train/graphs.py``) with a
-capturable Adam, which both drivers replay for every batch but the metrics
-step; ``steps_per_dispatch`` sets the streamed feed's log cadence.
-``steps_per_dispatch`` > 1 with ``nan_check`` (anomaly mode checks each
-backward on the host) or a group raises: the data-parallel step under a
-graph is not built yet. On the CPU, with ``nan_check`` or a group the
-eager step runs.
+resident epoch scan, under ``shard_map`` too): the Trainer replays its
+train step from a CUDA graph (:attr:`captured_step`, ``train/graphs.py``,
+with a capturable Adam) wherever the card can (:meth:`Trainer.replays`): on
+a card, without ``nan_check``, and with no data-parallel group or an NCCL
+one, whose collectives the graph captures. Both drivers replay it for
+every batch but the metrics step. The eager step runs on the CPU, under
+``nan_check`` (anomaly mode checks each backward on the host) and over a
+gloo group (its collectives run on the host): a rule of the configuration,
+not a fallback on failure. ``steps_per_dispatch`` sets the streamed feed's
+group log cadence, fdtpu's, whichever step runs.
 """
 
 from __future__ import annotations
@@ -106,17 +107,11 @@ class Trainer:
             self.config = config
 
         self.group = self._data_parallel_group(config, train_loader, val_loader)
-        if config.steps_per_dispatch > 1 and (config.nan_check or self.group is not None):
-            raise ValueError(
-                f"steps_per_dispatch={config.steps_per_dispatch} groups replays of the captured "
-                "step, which is built neither with nan_check (anomaly mode checks each backward "
-                "on the host) nor under a data-parallel group: use steps_per_dispatch=1 there")
         self.rank = dist.get_rank(self.group) if self.group is not None else 0
         self.world = dist.get_world_size(self.group) if self.group is not None else 1
         self.primary = self.rank == 0  # writes logs, drawings and checkpoints
 
-        # one process on a card replays its step from a CUDA graph
-        replays = self.device.type == "cuda" and self.group is None and not config.nan_check
+        replays = self.replays(self.device, config, self.group)
         self.state = create_train_state(
             self.module, config, steps_per_epoch=max(len(train_loader), 1), capturable=replays)
         if self.group is not None:
@@ -141,6 +136,13 @@ class Trainer:
         self.profile_dir: str | None = None  # set to trace the next train epoch
         # feed mode (streamed / resident) -> one driver
         self.driver = make_driver(self)
+
+    @staticmethod
+    def replays(device: torch.device, config: TrainConfig, group) -> bool:
+        """Whether the Trainer replays its train step from a CUDA graph: on
+        a card, without ``nan_check``, over no group or an NCCL one."""
+        return (device.type == "cuda" and not config.nan_check
+                and (group is None or dist.get_backend(group) == "nccl"))
 
     @staticmethod
     def _data_parallel_group(config: TrainConfig, train_loader, val_loader):

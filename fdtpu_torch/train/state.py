@@ -10,9 +10,9 @@ A state whose step is replayed from a CUDA graph (``train/graphs.py``) has
 its optimizer built ``capturable``: Adam's learning rate is then a 0-d
 float32 tensor on the card that :func:`set_learning_rate` fills before each
 step, and its ``step`` counts on the card. The Trainer asks for it where it
-replays (one process on a card, without ``nan_check``); every other state,
-the data-parallel and spatial ones among them, keeps ``torch.optim``'s
-defaults, whose eager update launches fewer kernels. SGD keeps a float rate
+replays (on a card, without ``nan_check``, over no group or an NCCL one:
+``Trainer.replays``); every other state keeps ``torch.optim``'s defaults,
+whose eager update launches fewer kernels. SGD keeps a float rate
 either way, which its update passes to the card as a host scalar: a
 captured SGD step is captured again when the rate changes.
 """

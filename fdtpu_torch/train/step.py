@@ -24,7 +24,7 @@ reseeded from ``(config.seed, step)``, so a step repeats exactly.
 
 A step is a host prologue (reseed the generator, set the learning rate
 from the schedule) and a device body (``step.prologue``, ``step.body``);
-the body of a step without metrics, group or mesh is what
+the body of a step without metrics, over no group or an NCCL one, is what
 ``train/graphs.py`` captures in a CUDA graph, fdtpu's jit, and replays
 after the same prologue.
 
@@ -38,8 +38,8 @@ drops the perturbed forward's.
 Data parallelism: with a ``group`` (a ``torch.distributed`` process group)
 each rank runs the step on its slice of the global batch, by one of fdtpu's
 two routes (``fdtpu_torch/parallel/dp.py``). The Trainer takes the route
-fdtpu's Trainer takes: shard_map's with ``rotate_device`` or
-``device_data``, GSPMD's otherwise (``parallel.trainer_route``).
+fdtpu's Trainer takes: shard_map's with ``rotate_device``, ``device_data``
+or ``steps_per_dispatch`` > 1, GSPMD's otherwise (``parallel.trainer_route``).
 
 * shard_map's (``route="shard_map"``, fdtpu's per-shard ``axis_name``
   body): the gradients are all-reduced by fdtpu's weighted form inside both
@@ -264,9 +264,9 @@ def make_train_step(
     def body(state: TrainState, images, boxes, box_mask, sample_mask) -> dict:
         """The step's device part, after :func:`prologue`: the params,
         the optimizer and the BatchNorm statistics change in place; the
-        step count does not. Without metrics, a group or a mesh it makes
-        no host sync and no shape that depends on the data, so a CUDA
-        graph can capture it (``train/graphs.py``)."""
+        step count does not. Without metrics it makes no host sync and no
+        shape that depends on the data, its collectives included, so a
+        CUDA graph can capture it (``train/graphs.py``)."""
         net = state.module
         gen = state.generator
         with record_function("train/augment"):

@@ -5,6 +5,7 @@ sides, so the results must be equal (IoU to 1 ulp-scale, 1e-7)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.core import boxes as jax_boxes

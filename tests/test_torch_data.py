@@ -8,6 +8,7 @@ import filecmp
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.data import BatchLoader as JaxBatchLoader

@@ -18,13 +18,18 @@ The group boundaries are held against fdtpu's drivers themselves (its
 steps that record the batches they get (no compile): the same batches in the
 same order through the train step, the same batch to the metrics step, the
 same log lines. The CUDA graph itself runs on the card only (``chip_smoke.py``
-phase 21); here ``CapturedTrainStep`` refuses the CPU, and the optimizer's
-capturable form (its rate a tensor, its step counts where the params are)
-goes through the schedule and a checkpoint.
+phases 17a, 19a and 21); here ``CapturedTrainStep`` refuses the CPU, a step
+with metrics, a gloo group and a set ``halo.timer``, takes a data-parallel or
+spatial step over an NCCL group (a one-rank gloo group reporting NCCL stands
+in), and the optimizer's capturable form (its rate a tensor, its step counts
+where the params are) goes through the schedule and a checkpoint. Under
+``nan_check`` the port's fit at k = 3 is held against fdtpu's as above;
+``parallel.trainer_route`` against fdtpu's ``Trainer._use_shardmap``.
 """
 
 import ast
 import contextlib
+import dataclasses
 import io
 import re
 from pathlib import Path
@@ -33,7 +38,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
+import torch.distributed as dist
 
 from fdtpu.data import BatchLoader as JaxBatchLoader
 from fdtpu.data import WIDERFaceDataSource as JaxSource
@@ -43,15 +50,18 @@ from fdtpu.data.pipeline import Batch as JaxBatch
 from fdtpu.train import Trainer as JaxTrainer
 from fdtpu.train.drivers import ScanDispatchDriver as JaxScanDispatchDriver
 from fdtpu.train.drivers import StreamedDriver as JaxStreamedDriver
+from fdtpu.train import loop as jax_loop
 from fdtpu.utils.config import TrainConfig as JaxTrainConfig
 from fdtpu_torch import train_model
 from fdtpu_torch.compat import poolresnet_state_dict
 from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets
 from fdtpu_torch.data import make_synthetic_widerface
 from fdtpu_torch.data.pipeline import Batch
+from fdtpu_torch.parallel import halo, make_dp_train_step, make_mesh, trainer_route
 from fdtpu_torch.train import CapturedTrainStep, Trainer, create_train_state, make_train_step
 from fdtpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from fdtpu_torch.train.drivers import StreamedDriver
+from fdtpu_torch.train.graphs import step_groups
 from fdtpu_torch.train.state import init_optimizer_state, make_lr_schedule, make_optimizer
 from fdtpu_torch.utils.config import TrainConfig
 from test_torch_trainer import NMS, PARAMS_ATOL, RTOL, SIZE, jax_model, torch_model
@@ -294,15 +304,65 @@ def test_captured_step_on_the_cpu_raises():
     assert state.step == 0 and not captured.graphs
 
 
-@pytest.mark.parametrize("what", ["compute_metrics", "group", "mesh"])
-def test_captured_step_refuses_metrics_group_and_mesh(what):
+@pytest.fixture
+def gloo_world(tmp_path):
+    """A one-rank gloo process group, the default group, for the test."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_backend(monkeypatch):
+    """Every group reports NCCL (the CPU has none: a gloo group stands in)."""
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+
+
+@pytest.mark.parametrize("what", ["compute_metrics", "group", "mesh", "timer"])
+def test_captured_step_refuses_metrics_group_and_mesh(what, gloo_world, monkeypatch):
+    """A step with metrics, a data-parallel or spatial step over a gloo
+    group (its collectives run on the host) and any step while
+    ``parallel.halo.timer`` is set (it synchronises the card) are refused
+    at construction; a timer set after construction is refused at the
+    capture."""
     state, cfg = small_state()
-    step = make_train_step(state.module, cfg)
-    setattr(step, what, True if what == "compute_metrics" else object())
-    with pytest.raises(ValueError, match="without metrics, group or mesh"):
+    match = {"compute_metrics": "metrics", "group": "gloo", "mesh": "gloo",
+             "timer": "halo.timer"}[what]
+    if what == "compute_metrics":
+        step = make_train_step(state.module, cfg, compute_metrics=True)
+    elif what == "group":
+        step = make_dp_train_step(state.module, cfg, group=gloo_world)
+    elif what == "mesh":
+        step = make_dp_train_step(state.module, cfg, mesh=make_mesh(1, 1))
+    else:
+        step = make_train_step(state.module, cfg)
+        captured = CapturedTrainStep(step)
+        monkeypatch.setattr(halo, "timer", {})
+        with pytest.raises(ValueError, match=match):
+            captured._capture(state, None, None, None)
+    with pytest.raises(ValueError, match=match):
         CapturedTrainStep(step)
-    with pytest.raises(ValueError, match="without metrics, group or mesh"):
-        CapturedTrainStep(make_train_step(state.module, cfg, compute_metrics=True))
+
+
+@pytest.mark.parametrize("what", ["group", "mesh"])
+def test_captured_step_takes_an_nccl_group_and_mesh(what, gloo_world, monkeypatch):
+    """A data-parallel step over an NCCL group, and a spatial step over an
+    NCCL mesh, are captured with their collectives; here the CPU refuses
+    the graph at its first call, as for the one-process step."""
+    nccl_backend(monkeypatch)
+    state, cfg = small_state()
+    if what == "group":
+        step = make_dp_train_step(state.module, cfg, group=gloo_world)
+    else:
+        step = make_dp_train_step(state.module, cfg, mesh=make_mesh(1, 1))
+    captured = CapturedTrainStep(step)
+    assert captured.rank == 0 and step_groups(step)[0] is gloo_world
+    batch = (torch.zeros((2, *SIZE, 3), dtype=torch.uint8), torch.zeros((2, 4, 5)),
+             torch.zeros((2, 4), dtype=torch.bool))
+    with pytest.raises(ValueError, match="needs a card"):
+        captured(state, *batch)
 
 
 def trainer_args(tmp_path):
@@ -312,24 +372,107 @@ def trainer_args(tmp_path):
     return torch_model(), BatchLoader(src, BATCH)
 
 
-def test_dispatch_with_nan_check_raises(tmp_path):
-    module, loader_ = trainer_args(tmp_path)
-    cfg = TrainConfig(steps_per_dispatch=3, nan_check=True, log_path=str(tmp_path / "l.log"))
+@pytest.fixture(scope="module")
+def nan_check_fits(tmp_path_factory):
+    """fdtpu's Trainer and the port's at k = 3 under ``nan_check``, without
+    SAM, as ``runs`` builds them: ``{side: (trainer, train metrics, log
+    lines)}``, the port's params after the fit, and the error of a port
+    epoch from NaN params; both checks
+    are off again before any test runs."""
+    tmp = tmp_path_factory.mktemp("nan_check")
+    jax_make_synthetic(tmp / "fdtpu_data", 8, split="train", seed=0)
+    make_synthetic_widerface(tmp / "port_data", 8, split="train", seed=0)
     try:
-        with pytest.raises(ValueError, match="nan_check"):
-            Trainer(module, cfg, loader_, device="cpu")
+        jt = JaxTrainer(
+            jax_model(), JaxTrainConfig(**config_kw(False, 3, tmp, "fdtpu"), nan_check=True),
+            loader(tmp / "fdtpu_data", JaxSource, JaxBatchLoader, jax_load_targets,
+                   use_native=False),
+            None, augment=False, nms_params=NMS, run_name="fdtpu")
+        assert jax.config.jax_debug_nans
+        module = torch_model()
+        module.load_state_dict(poolresnet_state_dict(jax.tree.map(np.asarray, jt.state.params)))
+        tt = Trainer(module, TrainConfig(**config_kw(False, 3, tmp, "port"), nan_check=True),
+                     loader(tmp / "port_data", WIDERFaceDataSource, BatchLoader, load_targets,
+                            use_native=False),
+                     None, augment=False, nms_params=NMS, run_name="port", device="cpu")
+        assert torch.is_anomaly_enabled()
+        out = {"fdtpu": (jt, *fit(jt)), "port": (tt, *fit(tt))}
+        out["params"] = {n: p.detach().clone() for n, p in tt.state.module.named_parameters()}
+        # a NaN in the params: anomaly mode stops the first backward that returns one
+        with torch.no_grad():
+            next(tt.state.module.parameters()).fill_(float("nan"))
+        try:
+            tt.train_epoch()
+        except RuntimeError as e:
+            out["nan"] = str(e)
     finally:
+        jax.config.update("jax_debug_nans", False)
         torch.autograd.set_detect_anomaly(False)
+    return out
 
 
-def test_dispatch_with_a_data_parallel_group_raises(tmp_path, monkeypatch):
-    """fdtpu scans the data-parallel step too; the port's graph of it (NCCL
-    under capture) is the next slice, so the Trainer refuses the pair."""
+def test_dispatch_with_nan_check_raises(nan_check_fits):
+    """fdtpu trains ``steps_per_dispatch`` > 1 under ``nan_check``; so does
+    the port, with its eager step under anomaly mode at fdtpu's group
+    cadence: at k = 3 the epoch metrics, the params, the steps and the group
+    log lines match fdtpu's (``runs``' tolerances), no replay runs, and a
+    NaN in a backward raises."""
+    (tt, got, got_lines), (jt, want, want_lines) = (nan_check_fits[side]
+                                                    for side in ("port", "fdtpu"))
+    assert tt.captured_step is None
+    assert type(jt.driver).__name__ == "ScanDispatchDriver"
+    assert list(got) == list(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=RTOL, atol=1e-7, err_msg=key)
+    assert tt.state.step == int(jt.state.step) == 8
+    ref = poolresnet_state_dict(jax.tree.map(np.asarray, jt.state.params))
+    for name, p in nan_check_fits["params"].items():
+        np.testing.assert_allclose(p.numpy(), ref[name].numpy(), atol=PARAMS_ATOL, rtol=0,
+                                   err_msg=name)
+    assert [line[:2] for line in got_lines] == [line[:2] for line in want_lines]
+    assert [s for _, s, _ in got_lines] == ["2", "2"]
+    np.testing.assert_allclose([float(v) for *_, v in got_lines],
+                               [float(v) for *_, v in want_lines], rtol=RTOL, atol=1e-4)
+    assert "nan" in nan_check_fits.get("nan", "").lower(), "no NaN was caught"
+
+
+def test_dispatch_with_a_data_parallel_group_raises(tmp_path, gloo_world, monkeypatch):
+    """fdtpu scans the data-parallel step; so does the port's Trainer, at
+    k = 2 on fdtpu's shard_map route. It replays only on a card, without
+    ``nan_check``, over no group or an NCCL one (``Trainer.replays``); over
+    a gloo group its eager step runs, and a capture of that step raises."""
     module, loader_ = trainer_args(tmp_path)
-    monkeypatch.setattr(Trainer, "_data_parallel_group", staticmethod(lambda *a: object()))
+    monkeypatch.setattr(Trainer, "_data_parallel_group", staticmethod(lambda *a: gloo_world))
     cfg = TrainConfig(steps_per_dispatch=2, log_path=str(tmp_path / "l.log"))
-    with pytest.raises(ValueError, match="data-parallel group"):
-        Trainer(module, cfg, loader_, device="cpu")
+    trainer = Trainer(module, cfg, loader_, device="cpu")
+    assert trainer.group is gloo_world and trainer.route == "shard_map"
+    assert trainer.train_step.group is gloo_world and trainer.captured_step is None
+    assert trainer.state.optimizer.param_groups[0]["capturable"] is False
+    with pytest.raises(ValueError, match="gloo"):
+        CapturedTrainStep(trainer.train_step)
+    card = torch.device("cuda")
+    replays = {(dev.type, group is not None, nan): Trainer.replays(
+        dev, dataclasses.replace(cfg, nan_check=nan), group)
+        for dev in (card, torch.device("cpu")) for group in (None, gloo_world)
+        for nan in (False, True)}
+    assert [k for k, v in replays.items() if v] == [("cuda", False, False)]  # gloo: eager
+    nccl_backend(monkeypatch)
+    assert Trainer.replays(card, cfg, gloo_world)
+    assert not Trainer.replays(card, dataclasses.replace(cfg, nan_check=True), gloo_world)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("device_data", [False, True])
+@pytest.mark.parametrize("rotate", [False, True])
+def test_trainer_route_matches_fdtpu(tmp_path, monkeypatch, rotate, device_data, k):
+    """``parallel.trainer_route`` against fdtpu's ``Trainer._use_shardmap``
+    on a 2-device mesh (fdtpu's Trainer built without its state)."""
+    monkeypatch.setattr(jax_loop, "create_train_state", lambda *a, **kw: (None, None))
+    kw = dict(rotate_device=rotate, device_data=device_data, steps_per_dispatch=k)
+    jt = JaxTrainer(jax_model(), JaxTrainConfig(data_parallel=2, log_path=str(tmp_path / "l.log"),
+                                                **kw), Loader(2, JaxBatch))
+    assert jt.mesh is not None
+    assert trainer_route(TrainConfig(**kw)) == ("shard_map" if jt._use_shardmap else "gspmd")
 
 
 def test_steps_per_dispatch_below_one_raises():
@@ -338,10 +481,10 @@ def test_steps_per_dispatch_below_one_raises():
 
 
 def test_adam_is_capturable_only_where_a_graph_replays(tmp_path):
-    """A state is built with a plain Adam unless asked (the data-parallel
-    and spatial states, bench's eager rows); the Trainer asks only where it
-    replays, on a card: on the CPU it holds no captured step and a plain
-    Adam, whatever k."""
+    """A state is built with a plain Adam unless asked (bench's eager rows,
+    the gloo ranks' states); the Trainer asks only where it replays, on a
+    card: on the CPU it holds no captured step and a plain Adam, whatever
+    k."""
     state, _ = small_state()
     assert state.optimizer.param_groups[0]["capturable"] is False
     assert isinstance(state.optimizer.param_groups[0]["lr"], float)

@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.train import widerface_eval as jwe

@@ -9,6 +9,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = Path(__file__).resolve().parents[1]
 

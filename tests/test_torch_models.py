@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.models import PoolResnet as JaxPoolResnet

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import jax.tree_util as jtu
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.compat.torch_import import ReferenceLayoutGrid as JaxReferenceLayoutGrid

@@ -9,6 +9,7 @@ are integers after rounding and must agree to 1e-4.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.core.nms import decode_filter_nms as xla_decode_filter_nms

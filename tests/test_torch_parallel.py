@@ -21,10 +21,16 @@ Float32, augmentation and dropout off, SAM + SGD at lr 1e-2. Tolerances:
 * the ranks against each other: bit-equal;
 * the Trainer: streamed and resident bit-equal; against fdtpu's
   ``data_parallel=2`` Trainer for one epoch, metrics rtol 1e-4 and params
-  atol 1e-5 (``tests/test_torch_trainer.py``).
+  atol 1e-5 (``tests/test_torch_trainer.py``); at ``steps_per_dispatch=2``
+  (fdtpu's shard_map route and its scan inside ``shard_map``), streamed and
+  resident, the same tolerances and the same step lines, and within the
+  ranks k = 2 = k = 1 bit for bit (on the CPU the ranks run the eager step).
 """
 
+import contextlib
+import io
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -34,6 +40,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.data import BatchLoader as JaxBatchLoader
@@ -72,6 +79,9 @@ SSD_SIZE, SSD_PS = (64, 64), (8, 4, 2, 1)
 SSD_CTOR = dict(filters=4, input_shape=SSD_SIZE, patch_sizes=SSD_PS, dropout=0.0)
 MNV3 = dict(input_shape=(96, 96), num_patches=3)
 NMS = (0.05, 0.5, 64)  # a low threshold: the fresh model's boxes reach the metrics
+DISPATCH_IMAGES = 12  # the k = 2 fits: three steps, a group of two and the metrics step
+DISPATCH_LOG_EVERY = 2  # a step line every log_every_steps // k = 1 groups
+LINE = re.compile(r"epoch (\d+) step (\d+): step_loss=([-\d.]+)")
 
 
 def rank_env() -> dict:
@@ -82,19 +92,38 @@ def rank_env() -> dict:
     return env
 
 
+def outputs(procs, timeout: float, kill=subprocess.Popen.kill) -> list[str]:
+    """What each process printed, each waited for up to ``timeout``
+    seconds in turn. On a timeout every process still running is ended
+    (``kill``) and the assertion carries all that each printed; any other
+    failure ends them too."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            if p.poll() is None:
+                kill(p)
+        logs += [p.communicate()[0] for p in procs[len(logs):]]  # nothing printed is lost
+        shown = "\n".join(f"--- process {i}, exit {p.returncode} ---\n{log}"
+                          for i, (p, log) in enumerate(zip(procs, logs)))
+        raise AssertionError(f"a process outran its {timeout} s:\n{shown}") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                kill(p)
+                p.wait()
+    return logs
+
+
 def run_ranks(task: str, work: Path) -> list[dict]:
     """Both ranks of ``task``; each must exit 0 within the timeout."""
     init = f"file://{work / ('rendezvous_' + task)}"
     procs = [subprocess.Popen([sys.executable, str(RANKS), task, str(r), str(WORLD), init,
                                str(work)], cwd=REPO, env=rank_env(), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
-    try:
-        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    logs = outputs(procs, RANK_TIMEOUT_S)
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
     return [torch.load(work / f"{task}_rank{r}.pt", weights_only=False) for r in range(WORLD)]
@@ -106,12 +135,7 @@ def run_entry(args: list[str], cwd: Path) -> subprocess.CompletedProcess:
     proc = subprocess.Popen([sys.executable, *args], cwd=cwd, env=rank_env(),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=RANK_TIMEOUT_S)
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
+    (out,) = outputs([proc], RANK_TIMEOUT_S, kill=lambda p: os.killpg(p.pid, signal.SIGKILL))
     return subprocess.CompletedProcess(proc.args, proc.returncode, out)
 
 
@@ -330,7 +354,9 @@ def test_dp_eval_step_matches_fdtpu(steps, name):
 def trainers(tmp_path_factory):
     """fdtpu's ``data_parallel=2`` Trainer for one epoch (SAM + SGD, shuffle
     off) on its copy of 8 + 8 synthetic images, and the port's two ranks,
-    streamed and resident, from fdtpu's initial params."""
+    streamed and resident, from fdtpu's initial params; then fdtpu's at
+    ``steps_per_dispatch=2`` on 12 + 8 images, with its printed step lines,
+    and the port's ranks at k = 1 and 2 there (``torch_parallel_ranks``)."""
     work = tmp_path_factory.mktemp("dp_trainer")
     size = (160, 160)
     kw = dict(STEP_CONFIG, max_epochs=1, batch_size=4, box_capacity=4,
@@ -338,8 +364,13 @@ def trainers(tmp_path_factory):
     for make, name in ((jax_make_synthetic, "fdtpu_data"), (make_synthetic_widerface, "data")):
         make(work / name, 8, split="train", seed=0)
         make(work / name, 8, split="val", seed=1)
-    srcs = [JaxSource(jax_load_targets(work / "fdtpu_data", split, 3), size, box_capacity=4,
-                      error_log=None, use_native=False) for split in ("train", "val")]
+        make(work / f"{name}_k", DISPATCH_IMAGES, split="train", seed=2)
+        make(work / f"{name}_k", 8, split="val", seed=1)
+
+    def jax_loaders(root):
+        srcs = [JaxSource(jax_load_targets(root, split, 3), size, box_capacity=4,
+                          error_log=None, use_native=False) for split in ("train", "val")]
+        return JaxBatchLoader(srcs[0], 4), JaxBatchLoader(srcs[1], 4)
 
     def filled_state(module, config, rng, steps_per_epoch):
         tx = jax_make_optimizer(config, steps_per_epoch)
@@ -347,19 +378,29 @@ def trainers(tmp_path_factory):
         return JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
                              opt_state=tx.init(params)), tx
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_loop, "create_train_state", filled_state)
-        jt = JaxTrainer(JaxPoolResnet(**POOL, dtype=jnp.float32),
-                        JaxTrainConfig(**kw, data_parallel=WORLD, checkpoint_dir=str(work / "jc"),
-                                       log_path=str(work / "jl" / "out.log")),
-                        JaxBatchLoader(srcs[0], 4), JaxBatchLoader(srcs[1], 4), augment=False,
-                        nms_params=NMS, run_name="fdtpu")
+    def jax_trainer(root, name, **config):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_loop, "create_train_state", filled_state)
+            return JaxTrainer(JaxPoolResnet(**POOL, dtype=jnp.float32),
+                              JaxTrainConfig(**{**kw, **config}, data_parallel=WORLD,
+                                             checkpoint_dir=str(work / f"jc_{name}"),
+                                             log_path=str(work / f"jl_{name}" / "out.log")),
+                              *jax_loaders(root), augment=False, nms_params=NMS, run_name=name)
+
+    jt = jax_trainer(work / "fdtpu_data", "fdtpu")
     sd = state_dict_from_fdtpu(numpy_tree(jt.state.params), PoolResnet(**POOL))
     want = jt.fit()
+    jk = jax_trainer(work / "fdtpu_data_k", "fdtpu_k", steps_per_dispatch=2,
+                     log_every_steps=DISPATCH_LOG_EVERY)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        want_k = jk.fit()
     spec = dict(family="poolresnet", ctor=POOL, state_dict=sd, root=str(work / "data"),
-                size=size, batch=4, nms=NMS, work=str(work), config=kw)
+                root_k=str(work / "data_k"), log_every_steps=DISPATCH_LOG_EVERY, size=size,
+                batch=4, nms=NMS, work=str(work), config=kw)
     torch.save({"trainer": spec}, work / "inputs.pt")
-    return {"fdtpu": (jt, want), "ranks": run_ranks("trainer", work)}
+    return {"fdtpu": (jt, want), "fdtpu_k2": (jk, want_k, printed.getvalue()),
+            "ranks": run_ranks("trainer", work)}
 
 
 def test_dp_trainer_streamed_equals_resident(trainers):
@@ -380,20 +421,84 @@ def test_dp_trainer_streamed_equals_resident(trainers):
 def test_dp_trainer_matches_fdtpu(trainers):
     jt, want = trainers["fdtpu"]
     got = trainers["ranks"][0]["streamed"]
-    assert int(jt.state.step) == got["step"] == 2
+    assert got["step"] == 2
+    assert_fit_matches_fdtpu(got, jt, want)
+    assert want["val"]["iou"] > 0
+
+
+def assert_fit_matches_fdtpu(got: dict, jt, want: dict) -> None:
+    """Epoch metrics rtol 1e-4, params atol 1e-5, equal step counts."""
+    assert int(jt.state.step) == got["step"]
     for split in ("train", "val"):
         assert list(got["metrics"][split]) == list(want[split])
         for k in want[split]:
             np.testing.assert_allclose(got["metrics"][split][k], want[split][k], rtol=1e-4,
                                        atol=1e-7, err_msg=f"{split} {k}")
-    assert want["val"]["iou"] > 0
     ref = state_dict_from_fdtpu(numpy_tree(jt.state.params), PoolResnet(**POOL))
     for k, v in ref.items():
         np.testing.assert_allclose(got["state_dict"][k].numpy(), v.numpy(), atol=1e-5, rtol=0,
                                    err_msg=k)
 
 
+@pytest.mark.parametrize("feed", ["streamed", "resident"])
+def test_dp_trainer_steps_per_dispatch_matches_fdtpu(trainers, feed):
+    """fdtpu's ``data_parallel=2, steps_per_dispatch=2`` Trainer (its
+    shard_map route; streamed: its ``ScanDispatchDriver`` inside
+    ``shard_map``, one scan of two steps and the metrics step) against the
+    port's two gloo ranks at k = 2, which take the same route and run their
+    eager steps: metrics, params and steps; the streamed feed prints fdtpu's
+    step lines (one at each group's end), the resident one none, as fdtpu's
+    resident epoch scan."""
+    jk, want, printed = trainers["fdtpu_k2"]
+    assert jk._use_shardmap and type(jk.driver).__name__ == "ScanDispatchDriver"
+    got = trainers["ranks"][0][f"k2_{feed}"]
+    assert got["route"] == "shard_map" and not got["replays"]
+    assert got["step"] == DISPATCH_IMAGES // 4
+    assert_fit_matches_fdtpu(got, jk, want)
+    lines, want_lines = LINE.findall(got["printed"]), LINE.findall(printed)
+    assert [line[:2] for line in want_lines] == [("0", "1")]  # the group of steps 0 and 1
+    if feed == "resident":
+        assert lines == []
+    else:
+        assert [line[:2] for line in lines] == [line[:2] for line in want_lines]
+        np.testing.assert_allclose([float(v) for *_, v in lines],
+                                   [float(v) for *_, v in want_lines], rtol=1e-4, atol=1e-4)
+    assert trainers["ranks"][1][f"k2_{feed}"]["printed"] == ""  # rank 0 alone prints
+
+
+@pytest.mark.parametrize("feed", ["streamed", "resident"])
+def test_dp_trainer_k2_equals_k1_bit_for_bit(trainers, feed):
+    """Within the port's ranks k sets the log cadence alone: each rank's
+    fits at k = 1 and k = 2 are the same bit for bit, and the ranks agree."""
+    for rank in trainers["ranks"]:
+        a, b = rank[f"k1_{feed}"], rank[f"k2_{feed}"]
+        assert a["metrics"] == b["metrics"] and a["step"] == b["step"]
+        # streamed, k = 1 takes GSPMD's route: without BatchNorm the same step
+        assert (a["route"], b["route"]) == ("shard_map" if feed == "resident" else "gspmd",
+                                            "shard_map")
+        for k, v in a["state_dict"].items():
+            assert torch.equal(v, b["state_dict"][k]), k
+    r0, r1 = (r[f"k2_{feed}"] for r in trainers["ranks"])
+    assert r0["metrics"] == r1["metrics"]
+    for k, v in r0["state_dict"].items():
+        assert torch.equal(v, r1["state_dict"][k]), k
+
+
 # -- the entry points, the loader, the bootstrap -------------------------------------------
+
+
+def test_outputs_keep_what_a_timed_out_process_printed():
+    """A process that outruns its time is ended, and the assertion carries
+    all it printed, and what the others printed."""
+    code = "import sys, time; print('started', flush=True); time.sleep(60)"
+    procs = [subprocess.Popen([sys.executable, "-c", "print('quick')"], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True),
+             subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)]
+    with pytest.raises(AssertionError, match="(?s)outran its 5 s.*quick.*started"):
+        outputs(procs, 5)
+    assert all(p.poll() is not None for p in procs)
+
 
 
 def test_train_model_data_parallel_on_the_cpu(tmp_path):

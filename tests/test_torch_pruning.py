@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.compat import prune_l1_structured as jax_prune

@@ -7,6 +7,7 @@ from __future__ import annotations
 import re
 import subprocess
 import sys
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 from pathlib import Path
 
 from fdtpu_torch import bench_shear_designs as bsd

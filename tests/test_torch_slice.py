@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 from fdtpu.kernels import grid_decode_tables, pallas_decode_filter_nms_batch
 from fdtpu.models import Detector as JaxDetector

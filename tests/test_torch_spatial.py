@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 import torch.distributed as dist
 
@@ -47,6 +48,7 @@ from test_torch_parallel import (
     jax_state,
     numpy_tree,
     port_single_step,
+    outputs,
     rank_env,
     run_entry,
 )
@@ -236,13 +238,7 @@ def run_ranks(task: str, work: Path) -> list[dict]:
     procs = [subprocess.Popen([sys.executable, str(RANKS), task, str(r), str(WORLD), init,
                                str(work)], cwd=REPO, env=rank_env(), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
-    try:
-        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    logs = outputs(procs, RANK_TIMEOUT_S)
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
     return [torch.load(work / f"{task}_rank{r}.pt", weights_only=False) for r in range(WORLD)]

@@ -50,6 +50,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 import torch.distributed as dist
 
@@ -88,6 +89,7 @@ from test_torch_parallel import (
     grid_batch,
     jax_state,
     numpy_tree,
+    outputs,
     port_single_step,
     rank_env,
 )
@@ -363,13 +365,7 @@ def start_ranks(work: Path) -> list[subprocess.Popen]:
 
 def finish_ranks(procs, work: Path) -> list[dict]:
     """Each rank must exit 0 within the timeout."""
-    try:
-        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    logs = outputs(procs, RANK_TIMEOUT_S)
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
     return [torch.load(work / f"spatial_zoo_rank{r}.pt", weights_only=False) for r in range(WORLD)]

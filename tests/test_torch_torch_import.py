@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.compat import load_torchscript_weights as jax_load_torchscript_weights

@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 
 from fdtpu.data import BatchLoader as JaxBatchLoader
 from fdtpu.data import WIDERFaceDataSource as JaxSource

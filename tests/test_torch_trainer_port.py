@@ -14,6 +14,7 @@
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets

@@ -32,6 +32,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 
 from fdtpu.data import BatchLoader as JaxBatchLoader

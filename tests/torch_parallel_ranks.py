@@ -12,7 +12,9 @@ batches, the synthetic dataset's path); the rank writes
   (or eval step) on the rank's slice of the case's global batch, from the
   case's params;
 * ``trainer``: ``Trainer(data_parallel=WORLD)`` for one epoch and an eval,
-  streamed and then resident, from the same params;
+  streamed and then resident, from the same params; then on the larger
+  dataset ``inputs["trainer"]["root_k"]`` at ``steps_per_dispatch`` 1 and
+  2, streamed and resident, each fit's printed step lines kept;
 * ``spatial``: for each layout of ``inputs["spatial"]["layouts"]`` (a
   spatial size; every mesh spans all ranks), one data x spatial train step
   on the rank's data row of the global batch, and the spatial forward with
@@ -26,7 +28,9 @@ batches, the synthetic dataset's path); the rank writes
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import io
 import sys
 from pathlib import Path
 
@@ -91,38 +95,55 @@ def steps(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def dp_trainer(spec: dict, root: str, rank: int, world: int, name: str, **config):
+    """A ``Trainer(data_parallel=world)`` of the spec's model on ``root``'s
+    splits, this rank's shard of each batch; rank 1 starts from other
+    params (the Trainer broadcasts rank 0's)."""
+    shard = (rank, world)
+    srcs = [WIDERFaceDataSource(load_targets(root, split, 3), spec["size"], box_capacity=4,
+                                error_log=None, use_native=False) for split in ("train", "val")]
+    train = BatchLoader(srcs[0], spec["batch"], process_shard=shard)
+    val = BatchLoader(srcs[1], spec["batch"], process_shard=shard)
+    work = Path(spec["work"]) / name
+    config = TrainConfig(**{**spec["config"], **config}, data_parallel=world,
+                         checkpoint_dir=str(work / "ckpt"), log_path=str(work / "out.log"))
+    module = build(spec)
+    if rank:
+        with torch.no_grad():
+            for p in module.parameters():
+                p.add_(1.0)
+    return Trainer(module, config, train, val, augment=False, nms_params=spec["nms"],
+                   run_name="dp", device="cpu")
+
+
+def fitted(t: Trainer, metrics: dict, **extra) -> dict:
+    return {"metrics": metrics, "step": t.state.step, "driver": type(t.driver).__name__,
+            "route": t.route, "replays": t.captured_step is not None,
+            "state_dict": {k: v.clone() for k, v in t.state.module.state_dict().items()}, **extra}
+
+
 def trainer(rank: int, world: int, inputs: dict) -> dict:
     spec = inputs["trainer"]
     out = {}
     for resident in (False, True):
-        shard = (rank, world)
-        srcs = [WIDERFaceDataSource(load_targets(spec["root"], split, 3), spec["size"],
-                                    box_capacity=4, error_log=None, use_native=False)
-                for split in ("train", "val")]
-        train = BatchLoader(srcs[0], spec["batch"], process_shard=shard)
-        val = BatchLoader(srcs[1], spec["batch"], process_shard=shard)
-        work = Path(spec["work"]) / f"{'resident' if resident else 'streamed'}"
-        config = TrainConfig(**spec["config"], device_data=resident, data_parallel=world,
-                             checkpoint_dir=str(work / "ckpt"), log_path=str(work / "out.log"))
-        module = build(spec)
-        if rank:  # rank 1 starts elsewhere: the Trainer broadcasts rank 0's params
-            with torch.no_grad():
-                for p in module.parameters():
-                    p.add_(1.0)
-        t = Trainer(module, config, train, val, augment=False, nms_params=spec["nms"],
-                    run_name="dp", device="cpu")
-        metrics = t.fit()
-        out["resident" if resident else "streamed"] = {
-            "metrics": metrics, "step": t.state.step, "driver": type(t.driver).__name__,
-            "state_dict": {k: v.clone() for k, v in t.state.module.state_dict().items()},
-            "ckpt": str(t.save()),
-        }
+        name = "resident" if resident else "streamed"
+        t = dp_trainer(spec, spec["root"], rank, world, name, device_data=resident)
+        out[name] = fitted(t, t.fit(), ckpt=str(t.save()))
         # every rank reads rank 0's checkpoint
-        resumed = Trainer(build(spec), config, train, val, augment=False, nms_params=spec["nms"],
-                          run_name="dp", device="cpu")
+        resumed = Trainer(build(spec), t.config, t.train_loader, t.val_loader, augment=False,
+                          nms_params=spec["nms"], run_name="dp", device="cpu")
         assert resumed.maybe_resume() and resumed.state.step == t.state.step
         for k, v in resumed.state.module.state_dict().items():
-            assert torch.equal(v, out["resident" if resident else "streamed"]["state_dict"][k]), k
+            assert torch.equal(v, out[name]["state_dict"][k]), k
+    for resident in (False, True):
+        for k in (1, 2):
+            name = f"k{k}_{'resident' if resident else 'streamed'}"
+            t = dp_trainer(spec, spec["root_k"], rank, world, name, device_data=resident,
+                           steps_per_dispatch=k, log_every_steps=spec["log_every_steps"])
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                metrics = t.fit()
+            out[name] = fitted(t, metrics, printed=printed.getvalue())
     return out
 
 
