@@ -280,10 +280,12 @@ non-zero; without a CUDA card it fails at once and prints no result):
     its warm-up + capture seconds; (b) the Trainer at ``DetectorConfig()``
     b8 with rotation on 48 / 16 synthetic images, two epochs, streamed
     (``steps_per_dispatch`` 1 and 4) and with ``device_data``, each
-    replaying its captured step, bit-equal to the same fits with the
-    captured step taken away, and a replayed fit resumed after its first
+    replaying its captured step, bit-equal to the same fits run eagerly
+    (``Trainer.replaying`` off), and a replayed fit resumed after its first
     epoch bit-equal to the straight one (epoch metrics, step, params, Adam
-    moments and steps); then ``fdtpu_torch.bench``'s graph rows with short
+    moments and steps; the fits replay their metrics and eval steps too,
+    and the eager fits run all three eagerly); then ``fdtpu_torch.bench``'s
+    graph rows with short
     loops (the captured b128 step, the b128 ``GraphPredict`` with K1
     inside). ``--graph`` runs phases 1, 2 and 21 alone and adds (c): eager
     against graph for each model, step ms as the median and range of three
@@ -294,13 +296,43 @@ non-zero; without a CUDA card it fails at once and prints no result):
     and one more train epoch of each 21b fit by the host clock. Phases 14
     and 16 replay the Trainer's captured step too, and phases 14-16 and 21
     count the replays' shear and K5 launches (``train/graphs.py``:
-    ``REPLAYED``).
+    ``REPLAYED``);
+22. serving and eval replayed from CUDA graphs (``utils/graphs.py``), each
+    replay held to its eager body bit for bit: (a) a bf16 Detector of each
+    family at 480 px at phase 16's widths (PoolResnet-128x10 grid 10,
+    SSD-16, MobileNetV3-Small, Resnet-64, SeparableCNN-128; each score bias
+    shifted so that 5% of a seeded frame's candidates pass 0.5): ``predict``
+    on a 480x480 u8 frame, a 640x480 u8 frame (PIL resize) and a float32
+    frame at 0.5/0.5 and 0.7/0.01 in turn, twice (four graphs, twelve
+    replays), against ``predict_body`` called directly (normalised image,
+    boxes, mask); ``non_max_suppression`` at both pairs at B 1, 8 and 128
+    (PoolResnet), SSD b24/480 and b8/640 (K1's global scratch inside the
+    graph) against the eager decode; (b) every family's eval step at b8
+    (bf16, one padded sample), batch and gather forms, against the eager
+    step; the Trainer's streamed and resident eval epochs on phase 14's
+    images against the same epochs run eagerly (``Trainer.replaying``
+    off); the metrics train step (five replays against five eager steps, 21a's
+    check); ``run_validation_epoch --with-ap`` on phase 14's checkpoint
+    with the replay rule on and off (``GroupTrainer``'s eval over NCCL is
+    17a's fits); (c) in turns: the b1 ``predict`` of PoolResnet-128 and
+    SSD-16, eager body against replay, medians of 3 x 2,000 by CUDA events,
+    then 20 of each under torch.profiler (device busy ms, kernels and host
+    launch calls a predict); phase 20a's camera frame by the host clock,
+    three runs each, its ``predict`` call and the ``host_frame`` step (the
+    PIL resize) in it timed apart; one eval epoch of 256 synthetic images
+    (32 batches of b8) of each feed, three runs each by the host clock and
+    one under the profiler; each with its graph's pool MiB and capture s.
+    ``--serve`` runs phases 1, 2 and 22 alone. Phases 5, 6, 14-18 and 20
+    go through the same replays (K1 counted once a call, eager or
+    replayed; the warm-ups before a capture apart, ``utils.graphs.WARMED``).
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment,
-spatial, camera and graph paths; a CUDA graph's replays, which launch K1, the
-shears and K5 without their wrappers, are counted by each graph: the launches
-its capture recorded times its replays, 17a's and 19a's in their ranks too),
+spatial, camera, graph and serve paths; a CUDA graph's replays, which launch
+K1, the shears and K5 without their wrappers, are counted by each graph: the
+launches its capture recorded times its replays, summed in ``REPLAYED``,
+17a's and 19a's in their ranks too; the warm-ups before each capture are
+real launches and counted by the wrappers),
 error, times, and
 its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
@@ -374,11 +406,18 @@ from fdtpu_torch.parallel import (
     spatial_plan,
 )
 from fdtpu_torch.parallel import halo as khalo
-from fdtpu_torch.train import CapturedTrainStep, Trainer, create_train_state, make_train_step
-from fdtpu_torch.train import graphs as tgraphs
+from fdtpu_torch.train import (
+    CapturedEvalStep,
+    CapturedTrainStep,
+    Trainer,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
 from fdtpu_torch.train import step as tstep
 from fdtpu_torch.train.checkpoint import latest_checkpoint
 from fdtpu_torch.train.sam import global_norm
+from fdtpu_torch.utils import graphs as ugraphs
 from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 from fdtpu_torch.utils.tb import read_scalars
 
@@ -514,6 +553,17 @@ GRAPH_MODELS = {
 }
 GRAPH_STEPS = 5
 GRAPH_RUNS, GRAPH_TIMED_STEPS, GRAPH_PROFILED_STEPS = 3, 50, 5
+# phase 22: serving and eval replayed from CUDA graphs; the five families at
+# 480 px at phase 16's widths
+SERVE_MODELS = {"poolresnet": DetectorConfig(), "ssd": SSD_CFG, **ZOO}
+SERVE_PASS = 0.05  # a seeded frame's candidates over 0.5, see serve_model
+SERVE_THRESHOLDS = ((0.5, 0.5), (0.7, 0.01))
+SERVE_NMS_BATCHES = (1, 8, 128)  # PoolResnet's; the SSD's at b24/480 and b8/640
+SERVE_EVAL_BATCH = 8
+SERVE_TIMED = ("poolresnet", "ssd")  # 22c's b1 predict
+SERVE_TURNS = 3  # 22c's camera and eval-epoch runs, each arm
+SERVE_PROFILED = 20  # 22c's b1 predicts under the profiler, each arm
+SERVE_EPOCH_IMAGES = (16, 256)  # 22c's eval epoch: synthetic train and val images (32 batches)
 
 
 def check(ok: bool, what: str) -> None:
@@ -829,13 +879,13 @@ def phase_main_path():
     batch = torch.from_numpy(
         rng.integers(0, 256, size=(128, 320, 320, 3), dtype=np.uint8)).cuda()
 
-    knms.decode_filter_nms_batch.launches = 0
+    zero_k1()
     preds = [det480.predict(f) for f in frames]
     out = det320.apply(batch.float() / 255.0)
     boxes, mask = det320.non_max_suppression(out)
     torch.cuda.synchronize()
-    launches = knms.decode_filter_nms_batch.launches
-    check(launches == len(frames) + 1, f"kernel launched {launches} times, want {len(frames) + 1}")
+    launches, calls = k1_count(), k1_calls()  # both replayed: K1 in the graphs
+    check(calls == len(frames) + 1, f"kernel launched {calls} times, want {len(frames) + 1}")
 
     counts = []
     for norm, b, m in preds:
@@ -849,8 +899,9 @@ def phase_main_path():
     check(torch.equal(mask, wm) and torch.equal(boxes, wb), "batch boxes differ from plain")
     print(f"[5 main path] bf16 Detector on the card: predict x3 at 480px -> {counts} boxes; "
           f"b128 at 320px/grid 15 -> {int(kept.sum())} boxes (min {int(kept.min())}, "
-          f"max {int(kept.max())} per image); kernel launches {launches}; "
-          f"batch decode equals plain")
+          f"max {int(kept.max())} per image); kernel launches {launches} ({calls} calls, "
+          f"replayed from CUDA graphs, and the warm-ups before their captures); batch decode "
+          f"equals plain")
     return launches, det480, det320, batch
 
 
@@ -1186,7 +1237,7 @@ def phase_train_path():
               for k, (st, _, _) in runs.items()}
 
     zero_shear_counts()
-    knms.decode_filter_nms_batch.launches = 0
+    zero_k1()
     scalars = {}
     for key, (state, (step, metrics_step), batch) in runs.items():
         for i in range(TRAIN_STEPS):
@@ -1748,13 +1799,32 @@ def phase_fused_timings(card, train):
 # -- the Trainer path --------------------------------------------------------------
 
 
+def k1_count() -> int:
+    """K1's launches: its wrapper's count (eager calls and the warm-ups
+    before a capture) plus every CUDA graph replay's (``REPLAYED``: the
+    Detector's, ``GraphPredict``'s, the train, metrics and eval steps')."""
+    return knms.decode_filter_nms_batch.launches + ugraphs.REPLAYED["decode_filter_nms"]
+
+
+def k1_calls() -> int:
+    """K1's launches less the warm-ups' (``utils.graphs.WARMED``): one a
+    call, eager or replayed."""
+    return k1_count() - ugraphs.WARMED["decode_filter_nms"]
+
+
+def zero_k1() -> None:
+    """Set :func:`k1_count` and :func:`k1_calls` to 0."""
+    knms.decode_filter_nms_batch.launches = 0
+    ugraphs.REPLAYED["decode_filter_nms"] = ugraphs.WARMED["decode_filter_nms"] = 0
+
+
 def kernel_counts() -> dict:
     """Every launch count of K1 and the shears (``shear_rows_stacked``: the
     ``shear_rows`` launches with ``c = 1``, K4's layout, among them): the
-    wrappers' counts plus the launches of the captured train steps'
-    replays, which pass no wrapper (``train/graphs.py``: ``REPLAYED``)."""
-    replayed = tgraphs.REPLAYED
-    return {"decode_filter_nms": knms.decode_filter_nms_batch.launches,
+    wrappers' counts plus the launches of the CUDA graphs' replays, which
+    pass no wrapper (``utils/graphs.py``: ``REPLAYED``)."""
+    replayed = ugraphs.REPLAYED
+    return {"decode_filter_nms": k1_count(),
             "shear_rows": krot.shear_rows.launches + replayed["shear_rows"],
             "shear_rows_stacked": krot.shear_rows.stacked_launches
             + replayed["shear_rows_stacked"],
@@ -1766,11 +1836,23 @@ def zero_shear_counts() -> None:
     too."""
     krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
     for k in ("shear_rows", "shear_rows_stacked", "shear_cols"):
-        tgraphs.REPLAYED[k] = 0
+        ugraphs.REPLAYED[k] = 0
 
 
 def counts_since(start: dict) -> dict:
     return {k: v - start[k] for k, v in kernel_counts().items()}
+
+
+def trainer_warmed(trainer) -> int:
+    """The train bodies a Trainer's captured train and metrics steps ran in
+    their warm-ups (they rotate too)."""
+    return sum(c.warmed for slot, c in trainer.captured.items() if slot in ("train", "metrics"))
+
+
+def slot_replays(trainer, slot: str) -> int:
+    """The replays of a Trainer's captured ``slot`` (0 if it never
+    captured it)."""
+    return trainer.captured[slot].replays if slot in trainer.captured else 0
 
 
 def trainer_loaders(root, shuffle: bool):
@@ -1821,10 +1903,10 @@ def phase_trainer(tmp) -> dict:
     train, val = trainer_loaders(root, shuffle=True)
     trainer = Trainer(trainer_module(SEED), tcfg, train, val, run_name="smoke", device="cuda")
     before = [p.detach().clone() for p in trainer.state.module.parameters()]
-    start = kernel_counts()
+    start, calls = kernel_counts(), k1_calls()
     out = trainer.fit()
     torch.cuda.synchronize()
-    fit = counts_since(start)
+    fit, calls = counts_since(start), k1_calls() - calls
     steps, val_batches = TRAINER_EPOCHS * len(train), len(val)
     check(trainer.state.step == steps, f"Trainer took {trainer.state.step} steps, want {steps}")
     check(all(np.isfinite(v) for split in out.values() for v in split.values()),
@@ -1832,13 +1914,16 @@ def phase_trainer(tmp) -> dict:
     moved = max((p - q).abs().max().item()
                 for p, q in zip(trainer.state.module.parameters(), before))
     check(moved > 0, "Trainer params did not move")
-    want_k1 = TRAINER_EPOCHS * (1 + val_batches)  # the metrics step, then each val batch
-    check(fit["decode_filter_nms"] == want_k1,
-          f"K1 launched {fit['decode_filter_nms']} times in fit, want {want_k1}")
-    # the captured step's warm-up bodies rotate too; the replays are counted
-    rotating = steps + trainer.captured_step.warmed
-    check(trainer.captured_step.replays == steps - TRAINER_EPOCHS,
-          f"{trainer.captured_step.replays} replays of {steps} steps")
+    # the metrics step, then each val batch; once a call, eager or replayed
+    want_k1 = TRAINER_EPOCHS * (1 + val_batches)
+    check(calls == want_k1, f"K1 launched {calls} times in fit (the warm-ups apart), want "
+          f"{want_k1}")
+    # the captured steps' warm-up bodies rotate too; the replays are counted
+    rotating = steps + trainer_warmed(trainer)
+    replays = {slot: slot_replays(trainer, slot) for slot in ("train", "metrics", "eval")}
+    check(replays == {"train": steps - TRAINER_EPOCHS, "metrics": TRAINER_EPOCHS,
+                      "eval": TRAINER_EPOCHS * val_batches},
+          f"replays {replays} of {steps} steps and {TRAINER_EPOCHS * val_batches} val batches")
     check(fit["shear_rows"] == 2 * rotating and fit["shear_cols"] == rotating,
           f"shear launches {fit} over {rotating} rotating steps and warm-up bodies")
     logs = tmp / "logs"
@@ -1853,8 +1938,8 @@ def phase_trainer(tmp) -> dict:
     print(f"[14 trainer] fit {TRAINER_EPOCHS} epochs, PoolResnet-128x10 480px grid 10 b8 bf16 "
           f"SAM+Adam, rotation on the card, {n_train} train / {n_val} val synthetic images: "
           f"train {out['train']}, val {out['val']}; params moved up to {moved:.3g}; launches "
-          f"{fit} ({steps} steps, {trainer.captured_step.replays} of them CUDA-graph replays, "
-          f"{TRAINER_EPOCHS} metrics steps, {TRAINER_EPOCHS * val_batches} val batches); "
+          f"{fit} ({steps} steps, all CUDA-graph replays, {TRAINER_EPOCHS} of them metrics "
+          f"steps, {TRAINER_EPOCHS * val_batches} val batches replayed); "
           f"{len(lines)} log lines, checkpoints {ckpts}")
 
     # resume in a new Trainer from other params: bit-equal state, one epoch more
@@ -1896,8 +1981,9 @@ def phase_trainer(tmp) -> dict:
     check(streamed == resident, f"epoch metrics differ: streamed {streamed}, resident {resident}")
     for p, q in zip(ts.state.module.parameters(), tr.state.module.parameters()):
         check(torch.equal(p, q), "resident params differ from streamed")
-    check(all(t.captured_step.replays for t in (ts, tr)), "a deterministic fit did not replay")
-    print(f"[14 trainer] resident = streamed (both replayed), float32, shuffle and "
+    check(all(slot_replays(t, "train") and slot_replays(t, "eval") for t in (ts, tr)),
+          "a deterministic fit did not replay")
+    print(f"[14 trainer] resident = streamed (both replayed, train and eval), float32, shuffle and "
           f"augmentation off, deterministic algorithms: epoch metrics and params bit-equal "
           f"(train loss {streamed['train']['loss']:.6f}, val loss {streamed['val']['loss']:.6f})")
 
@@ -1981,15 +2067,15 @@ def phase_ssd_serving():
     b8 = torch.from_numpy(rng.integers(0, 256, size=(SSD_640_BATCH, 640, 640, 3),
                                        dtype=np.uint8)).cuda()
 
-    knms.decode_filter_nms_batch.launches = 0
+    zero_k1()
     preds = [det.predict(f) for f in frames]
     out24 = det.apply(b24.float() / 255.0)
     boxes24, mask24 = det.non_max_suppression(out24)
     out8 = det640.apply(b8.float() / 255.0)
     boxes8, mask8 = det640.non_max_suppression(out8)
     torch.cuda.synchronize()
-    launches = knms.decode_filter_nms_batch.launches
-    check(launches == len(frames) + 2, f"K1 launched {launches} times, want {len(frames) + 2}")
+    launches, calls = k1_count(), k1_calls()
+    check(calls == len(frames) + 2, f"K1 launched {calls} times, want {len(frames) + 2}")
 
     counts = [int(check_boxes(b, m, 128, 0.5, "SSD predict")) for _, b, m in preds]
     check(out24.shape == (SSD_BATCH, 4774, 5) and out8.shape == (SSD_640_BATCH, 8500, 5),
@@ -2007,8 +2093,8 @@ def phase_ssd_serving():
     print(f"[15 ssd serving] bf16 SSD-16 Detectors on the card: predict x3 at 480px -> {counts} "
           f"boxes; b24 at 480px (N 4774, {eligible:.0f} eligible an image) -> "
           f"{int(kept['b24/480'].sum())} boxes; b8 at 640px (N 8500, global scratch) -> "
-          f"{int(kept['b8/640'].sum())} boxes; K1 launches {launches}; both batch decodes equal "
-          f"plain")
+          f"{int(kept['b8/640'].sum())} boxes; K1 launches {launches} ({calls} calls, replayed); "
+          f"both batch decodes equal plain")
     return launches, {"det": det, "det640": det640, "b24": b24, "out24": out24, "out8": out8}
 
 
@@ -2047,13 +2133,13 @@ def phase_ssd_train_path():
     batch = ssd_batch(SSD_BATCH, 480, "cuda")
     before = [p.detach().clone() for p in module.parameters()]
 
-    knms.decode_filter_nms_batch.launches = 0
+    zero_k1()
     scalars = []
     for i in range(TRAIN_STEPS):
         state, sc = (metrics_step if i == TRAIN_STEPS - 1 else step)(state, *batch)
         scalars.append(sc)
     torch.cuda.synchronize()
-    launches = knms.decode_filter_nms_batch.launches
+    launches = k1_count()
     check(launches == 1, f"K1 launched {launches} times in {TRAIN_STEPS} SSD steps, want 1")
     check(all(np.isfinite(v.item()) for sc in scalars for v in sc.values()),
           "non-finite SSD train scalars")
@@ -2084,11 +2170,11 @@ def phase_ssd_trainer(tmp) -> int:
     cwd = os.getcwd()
     os.chdir(tmp)  # checkpoints/, logs/ and imgs/ go here
     try:
-        knms.decode_filter_nms_batch.launches = 0
+        zero_k1()
         trainer = train_model_ssd.build_trainer(train_model_ssd.parse_args(flags))
         out = trainer.fit()
         torch.cuda.synchronize()
-        fit_launches = knms.decode_filter_nms_batch.launches
+        fit_launches = k1_calls()  # eager or replayed, the warm-ups apart
         steps = TRAINER_EPOCHS * len(trainer.train_loader)
         check(trainer.state.step == steps, f"SSD Trainer took {trainer.state.step} steps, want {steps}")
         check(all(np.isfinite(v) for split in out.values() for v in split.values()),
@@ -2114,7 +2200,7 @@ def phase_ssd_trainer(tmp) -> int:
     finally:
         os.chdir(cwd)
     torch.cuda.synchronize()
-    launches = knms.decode_filter_nms_batch.launches
+    launches = k1_count()
     check(all(np.isfinite(v) for v in val_out.values()) and 0.0 <= val_out["AP@0.5"] <= 1.0,
           f"run_validation_epoch --model ssd {val_out}")
     print(f"[15 ssd trainer] train_model_ssd's Trainer, {TRAINER_EPOCHS} quarter-epochs of "
@@ -2284,15 +2370,15 @@ def phase_zoo_serving():
     batch = torch.from_numpy(rng.integers(0, 256, size=(ZOO_SERVE_BATCH, ZOO_SIZE, ZOO_SIZE, 3),
                                           dtype=np.uint8)).cuda()
     dets = {name: Detector(zoo_module(name, "cuda")) for name in ZOO}
-    knms.decode_filter_nms_batch.launches = 0
+    zero_k1()
     outs = {}
     for name, det in dets.items():
-        start = knms.decode_filter_nms_batch.launches
+        start = k1_calls()
         preds = [det.predict(f) for f in frames]
         out = det.apply(batch.float() / 255.0)
         boxes, mask = det.non_max_suppression(out)
         torch.cuda.synchronize()
-        calls = knms.decode_filter_nms_batch.launches - start
+        calls = k1_calls() - start  # replayed, the warm-ups apart
         check(calls == len(frames) + 1, f"{name}: K1 launched {calls} times a frame and a batch")
         counts = [int(check_boxes(b, m, 128, 0.5, f"{name} predict")) for _, b, m in preds]
         s = det.module.grid_size()
@@ -2307,7 +2393,7 @@ def phase_zoo_serving():
         print(f"[16 zoo serving] bf16 {name} Detector on the card: predict x3 -> {counts} boxes; "
               f"b{ZOO_SERVE_BATCH} at {ZOO_SIZE}px grid {s} (N {s * s}) -> {int(kept.sum())} "
               f"boxes; K1 launches {calls}; batch decode equals plain")
-    return knms.decode_filter_nms_batch.launches, dets, batch, outs
+    return k1_count(), dets, batch, outs
 
 
 def phase_zoo_train():
@@ -2325,7 +2411,7 @@ def phase_zoo_train():
               for name, (st, _, _) in runs.items()}
 
     zero_shear_counts()
-    knms.decode_filter_nms_batch.launches = 0
+    zero_k1()
     scalars = {}
     for name, (state, (step, metrics_step), batch) in runs.items():
         n = ZOO_TRAIN_STEPS[name]
@@ -2382,21 +2468,22 @@ def phase_zoo_trainer(tmp) -> dict:
     cwd = os.getcwd()
     os.chdir(tmp)  # checkpoints/, logs/ and imgs/ go here
     try:
-        start = kernel_counts()
+        start, calls = kernel_counts(), k1_calls()
         trainer = train_model.build_trainer(train_model.parse_args(flags))
         out = trainer.fit()
         torch.cuda.synchronize()
-        fit = counts_since(start)
+        fit, calls = counts_since(start), k1_calls() - calls
         steps = len(trainer.train_loader)
         check(trainer.state.step == steps, f"MobileNetV3 Trainer took {trainer.state.step} steps")
         check(all(np.isfinite(v) for split in out.values() for v in split.values()),
               f"non-finite MobileNetV3 epoch metrics {out}")
-        # the first batch's drawing, the metrics step, each val batch
+        # the first batch's drawing, the metrics step, each val batch (K1 once
+        # a call, eager or replayed, the warm-ups apart)
         want = 2 + len(trainer.val_loader)
-        rotating = steps + trainer.captured_step.warmed  # replays and warm-up bodies
-        check(fit["decode_filter_nms"] == want and fit["shear_rows"] == 2 * rotating
-              and fit["shear_cols"] == rotating and trainer.captured_step.replays == steps - 1,
-              f"MobileNetV3 Trainer launches {fit}")
+        rotating = steps + trainer_warmed(trainer)  # replays and warm-up bodies
+        check(calls == want and fit["shear_rows"] == 2 * rotating
+              and fit["shear_cols"] == rotating and slot_replays(trainer, "train") == steps - 1,
+              f"MobileNetV3 Trainer launches {fit}, K1 calls {calls}")
         ckpt = latest_checkpoint(tmp / "checkpoints" / trainer.run_name)
         check(ckpt is not None and ckpt.name == f"step_{steps:08d}.pt", f"checkpoint {ckpt}")
 
@@ -2556,7 +2643,7 @@ def dp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         metrics_step = make_dp_train_step(module, tcfg, compute_metrics=True)
         start = [p.detach().clone() for p in module.parameters()]
         zero_shear_counts()
-        knms.decode_filter_nms_batch.launches = 0
+        zero_k1()
         scalars = [metrics_step(state, *batch)[1] for _ in range(DP_STEPS)]
         torch.cuda.synchronize()
         launches = kernel_counts()
@@ -2628,8 +2715,10 @@ def dp_trainer_fits(tmp) -> dict:
     """17a: ``GroupTrainer`` over the world-1 NCCL group at
     ``DetectorConfig()`` b8 with rotation on phase 14's 48 / 16 images, two
     epochs: streamed at ``steps_per_dispatch`` 1 and 2 and with
-    ``device_data``, each replaying its captured DP step (fdtpu's shard_map
-    route), bit-equal to the same fits with the captured step taken away."""
+    ``device_data``, each replaying its captured DP train, metrics and eval
+    steps (fdtpu's shard_map route; the eval's loss and metric all-reduces
+    over NCCL in its graph), bit-equal to the same fits run eagerly
+    (``Trainer.replaying`` off; phase 22b reads this)."""
     from pathlib import Path
 
     tmp = Path(tmp)
@@ -2645,16 +2734,16 @@ def dp_trainer_fits(tmp) -> dict:
                                   log_path=str(tmp / f"dp_logs_{name}" / "out.log"), **kw)
         train, val = trainer_loaders(root, shuffle=True)
         t = GroupTrainer(trainer_module(SEED), cfg, train, val, run_name=name, device="cuda")
-        captured = t.captured_step
-        check(t.group is dist.group.WORLD and t.route == "shard_map" and captured is not None
-              and captured.step.group is t.group,
-              f"17a {name}: group {t.group}, route {t.route}, captured step {captured}")
-        if eager:
-            t.captured_step = None
+        check(t.group is dist.group.WORLD and t.route == "shard_map" and t.replaying,
+              f"17a {name}: group {t.group}, route {t.route}, replaying {t.replaying}")
+        t.replaying = not eager  # eager: the eager steps run, as over gloo
         out = t.fit()
         torch.cuda.synchronize()
-        replays[name] = captured.replays
-        check((captured.replays == 0) == eager, f"17a {name}: {captured.replays} replays")
+        replays[name] = (slot_replays(t, "train"), slot_replays(t, "eval"))
+        check(all((n == 0) == eager for n in replays[name])
+              and all(t.captured[s].step.group is t.group for s in ("train", "eval")
+                      if s in t.captured),
+              f"17a {name}: {replays[name]} train and eval replays")
         return t, out
 
     eager = fit("eager", eager=True)
@@ -2795,10 +2884,10 @@ def dp_trainer(rank: int, world: int, device, root: str, tmp: str) -> dict:
                               log_path=str(Path(tmp) / f"dp_logs_{resident}" / "out.log"))
             t = Trainer(trainer_module(SEED + rank, dtype=None), cfg, train, val, augment=False,
                         run_name="dp", device=device)
-            knms.decode_filter_nms_batch.launches = 0
+            zero_k1()
             fit = t.fit()
             torch.cuda.synchronize()
-            k1 = knms.decode_filter_nms_batch.launches
+            k1 = k1_count()  # over gloo the eager steps: no warm-up, no replay
             check(k1 == 1 + len(val), f"17c K1 launched {k1} times, want {1 + len(val)}")
             check(all(np.isfinite(v) for split in fit.values() for v in split.values()),
                   f"17c non-finite metrics {fit}")
@@ -2911,7 +3000,8 @@ def phase_dp(card, tmp) -> dict:
     print(f"[17a trainer] the Trainer over the world-1 NCCL group (fdtpu's shard_map route), "
           f"DetectorConfig() b8 bf16, rotation on, {TRAINER_IMAGES[0]} / {TRAINER_IMAGES[1]} "
           f"images, {TRAINER_EPOCHS} epochs: streamed at steps_per_dispatch 1 and 2 and "
-          f"device_data replayed = the same fits eager, bit for bit; replays {t['replays']}; "
+          f"device_data replayed (train, metrics and eval steps; the eval's all-reduces in its "
+          f"graph) = the same fits eager, bit for bit; (train, eval) replays {t['replays']}; "
           f"train {t['train']}")
 
     launch_local_ranks(dp_gloo_rank, 2, args=(tmp, str(root)), timeout=DP_RANK_TIMEOUT_S)
@@ -3040,7 +3130,7 @@ def sp_nccl_family(family: str, mesh, device) -> dict:
     metrics_step = spatial_step(module, tcfg, augment=augment, compute_metrics=True)
     start = [p.detach().clone() for p in module.parameters()]
     zero_shear_counts()
-    knms.decode_filter_nms_batch.launches = 0
+    zero_k1()
     scalars = [metrics_step(state, *batch)[1] for _ in range(SP_STEPS)]
     torch.cuda.synchronize()
     launches = kernel_counts()
@@ -3453,8 +3543,9 @@ def phase_deploy_graph(card, models, programs) -> int:
     CUDA graph) against the eager program, then the b1 latency by CUDA
     events, median of three loops: ``Detector.predict`` (a u8 host frame),
     the eager program and the graph replay (a float frame on the card).
-    Returns K1's launches by the graphs' replays, which pass no wrapper:
-    each graph counts its replays and the K1 launches captured in it."""
+    Returns K1's launches by the ``GraphPredict`` replays, which pass no
+    wrapper: each graph counts its replays and the K1 launches captured in
+    it (and adds them to ``REPLAYED``)."""
     from fdtpu_torch.export import aot_compile_predict
 
     rng = np.random.default_rng(SEED + 43)
@@ -3598,7 +3689,7 @@ def phase_deploy_prune(card, model) -> None:
 
 def phase_deploy(card, tmp) -> int:
     """18: deployment. Returns K1's launches on its paths: the wrapper's
-    count and the CUDA graphs' replays. The deployment modules are imported
+    count and the CUDA graphs' replays (:func:`k1_count`). The deployment modules are imported
     in phase 18's functions, so that ``--kernel-times`` also runs on a tree
     that predates them (``fdtpu_torch.compare_parent``)."""
     from fdtpu_torch.export import PredictProgram
@@ -3607,14 +3698,16 @@ def phase_deploy(card, tmp) -> int:
     models = deploy_models()
     prob, iou, cap = DEPLOY_THRESHOLDS
     programs = {name: PredictProgram(m, prob, iou, cap) for name, m in models.items()}
-    knms.decode_filter_nms_batch.launches = 0
+    zero_k1()
     phase_deploy_export(models, programs, tmp)
     replays = phase_deploy_graph(card, models, programs)
     phase_deploy_native(models, tmp)
     phase_deploy_prune(card, models["poolresnet"])
-    launches = knms.decode_filter_nms_batch.launches + replays
-    print(f"[18 deploy] K1 launches on the deployment paths {launches} ({replays} of them CUDA "
-          f"graph replays); phase 18 took {time.perf_counter() - t0:.1f} s")
+    launches = k1_count()
+    print(f"[18 deploy] K1 launches on the deployment paths {launches} "
+          f"({ugraphs.REPLAYED['decode_filter_nms']} of them CUDA graph replays: {replays} "
+          f"GraphPredict's, the rest the Detectors'); phase 18 took "
+          f"{time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3732,9 +3825,9 @@ def phase_camera(card, tmp) -> int:
     saved = sys.modules.get("cv2")
     sys.modules["cv2"] = cv2
     try:
-        knms.decode_filter_nms_batch.launches = 0
+        zero_k1()
         demo_model.run_camera(det)
-        launches = knms.decode_filter_nms_batch.launches
+        launches, calls = k1_count(), k1_calls()
     finally:
         if saved is None:
             sys.modules.pop("cv2")
@@ -3745,7 +3838,7 @@ def phase_camera(card, tmp) -> int:
     check(len(cv2.rects) == cv2.shown == CAMERA_FRAMES and len(cv2.read_at) == CAMERA_FRAMES + 1,
           f"{len(cv2.rects)} frames drawn, {cv2.shown} shown, {len(cv2.read_at)} reads")
     check(cv2.released == cv2.destroyed == 1, "camera released and windows destroyed once")
-    check(launches == CAMERA_FRAMES, f"K1 launched {launches} times in {CAMERA_FRAMES} frames")
+    check(calls == CAMERA_FRAMES, f"K1 launched {calls} times in {CAMERA_FRAMES} frames")
     drawn = []
     for i, (frame, rects) in enumerate(zip(frames, cv2.rects)):
         _, boxes, mask = det.predict(np.ascontiguousarray(frame[..., ::-1]))
@@ -3755,14 +3848,18 @@ def phase_camera(card, tmp) -> int:
         check(len(rects) == int(mask.sum()), f"frame {i}: {len(rects)} drawn, mask {mask.sum()}")
         drawn.append(len(rects))
     check(max(drawn) > 0, "no frame had a box")
-    check(knms.decode_filter_nms_batch.launches == 2 * CAMERA_FRAMES,
-          f"K1 launches {knms.decode_filter_nms_batch.launches}, want {2 * CAMERA_FRAMES}")
+    check(k1_calls() == 2 * CAMERA_FRAMES,
+          f"K1 launches {k1_calls()}, want {2 * CAMERA_FRAMES}")
+    replays = sum(g.replays for g in det._graphs.graphs.values())
+    check(replays == 2 * CAMERA_FRAMES, f"predict replayed {replays} times, want "
+          f"{2 * CAMERA_FRAMES}")
     device = [s.elapsed_time(e) for s, e in events]
     host = [(b - a) * 1e3 for a, b in zip(cv2.read_at, cv2.read_at[1:])]
     print(f"[20a camera] demo_model.run_camera on the card, bf16 PoolResnet-128x10 grid 10 at "
           f"480 px, {CAMERA_FRAMES} BGR {CAMERA_HW[1]}x{CAMERA_HW[0]} frames of a stub cv2: "
           f"rectangles = predict's boxes on every frame ({sum(drawn)} drawn, up to {max(drawn)} "
-          f"a frame), K1 {launches} launches in the loop + {CAMERA_FRAMES} checking calls; "
+          f"a frame), K1 {launches} launches in the loop (one a frame, replayed from predict's "
+          f"CUDA graph, and its capture's warm-ups) + {CAMERA_FRAMES} checking calls; "
           f"predict by CUDA events median {statistics.median(device):.3f} ms "
           f"({min(device):.3f}-{max(device):.3f}), the whole frame by the host clock median "
           f"{statistics.median(host):.3f} ms ({min(host):.3f}-{max(host):.3f}) [{card}]")
@@ -3877,7 +3974,7 @@ def graph_counts() -> dict:
     """The launch counts of the kernels a train step can run, replays
     included (:func:`kernel_counts`)."""
     return {**kernel_counts(),
-            "photometric": kphoto.photometric_batch.launches + tgraphs.REPLAYED["photometric"]}
+            "photometric": kphoto.photometric_batch.launches + ugraphs.REPLAYED["photometric"]}
 
 
 def graph_state(spec: tuple):
@@ -3917,13 +4014,13 @@ def graph_vs_eager(spec: tuple, make=make_train_step) -> dict:
     want = [dict(step(eager, *batch)[1]) for batch in batches]
     torch.cuda.synchronize()
     eager_launches = {k: v - start[k] for k, v in graph_counts().items()}
-    start = tgraphs.wrapper_counts()
+    start = ugraphs.wrapper_counts()
     got = [dict(captured(replayed, *batch)[1]) for batch in batches]
     torch.cuda.synchronize()
     (g,) = captured.graphs.values()
     warm = {k: start[k] + captured.warmup * g.per_replay[k] for k in start}
     eager_launches = {k: eager_launches[k] for k in g.per_replay}
-    check(tgraphs.wrapper_counts() == warm, "a replay ticked a wrapper's count")
+    check(ugraphs.wrapper_counts() == warm, "a replay ticked a wrapper's count")
     graph_launches = captured.launches()
     differ = [f"step {i} {k}" for i, (w, g) in enumerate(zip(want, got)) for k in w
               if not torch.equal(w[k], g[k])]
@@ -4074,9 +4171,9 @@ def same_fit(a, b, what: str) -> None:
 
 def graph_trainer_fits(tmp, timings: bool) -> None:
     """21b: the Trainer's fits on the card, streamed at
-    ``steps_per_dispatch`` 1 and 4 and with ``device_data``, each batch but
-    the metrics one replayed, against the fits with the captured step
-    taken away (eager, the same capturable Adam), and a resume in the
+    ``steps_per_dispatch`` 1 and 4 and with ``device_data``, every batch
+    replayed (the metrics one too), against the fits run eagerly
+    (``Trainer.replaying`` off, the same capturable Adam), and a resume in the
     middle of a replayed fit against the straight one. With ``timings``
     one more train epoch of each, by the host clock."""
     from pathlib import Path
@@ -4095,14 +4192,14 @@ def graph_trainer_fits(tmp, timings: bool) -> None:
         t = Trainer(trainer_module(SEED), cfg, train, val, run_name=name, device="cuda")
         check(type(t.driver).__name__ == ("ResidentDriver" if cfg.device_data
                                           else "StreamedDriver"), f"{name}: {t.driver}")
-        captured = t.captured_step
-        if eager:
-            t.captured_step = None
+        t.replaying = not eager  # eager: the eager steps run, as over gloo
         if resume:
             check(t.maybe_resume(), f"{name}: no checkpoint to resume")
         out = t.fit(epochs)
         torch.cuda.synchronize()
-        check((captured.replays == 0) == eager, f"{name}: {captured.replays} replays")
+        replays = (slot_replays(t, "train"), slot_replays(t, "eval"))
+        check(all((n == 0) == eager for n in replays),
+              f"{name}: {replays} train and eval replays")
         return t, out
 
     eager = fit("eager", eager=True)
@@ -4171,10 +4268,399 @@ def phase_graph(card: str, tmp, timings: bool = False) -> dict:
     print(f"[21 graph] bench's graph rows, loops {train_iters} / {infer_iters}: train "
           f"{rates[0]:.1f} img/s, b128 predict through GraphPredict ({graph.k1_per_replay} K1 "
           f"a replay)")
-    launches = {k: v - phase_start[k] for k, v in graph_counts().items()}
-    launches["decode_filter_nms"] += graph.k1_per_replay * graph.replays
+    launches = {k: v - phase_start[k] for k, v in graph_counts().items()}  # replays included
     print(f"[21 graph] phase 21 took {time.perf_counter() - t0:.1f} s; launches {launches}")
     return {"launches": launches, "rows": rows}
+
+
+# -- phase 22: serving and eval replayed from CUDA graphs ---------------------------
+
+
+def score_heads(model) -> list:
+    """The layers whose output channel 0 is the score: the SSD's four heads,
+    MobileNetV3's head, the grid models' ``out``."""
+    if isinstance(model, SSD):
+        return list(model.heads)
+    return [model.head if isinstance(model, MobileNetV3Backbone) else model.out]
+
+
+def serve_model(family: str, cfg, seed: int):
+    """A float32 master of ``family`` at ``cfg`` on the card, random weights
+    from ``seed``, its score bias shifted so that ``SERVE_PASS`` of a seeded
+    frame's candidates pass 0.5, as phases 18 and 20 do: random weights
+    alone put few or none above it."""
+    model = build_model(family, cfg, "cuda", torch.Generator().manual_seed(seed))
+    h = cfg.input_shape[0]
+    frame = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, 256, size=(1, h, h, 3)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        score = model.eval()(frame / 255.0)[..., 0].double().clamp(1e-9, 1 - 1e-9)
+        logit = torch.quantile(torch.logit(score).flatten(), 1 - SERVE_PASS)
+        for head in score_heads(model):
+            head.bias[0] -= float(logit)
+    return model
+
+
+def serve_frames(seed: int) -> dict:
+    """22a's frames: a model-size u8 frame, a 640x480 u8 frame (resized
+    through PIL) and a model-size float32 frame in [0, 255]."""
+    rng = np.random.default_rng(seed)
+    return {"u8": rng.integers(0, 256, size=(480, 480, 3), dtype=np.uint8),
+            "vga": rng.integers(0, 256, size=(*CAMERA_HW, 3), dtype=np.uint8),
+            "float": rng.uniform(0, 255, size=(480, 480, 3)).astype(np.float32)}
+
+
+def eager_predict(det, image, prob=None, iou=None):
+    """``Detector.predict``'s eager body called directly: the host step, the
+    frame on the card, ``predict_body`` (what ``predict`` ran before it
+    replayed)."""
+    prob = det.probability_threshold if prob is None else prob
+    iou = det.iou_threshold if iou is None else iou
+    with torch.inference_mode():
+        img = torch.tensor(det.host_frame(image), device=det.device)
+        norm, boxes, mask = det.predict_body(img, prob, iou)
+        return norm[0], boxes[0], mask[0]
+
+
+def det_graphs(det) -> list:
+    return list(det._graphs.graphs.values())
+
+
+def serve_predict_vs_eager(models: dict) -> dict:
+    """22a: each family's bf16 Detector, ``predict`` on each frame kind at
+    both threshold pairs in turn, twice (the second pass replays the graphs
+    the first captured), against its eager body; then
+    ``non_max_suppression`` at B 1, 8 and 128 (PoolResnet), 24 (SSD) and
+    b8/640 (SSD-16 at 640 px: K1's global scratch inside the graph) at both
+    pairs against the eager decode. Returns the Detectors."""
+    dets = {}
+    frames = serve_frames(SEED + 70)
+    for family, model in models.items():
+        det = dets[family] = Detector(model)
+        check(len(det._graphs) == 0 and det._pool is None, f"22a {family}: captured at "
+              "construction")
+        differ, kept = [], []
+        for _ in range(2):
+            for kind, image in frames.items():
+                for prob, iou in SERVE_THRESHOLDS:
+                    got = det.predict(image, prob, iou)
+                    want = eager_predict(det, image, prob, iou)
+                    differ += [f"{kind} {prob}/{iou} {what}" for what, g, w in
+                               zip(("norm", "boxes", "mask"), got, want) if not torch.equal(g, w)]
+                    kept.append(int(got[2].sum()))
+        graphs = det_graphs(det)
+        replays = sum(g.replays for g in graphs)
+        check(not differ, f"22a {family} predict replayed differs from eager: {differ[:4]}")
+        check(len(graphs) == 4 and replays == 4 * len(frames), f"22a {family}: {len(graphs)} "
+              f"graphs, {replays} replays")
+        check(max(kept) > 0, f"22a {family}: no frame kept a box")
+        print(f"[22a predict] bf16 {SP_NAMES[family]} 480px Detector: predict on a 480x480 u8, "
+              f"a 640x480 u8 (PIL resize) and a 480x480 float32 frame at 0.5/0.5 and 0.7/0.01 in "
+              f"turn, twice: {replays} replays of {len(graphs)} graphs (keyed by the frame's "
+              f"dtype and the thresholds) = the eager body bit for bit (normalised image, boxes, "
+              f"mask); boxes kept {kept[:6]}; pools "
+              f"{[round(g.pool_bytes / 2**20, 1) for g in graphs]} MiB, capture "
+              f"{[round(g.capture_s, 2) for g in graphs]} s")
+    rng = np.random.default_rng(SEED + 71)
+    det640 = Detector(serve_model("ssd", SSD_640, SEED + 72))
+    cases = [("poolresnet", dets["poolresnet"], b, 480) for b in SERVE_NMS_BATCHES]
+    cases += [("ssd", dets["ssd"], SSD_BATCH, 480), ("ssd 640", det640, SSD_640_BATCH, 640)]
+    for name, det, b, size in cases:
+        frames_b = torch.from_numpy(rng.integers(0, 256, size=(b, size, size, 3),
+                                                 dtype=np.uint8)).cuda()
+        out = det.apply(frames_b.float() / 255.0)
+        kept = []
+        for prob, iou in SERVE_THRESHOLDS:
+            det.probability_threshold, det.iou_threshold = prob, iou
+            got = det.non_max_suppression(out)
+            want = det._decode(out, prob, iou, det.nms_capacity)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"22a {name} b{b}: non_max_suppression replayed differs from eager at "
+                  f"{prob}/{iou}")
+            kept.append(int(got[1].sum()))
+        det.probability_threshold, det.iou_threshold = 0.5, 0.5
+        n = out.reshape(b, -1, 5).shape[1]
+        path = "global scratch" if n > knms.max_candidates(0) else "shared memory"
+        check(name != "ssd 640" or path == "global scratch", "22a: b8/640 in shared memory")
+        print(f"[22a nms] {name} b{b}/{size} (N {n}, K1 on {path}): non_max_suppression "
+              f"replayed = the eager decode bit for bit at 0.5/0.5 and 0.7/0.01; boxes kept "
+              f"{kept}")
+        del out, frames_b
+    return dets
+
+
+def serve_eval_vs_eager(family: str, cfg) -> None:
+    """22b for one family: its eval step (bf16 compute, b8, capacity 64)
+    replayed, batch form and gather form, against the eager step on three
+    batches, the last with a padded sample: scalars and boxes bit-equal."""
+    module = build_model(family, cfg, "cuda", torch.Generator().manual_seed(SEED + 73),
+                         compute_dtype=torch.bfloat16)
+    state = create_train_state(module, TrainConfig(), 100, capturable=True)
+    step = make_eval_step(module, nms_params=(0.5, 0.5, 64), return_boxes=True)
+    captured = CapturedEvalStep(step)
+    size = cfg.input_shape[0]
+    batches = []
+    for i in range(3):
+        images, boxes, masks = graph_batch(SERVE_EVAL_BATCH, size, SEED + 300 + i)
+        sample = torch.ones(SERVE_EVAL_BATCH, dtype=torch.bool, device="cuda")
+        sample[-1] = i < 2
+        batches.append((images, boxes, masks, sample))
+    data = tuple(torch.cat(parts) for parts in zip(*batches))
+    rows = torch.arange(data[0].shape[0], device="cuda")
+    differ, losses = [], []
+    for i, batch in enumerate(batches):
+        want = step(state, *batch)
+        losses.append(round(want[0]["loss"].item(), 4))
+        sl = rows[i * SERVE_EVAL_BATCH:(i + 1) * SERVE_EVAL_BATCH]
+        for form, got in (("batch", captured(state, *batch)),
+                          ("gather", captured.gather(state, data, sl))):
+            (ws, (wb, wm)), (gs, (gb, gm)) = want, got
+            differ += [f"{form} {i} {k}" for k in ws if not torch.equal(ws[k], gs[k])]
+            differ += [f"{form} {i} boxes"] * (not (torch.equal(wb, gb) and torch.equal(wm, gm)))
+    check(not differ, f"22b {family} eval step replayed differs: {differ[:4]}")
+    per = [g.per_replay["decode_filter_nms"] for g in captured.graphs.values()]
+    check(captured.replays == 6 and per == [1, 1], f"22b {family}: {captured.replays} replays, "
+          f"K1 a replay {per}")
+    print(f"[22b eval step] {SP_NAMES[family]} 480px b{SERVE_EVAL_BATCH} bf16: the eval step "
+          f"replayed (batch and gather forms, one padded sample in the last batch) = eager bit "
+          f"for bit (loss, iou, recall, precision, boxes, mask); K1 once a replay; losses "
+          f"{losses}")
+
+
+def serve_trainer_evals(tmp) -> None:
+    """22b: the Trainer's eval epoch (``DetectorConfig()`` b8 bf16, phase
+    14's images, its first batch drawn), streamed and resident,
+    replayed against the same epoch run eagerly (``Trainer.replaying``
+    off);
+    the metrics train step replayed against eager (phase 21a's check);
+    ``run_validation_epoch --with-ap`` on a phase-14 checkpoint with the
+    Trainer's replay rule on and off."""
+    from pathlib import Path
+
+    tmp = Path(tmp)
+    root = tmp / "data"
+    if not (root / "WIDER_val").exists():  # --serve alone: phase 14's images
+        make_synthetic_widerface(root, TRAINER_IMAGES[0], split="train", seed=SEED)
+        make_synthetic_widerface(root, TRAINER_IMAGES[1], split="val", seed=SEED + 1)
+    trainers = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the drawings go to imgs/ here
+    try:
+        for feed in ("streamed", "resident"):
+            cfg = TrainConfig(rotate_device=True, seed=SEED, device_data=feed == "resident",
+                              checkpoint_dir=str(tmp / f"serve_ckpt_{feed}"),
+                              log_path=str(tmp / f"serve_logs_{feed}" / "out.log"))
+            train, val = trainer_loaders(root, shuffle=False)
+            t = trainers[feed] = Trainer(trainer_module(SEED), cfg, train, val,
+                                         run_name=f"serve_{feed}", device="cuda")
+            replayed = t.eval_epoch()
+            t.replaying = False  # the eager steps run
+            eager = t.eval_epoch()
+            t.replaying = True
+            check(replayed == eager, f"22b {feed} eval epoch replayed {replayed} against eager "
+                  f"{eager}")
+            n = slot_replays(t, "eval")
+            check(n == len(val), f"22b {feed}: {n} eval replays, want {len(val)}")
+            print(f"[22b trainer eval] {feed} eval epoch, DetectorConfig() b8 bf16, "
+                  f"{len(val)} val batches of phase 14's images, the first batch drawn: "
+                  f"replayed ({n} replays"
+                  f"{', gather form' if feed == 'resident' else ''}) = eager bit for bit: "
+                  f"{replayed}")
+        ckpt = latest_checkpoint(tmp / "ckpt" / "smoke")
+        if ckpt is None:  # --serve alone: a checkpoint of a fresh Trainer's state
+            ckpt = trainers["streamed"].save()
+        args = ["--data-dir", str(root), "--model", "poolresnet", "--checkpoint", str(ckpt),
+                "--patches", "10", "--with-ap", "--device", "cuda"]
+        calls = k1_calls()
+        replayed = run_validation_epoch.main(args)
+        calls = k1_calls() - calls
+        rule = Trainer.__dict__["replays"]  # the staticmethod itself
+        Trainer.replays = staticmethod(lambda *a: False)
+        try:
+            eager = run_validation_epoch.main(args)
+        finally:
+            Trainer.replays = rule
+    finally:
+        os.chdir(cwd)
+    check(replayed == eager, f"22b run_validation_epoch replayed {replayed}, eager {eager}")
+    n_val = math.ceil(TRAINER_IMAGES[1] / 8)
+    check(calls == n_val, f"22b run_validation_epoch: K1 {calls} calls, want {n_val}")
+    print(f"[22b run_validation_epoch] --with-ap on {ckpt.name}: replayed (the Trainer's "
+          f"captured eval step, K1 once a batch) = eager (the replay rule off) bit for bit: "
+          f"{replayed}")
+    run = graph_vs_eager(GRAPH_MODELS["poolresnet-b8-480"],
+                         functools.partial(make_train_step, compute_metrics=True))
+    failures = graph_failures("22b metrics step", run)
+    check(not failures, "; ".join(failures))
+    print(f"[22b metrics step] PoolResnet-128x10 480px b8 bf16 SAM+Adam, rotation, train "
+          f"metrics (K1 inside): {GRAPH_STEPS} replays = {GRAPH_STEPS} eager steps bit for bit "
+          f"(losses, grad norms, iou, recall, precision, params, buffers, Adam state); kernel "
+          f"launches a replay {run['per_replay']}, eager {run['eager_launches']}")
+    print("[22b group] the Trainer over the world-1 NCCL group (GroupTrainer): its train, "
+          "metrics and eval steps replayed (the eval's all-reduces in its graph) = eager, bit "
+          "for bit: phase 17a's fits")
+
+
+def profiled_line(rows: dict, what: str) -> str:
+    """Each arm's :func:`profile_train.measure` row: device busy ms,
+    kernels and host launch calls a ``what``."""
+    return ", ".join(f"{arm} busy {r['busy_ms']:.4f} ms, idle {r['idle']:.3f} of the profiled "
+                     f"window, {r['kernels']:.0f} kernels / {r['launch_calls']:.0f} host launch "
+                     f"calls a {what}" for arm, r in rows.items())
+
+
+def serve_latency(card, dets: dict) -> None:
+    """22c: b1 ``predict`` eager body against replayed, medians of
+    ``LATENCY_LOOPS`` loops of ``LATENCY_ITERS`` by CUDA events, in turns;
+    then ``SERVE_PROFILED`` of each under torch.profiler."""
+    from fdtpu_torch.profile_train import measure
+
+    frame = serve_frames(SEED + 74)["u8"]
+    for family in SERVE_TIMED:
+        det = dets[family]
+        det.predict(frame)  # captured (0.5/0.5, u8)
+        arms = {"eager": lambda: eager_predict(det, frame), "replayed": lambda: det.predict(frame)}
+        ms = {arm: [] for arm in arms}
+        for _ in range(LATENCY_LOOPS):
+            for arm, fn in arms.items():
+                ms[arm].append(event_ms(fn, LATENCY_ITERS))
+        prof = {arm: measure(fn, SERVE_PROFILED) for arm, fn in arms.items()}
+        g = next(g for k, g in det._graphs.graphs.items() if k[0] == "predict"
+                 and k[2] == torch.uint8 and k[3] == 0.5)
+        print(f"[22c predict] {SP_NAMES[family]} b1 480px bf16 u8 frame (host step, H2D, /255, "
+              f"forward, K1): eager {ms_line(ms['eager'])}, replayed {ms_line(ms['replayed'])}; "
+              f"medians of {LATENCY_LOOPS} x {LATENCY_ITERS} in turns; under the profiler, "
+              f"{SERVE_PROFILED} each: {profiled_line(prof, 'predict')}; graph pool "
+              f"{g.pool_bytes / 2**20:.1f} MiB, warm-up + capture {g.capture_s:.2f} s [{card}]")
+
+
+def camera_ms(det, frames, predict) -> dict:
+    """``run_camera`` over a stub ``cv2`` with ``det.predict`` set to
+    ``predict``: the host ms of each frame, of its ``predict`` call (to the
+    card's end of it: ``run_camera`` waits there next, for the frame's
+    copy to the host) and of the ``host_frame`` step (the PIL resize)
+    inside that call."""
+    from fdtpu_torch import demo_model
+
+    cv2 = StubCv2(frames)
+    saved = sys.modules.get("cv2")
+    parts = {"predict": [], "host_frame": []}
+
+    def timed(part, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if part == "predict":
+                torch.cuda.synchronize()
+            parts[part].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    sys.modules["cv2"] = cv2
+    det.predict, det.host_frame = timed("predict", predict), timed("host_frame", det.host_frame)
+    try:
+        demo_model.run_camera(det)
+    finally:
+        del det.predict, det.host_frame  # the class's methods again
+        if saved is None:
+            sys.modules.pop("cv2")
+        else:
+            sys.modules["cv2"] = saved
+    torch.cuda.synchronize()
+    return {"frame": [(b - a) * 1e3 for a, b in zip(cv2.read_at, cv2.read_at[1:])], **parts}
+
+
+def serve_epoch_trainers(tmp) -> dict:
+    """22c's Trainers: ``DetectorConfig()`` b8 bf16 over
+    ``SERVE_EPOCH_IMAGES`` synthetic images, streamed and resident, no
+    drawing."""
+    from pathlib import Path
+
+    root = Path(tmp) / "serve_epoch"
+    make_synthetic_widerface(root, SERVE_EPOCH_IMAGES[0], split="train", seed=SEED + 76)
+    make_synthetic_widerface(root, SERVE_EPOCH_IMAGES[1], split="val", seed=SEED + 77)
+    trainers = {}
+    for feed in ("streamed", "resident"):
+        cfg = TrainConfig(seed=SEED, device_data=feed == "resident", visualize_first_batch=False,
+                          checkpoint_dir=str(root / f"ckpt_{feed}"),
+                          log_path=str(root / f"logs_{feed}" / "out.log"))
+        train, val = trainer_loaders(root, shuffle=False)
+        trainers[feed] = Trainer(trainer_module(SEED), cfg, train, val,
+                                 run_name=f"serve_epoch_{feed}", device="cuda")
+    return trainers
+
+
+def serve_timings(card, dets, tmp) -> None:
+    """22c: b1 ``predict`` (PoolResnet-128, SSD-16), the camera frame with
+    its parts, and one eval epoch of ``SERVE_EPOCH_IMAGES[1]`` images
+    (streamed and resident), eager against replayed, in turns; the epochs
+    also under torch.profiler, one of each arm."""
+    from fdtpu_torch.profile_train import measure
+
+    serve_latency(card, dets)
+    frames = camera_frames(tmp)
+    det = camera_detector(frames)
+    arms = {"eager": lambda img: eager_predict(det, img), "replayed": det.predict}
+    ms = {arm: {"frame": [], "predict": [], "host_frame": []} for arm in arms}
+    for _ in range(SERVE_TURNS):
+        for arm, fn in arms.items():
+            for part, v in camera_ms(det, frames, fn).items():
+                ms[arm][part].append(statistics.median(v))
+    (g,) = det_graphs(det)
+    print(f"[22c camera] demo_model.run_camera, bf16 PoolResnet-128x10 grid 10 480px, "
+          f"{CAMERA_FRAMES} VGA frames of a stub cv2, host ms a frame, median of each run, "
+          f"{SERVE_TURNS} runs in turns: " + "; ".join(
+              f"{arm} frame {ms_line(m['frame'])}, its predict call {ms_line(m['predict'])} (to "
+              f"the card's end), in it host_frame (the PIL resize) {ms_line(m['host_frame'])}"
+              for arm, m in ms.items()) + f"; graph pool {g.pool_bytes / 2**20:.1f} MiB, "
+          f"warm-up + capture {g.capture_s:.2f} s [{card}]")
+    for feed, t in serve_epoch_trainers(tmp).items():
+        t.eval_epoch()  # the val set decoded (staged, resident) and the graphs captured
+        secs = {"eager": [], "replayed": []}
+        for _ in range(SERVE_TURNS):
+            for arm in secs:
+                t.replaying = arm == "replayed"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.eval_epoch()
+                torch.cuda.synchronize()
+                secs[arm].append((time.perf_counter() - t0) * 1e3)
+        prof = {}
+        for arm in secs:
+            t.replaying = arm == "replayed"
+            prof[arm] = measure(t.eval_epoch, 1)
+        t.replaying = True
+        check(slot_replays(t, "eval") > 0, f"22c {feed}: no eval replay")
+        graphs = t.captured["eval"].graphs.values()
+        print(f"[22c eval epoch] {feed}, DetectorConfig() b8 bf16, {len(t.val_loader)} val "
+              f"batches of {SERVE_EPOCH_IMAGES[1]} synthetic images, no drawing, host ms an "
+              f"epoch, {SERVE_TURNS} runs in turns: eager {ms_line(secs['eager'])}, replayed "
+              f"{ms_line(secs['replayed'])}; one epoch each under the profiler: "
+              f"{profiled_line(prof, 'epoch')}; eval graph pools "
+              f"{[round(g.pool_bytes / 2**20, 1) for g in graphs]} MiB (the Trainer's pool), "
+              f"capture {[round(g.capture_s, 2) for g in graphs]} s [{card}]")
+
+
+def ms_line(values) -> str:
+    return f"{statistics.median(values):.3f} ({min(values):.3f}-{max(values):.3f}) ms"
+
+
+def phase_serve(card, tmp) -> int:
+    """22: serving and eval replayed from CUDA graphs. Returns K1's launches
+    of the phase."""
+    t0 = time.perf_counter()
+    start = k1_count()
+    models = {family: serve_model(family, cfg, SEED + 75)
+              for family, cfg in SERVE_MODELS.items()}
+    dets = serve_predict_vs_eager(models)
+    for family, cfg in SERVE_MODELS.items():
+        serve_eval_vs_eager(family, cfg)
+    serve_trainer_evals(tmp)
+    serve_timings(card, dets, tmp)
+    launches = k1_count() - start
+    print(f"[22 serve] K1 launches {launches} (replayed, eager and warm-ups); phase 22 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def graph_only() -> None:
@@ -4208,6 +4694,14 @@ def entry_only() -> None:
     phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         phase_entry(card, tmp)
+
+
+def serve_only() -> None:
+    """``--serve``: the card, the build and phase 22 alone."""
+    card, _ = phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_serve(card, tmp)
 
 
 def kernel_times_only() -> None:
@@ -4251,6 +4745,7 @@ def main() -> None:
         sp_launches = phase_spatial(card, tmp)
         entry_launches = phase_entry(card, tmp)
         graph_launches = phase_graph(card, tmp)["launches"]
+        serve_launches = phase_serve(card, tmp)
     k1_recorded_map_bounds()
 
     def entry(meta, launches, err, times, library_ms=None):
@@ -4268,7 +4763,8 @@ def main() -> None:
                         + trainer_launches["decode_filter_nms"] + ssd_launches
                         + zoo_launches["decode_filter_nms"] + dp_launches["decode_filter_nms"]
                         + deploy_launches + sp_launches["decode_filter_nms"]
-                        + entry_launches + graph_launches["decode_filter_nms"],
+                        + entry_launches + graph_launches["decode_filter_nms"]
+                        + serve_launches,
                         worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
     path = (train_launches, photo_launches, trainer_launches, zoo_launches, dp_launches,
@@ -4301,5 +4797,7 @@ if __name__ == "__main__":
         entry_only()
     elif sys.argv[1:] == ["--graph"]:
         graph_only()
+    elif sys.argv[1:] == ["--serve"]:
+        serve_only()
     else:
         main()

@@ -19,7 +19,9 @@ The workload is ``bench.py``'s: PoolResnet-128 at 320 px (grid 15), batch
 Each loop is an eager Python loop of ``bench.py``'s length (100, 300 and
 2,000 iterations), timed by CUDA events around the whole loop after
 warmup; each metric is the median of ``REPS`` = 3 such loops, with min and
-max.
+max. The infer and b1 rows launch K1 eagerly too (the Detector's eager
+decode, not ``non_max_suppression``, which replays K1 from a CUDA graph on
+a card).
 
 ``bench.py`` times each loop as one scanned device program, "so per-call
 host dispatch doesn't pollute" the number. Beside the eager rows, which
@@ -178,6 +180,12 @@ def _detector(w: dict) -> Detector:
                     nms_capacity=CAPACITY)
 
 
+def _eager_decode(det: Detector, output: torch.Tensor):
+    """The Detector's decode+filter+NMS at its thresholds, K1 launched by
+    its wrapper: the eager rows stay eager loops."""
+    return det._decode(output, det.probability_threshold, det.iou_threshold, det.nms_capacity)
+
+
 def measure_infer(w: dict, iters: int = INFER_LOOP, reps: int = REPS) -> list[float]:
     """Infer img/s on u8 frames: ``/255``, forward, decode at capacity 64,
     the frames' low bit flipped when the detection count is odd."""
@@ -185,7 +193,7 @@ def measure_infer(w: dict, iters: int = INFER_LOOP, reps: int = REPS) -> list[fl
     carry = [w["data"][0].clone()]
 
     def one():
-        _, mask = det.non_max_suppression(det.apply(carry[0].float() / 255.0))
+        _, mask = _eager_decode(det, det.apply(carry[0].float() / 255.0))
         carry[0] = carry[0] ^ (mask.sum() % 2).to(torch.uint8)
 
     for _ in range(WARMUP):
@@ -200,7 +208,7 @@ def measure_latency(w: dict, iters: int = LATENCY_LOOP, reps: int = REPS) -> lis
     carry = [w["data"][0][:1].float() / 255.0]
 
     def one():
-        boxes, _ = det.non_max_suppression(det.apply(carry[0]))
+        boxes, _ = _eager_decode(det, det.apply(carry[0]))
         carry[0] = carry[0] + 1e-7 * boxes[:, 0, 0].sum()
 
     for _ in range(10 * WARMUP):

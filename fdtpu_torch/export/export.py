@@ -36,6 +36,7 @@ from fdtpu_torch.kernels.nms import (
     ssd_output_tables_on,
 )
 from fdtpu_torch.models.detector import Detector, is_ssd
+from fdtpu_torch.utils.graphs import capture_body, clone_outputs
 
 
 class PredictProgram(nn.Module):
@@ -126,41 +127,29 @@ def load_exported(path: str | Path) -> nn.Module:
 
 class GraphPredict:
     """A predict program captured once in a CUDA graph with a static input
-    buffer. A call copies the frames into the buffer, replays the graph and
-    returns copies of the outputs. The frames must have the shape it was
-    captured at. K1's launch is captured with the rest. The capture runs
-    nothing and a replay passes no wrapper, so the graph counts K1 itself:
-    :attr:`k1_per_replay`, the launches captured (taken back out of
-    ``decode_filter_nms_batch.launches``), and :attr:`replays`."""
+    buffer (``utils/graphs.py``). A call copies the frames into the buffer,
+    replays the graph and returns copies of the outputs. The frames must
+    have the shape it was captured at. K1's launch is captured with the
+    rest. The capture runs nothing and a replay passes no wrapper, so the
+    graph counts K1 itself: :attr:`k1_per_replay`, the launches captured
+    (taken back out of ``decode_filter_nms_batch.launches``; every replay
+    adds them to ``utils.graphs.REPLAYED``), and :attr:`replays`."""
 
     def __init__(self, fn: nn.Module, example: torch.Tensor, warmup: int = 3):
-        if example.device.type != "cuda":
-            raise ValueError(f"a CUDA graph needs a card, got {example.device}")
-        self.input = example.clone()
-        # warm up on a side stream, so that the kernels' library, K1's
-        # shared-memory limit and cuDNN's algorithms are settled before the
-        # capture
-        side = torch.cuda.Stream(example.device)
-        side.wait_stream(torch.cuda.current_stream(example.device))
-        with torch.no_grad(), torch.cuda.stream(side):
-            for _ in range(warmup):
-                fn(self.input)
-        torch.cuda.current_stream(example.device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        launches = decode_filter_nms_batch.launches
-        with torch.no_grad(), torch.cuda.graph(self.graph):
-            self.boxes, self.mask = fn(self.input)
-        self.k1_per_replay = decode_filter_nms_batch.launches - launches
-        decode_filter_nms_batch.launches = launches
-        self.replays = 0
+        with torch.no_grad():
+            self._graph = capture_body(fn, (example.clone(),), warmup=warmup)
+        self.input = self._graph.inputs[0]
+        self.k1_per_replay = self._graph.per_replay["decode_filter_nms"]
+
+    @property
+    def replays(self) -> int:
+        return self._graph.replays
 
     def __call__(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if images.shape != self.input.shape:
             raise ValueError(f"captured at {tuple(self.input.shape)}, got {tuple(images.shape)}")
         self.input.copy_(images)
-        self.graph.replay()
-        self.replays += 1
-        return self.boxes.clone(), self.mask.clone()
+        return clone_outputs(self._graph.replay())
 
 
 def aot_compile_predict(

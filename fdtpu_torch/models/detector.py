@@ -8,6 +8,20 @@ thresholds and the serving API.
 * :meth:`Detector.predict` — one image of any size: host-side PIL resize and
   RGB normalisation, ``/255``, forward, decode+filter+NMS.
 
+On a card ``predict`` and ``non_max_suppression`` replay their device
+bodies from CUDA graphs (``utils/graphs.py``), fdtpu's jitted
+``_predict_jit`` and ``_nms_batch``: each is captured at its first call
+(building a Detector captures nothing), keyed by the input's shape and
+dtype, the thresholds rounded to float32 (K1 takes them by value, which a
+graph freezes) and the capacity; the :data:`MAX_GRAPHS` most recently used
+are kept, in one private memory pool. A lock guards each Detector's graphs,
+static inputs and pinned staging buffers, so two threads may share one
+Detector, as fdtpu's jitted calls may. A failed capture raises; nothing
+falls back to the eager body. On the CPU both run eagerly. ``apply`` is
+eager everywhere, as fdtpu's ``apply`` is not jitted. The graphs read the
+serving copy's params by address and hold its layers as they were at the
+capture: change the params in place.
+
 Dtype policy: the module the caller passes is the float32 master copy of
 the params. The detector runs a copy of it cast to the compute dtype
 (bfloat16 by default, as ``DetectorConfig.dtype``) in channels_last memory
@@ -25,20 +39,33 @@ statistics (its forward runs with ``train=False``).
 from __future__ import annotations
 
 import copy
+import threading
 
 import numpy as np
 import torch
 
 from fdtpu_torch.core.nms import decode_filter_nms, ssd_output_filter_nms
+from fdtpu_torch.kernels.nms import _f32
 from fdtpu_torch.models.layers import BatchNorm
 from fdtpu_torch.models.mobilenetv3 import MobileNetV3Backbone
 from fdtpu_torch.models.poolresnet import PoolResnet
 from fdtpu_torch.models.resnet import Resnet
 from fdtpu_torch.models.separable import SeparableCNN
 from fdtpu_torch.models.ssd import SSD, ssd_patch_sizes
+from fdtpu_torch.utils.graphs import Graph, GraphCache, capture_body, clone_outputs
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 FAMILIES = ("poolresnet", "resnet", "separable", "mobilenetv3", "ssd")
+MAX_GRAPHS = 8  # the CUDA graphs a Detector keeps
+
+
+def graph_key(kind: str, shape, dtype: torch.dtype, prob: float, iou: float,
+              capacity: int) -> tuple:
+    """The key of a :class:`Detector`'s CUDA graph: the program, its input's
+    shape and dtype, the thresholds rounded to float32 (K1 takes them by
+    value, which a graph freezes: thresholds that round alike share one
+    graph, as they give one result) and the capacity."""
+    return (kind, tuple(shape), dtype, _f32(prob), _f32(iou), int(capacity))
 
 
 def is_ssd(module) -> bool:
@@ -74,6 +101,13 @@ class Detector:
         for name, m in self.net.named_modules():
             if isinstance(m, BatchNorm):  # float32 params and statistics, as the master's
                 m.float().load_state_dict(module.get_submodule(name).state_dict())
+        # the CUDA graphs of predict and non_max_suppression, captured at
+        # their first call on a card, least recently used first; one lock
+        # for them, their static inputs and the pinned staging buffers
+        self._graphs = GraphCache(MAX_GRAPHS)
+        self._pool = self._done = None
+        self._staging: dict[torch.dtype, tuple] = {}
+        self._lock = threading.Lock()
 
     @property
     def device(self) -> torch.device:
@@ -96,14 +130,25 @@ class Detector:
     def non_max_suppression(self, output: torch.Tensor):
         """Batched decode+filter+NMS over raw model output: ``(boxes, mask)``
         with ``boxes`` ``(B, capacity, 5)`` rows ``[score, x, y, w, h]`` in
-        pixels."""
-        return self._decode(output, self.probability_threshold, self.iou_threshold)
+        pixels. On a card a replay of K1 captured for ``output``'s shape
+        (fdtpu's jitted ``_nms_batch``)."""
+        prob, iou, cap = self.probability_threshold, self.iou_threshold, self.nms_capacity
+        if output.device.type != "cuda":
+            return self._decode(output, prob, iou, cap)
+        key = graph_key("nms", tuple(output.shape), output.dtype, prob, iou, cap)
+        with self._lock, torch.cuda.device(output.device):
+            with torch.inference_mode(False), torch.no_grad():
+                g = self._graph(key, lambda: (output.clone(),),
+                                lambda x: self._decode(x, prob, iou, cap))
+                g.inputs[0].copy_(output)
+                outputs = g.replay()
+            return self._release(outputs)
 
-    def _decode(self, output: torch.Tensor, prob: float, iou: float):
+    def _decode(self, output: torch.Tensor, prob: float, iou: float, capacity: int):
         if is_ssd(self.module):
-            return ssd_output_filter_nms(output, self.image_size, prob, iou, self.nms_capacity)
+            return ssd_output_filter_nms(output, self.image_size, prob, iou, capacity)
         return decode_filter_nms(output, self.module.grid_size(), self.image_size, prob, iou,
-                                 self.nms_capacity)
+                                 capacity)
 
     @torch.inference_mode()
     def predict(
@@ -116,26 +161,76 @@ class Detector:
 
         Returns ``(normalized_image (H, W, 3), boxes (capacity, 5), mask)`` on
         the detector's device; :func:`fdtpu_torch.core.compact_boxes` gives
-        the ragged view.
+        the ragged view. The host step (:meth:`host_frame`) runs first; on
+        the CPU :meth:`predict_body` then runs eagerly, on a card the frame
+        goes through a pinned staging buffer into the static input of
+        :meth:`predict_body` captured in a CUDA graph, and that graph
+        replays (fdtpu's jitted ``_predict_jit``).
         """
         prob = self.probability_threshold if probability_threshold is None else probability_threshold
         iou = self.iou_threshold if iou_threshold is None else iou_threshold
+        arr = self.host_frame(image)
+        if self.device.type != "cuda":
+            norm, boxes, mask = self.predict_body(torch.tensor(arr, device=self.device), prob, iou)
+            return norm[0], boxes[0], mask[0]
+        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype  # arr may have negative strides
+        key = graph_key("predict", arr.shape, dtype, prob, iou, self.nms_capacity)
+        with self._lock, torch.cuda.device(self.device):
+            staging = self._staging.get(dtype)
+            if staging is None:
+                staging = self._staging[dtype] = (
+                    torch.empty(arr.shape, dtype=dtype, pin_memory=True), torch.cuda.Event())
+            buf, copied = staging
+            copied.synchronize()  # the last copy out of the staging buffer is done
+            buf.numpy()[...] = arr
+            g = self._graph(key, lambda: (buf.to(self.device),),
+                            lambda img: self.predict_body(img, prob, iou))
+            g.inputs[0].copy_(buf, non_blocking=True)
+            copied.record()
+            norm, boxes, mask = g.replay()
+            return self._release((norm[0], boxes[0], mask[0]))
+
+    def host_frame(self, image) -> np.ndarray:
+        """:meth:`predict`'s host step: ``image`` (numpy or a tensor, any
+        size) as an ``(H, W, 3)`` array at the model's input size, resized
+        and normalised to RGB on the host (PIL, like the reference's host
+        resize; RGBA and grayscale become RGB) unless it already has that
+        shape."""
         h, w = self.module.input_shape
         if isinstance(image, torch.Tensor):
             image = image.cpu().numpy()
         arr = np.asarray(image)
         if arr.ndim != 3 or arr.shape[-1] != 3 or arr.shape[:2] != (h, w):
-            # resize and normalize to RGB on the host (PIL, like the
-            # reference's host resize); RGBA and grayscale become RGB
             from PIL import Image
 
             if arr.dtype != np.uint8:
                 arr = np.clip(arr, 0, 255).astype(np.uint8)
             arr = np.asarray(Image.fromarray(arr).convert("RGB").resize((w, h), Image.BILINEAR))
-        img = torch.tensor(arr, device=self.device)
+        return arr
+
+    def predict_body(self, img: torch.Tensor, prob: float, iou: float):
+        """:meth:`predict`'s device body on an ``(H, W, 3)`` frame on the
+        device: ``/255``, the forward, decode+filter+NMS (K1). Returns the
+        batched ``(norm (1, H, W, 3), boxes (1, capacity, 5), mask)``."""
         norm = img.float()[None] / 255.0
-        boxes, mask = self._decode(self.net(norm), prob, iou)
-        return norm[0], boxes[0], mask[0]
+        boxes, mask = self._decode(self.net(norm), prob, iou, self.nms_capacity)
+        return norm, boxes, mask
+
+    def _release(self, outputs):
+        """Clones of a replay's ``outputs``; the next replay, whichever
+        stream it goes on, waits for them."""
+        outputs = clone_outputs(outputs)
+        self._done.record()
+        return outputs
+
+    def _graph(self, key: tuple, make_inputs, body) -> Graph:
+        """The graph of ``key``, captured at its first use from
+        ``make_inputs()`` (its static inputs); the least recently used goes
+        beyond :data:`MAX_GRAPHS`. Called under the lock."""
+        if self._pool is None:
+            self._pool, self._done = torch.cuda.graph_pool_handle(), torch.cuda.Event()
+        torch.cuda.current_stream().wait_event(self._done)
+        return self._graphs.get(key, lambda: capture_body(body, make_inputs(), self._pool))
 
     # -- introspection ------------------------------------------------------
 

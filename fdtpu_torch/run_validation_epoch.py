@@ -17,7 +17,9 @@ constants, as the original does: ``SSDConfig`` (16 filters by default, the
 patch sizes of the input size), the <120-face filter, box capacity 128 and
 NMS capacity 128. A ``.pth`` checkpoint goes through
 ``compat.load_reference_detector``: a grid model is wrapped so that its
-reference-layout output decodes to the reference's boxes.
+reference-layout output decodes to the reference's boxes. On a card the
+eval step replays from a CUDA graph (the Trainer's ``runner``), the
+official-predictions path too; on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from fdtpu_torch.data import BatchLoader, DevicePrefetcher, WIDERFaceDataSource, load_targets
 from fdtpu_torch.compat.torch_import import load_reference_detector
 from fdtpu_torch.models import DTYPES, FAMILIES, build_model, ssd_patch_sizes
-from fdtpu_torch.train import Trainer, make_eval_step
+from fdtpu_torch.train import Trainer
 from fdtpu_torch.train.checkpoint import restore_checkpoint
 from fdtpu_torch.train.metrics import average_precision, f1_score
 from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
@@ -107,8 +109,7 @@ def main(argv=None) -> dict:
         # (wrapped) imported model
         trainer.module = load_reference_detector(args.checkpoint, module)
         trainer.state.module = trainer.module
-        trainer.eval_step = make_eval_step(trainer.module, nms_params=nms_params,
-                                           return_boxes=True)
+        trainer.build_eval_steps()
     elif args.checkpoint:
         trainer.state = restore_checkpoint(args.checkpoint, trainer.state)
 
@@ -123,8 +124,9 @@ def main(argv=None) -> dict:
     # metrics and AP inputs accumulate together
     agg: dict[str, list] = {}
     preds, pmasks, gts, gmasks = [], [], [], []
+    eval_step = trainer.runner("eval")  # replayed from a CUDA graph on a card
     for batch in DevicePrefetcher(loader, trainer.device):
-        scalars, (pb, pm) = trainer.eval_step(
+        scalars, (pb, pm) = eval_step(
             trainer.state, batch.images, batch.boxes, batch.box_mask, batch.sample_mask)
         for k, v in scalars.items():
             agg.setdefault(k, []).append(float(v))
@@ -162,8 +164,9 @@ def _official(args, cfg, trainer) -> dict:
     in_size = (cfg.input_shape[1], cfg.input_shape[0])  # (w, h)
     preds = {}
     cursor = 0
+    eval_step = trainer.runner("eval")  # replayed from a CUDA graph on a card
     for batch in DevicePrefetcher(loader, trainer.device):
-        _, (pb, pm) = trainer.eval_step(
+        _, (pb, pm) = eval_step(
             trainer.state, batch.images, batch.boxes, batch.box_mask, batch.sample_mask)
         pb, pm = pb.cpu().numpy(), pm.cpu().numpy()
         for i in range(int(batch.sample_mask.sum())):

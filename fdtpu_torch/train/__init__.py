@@ -11,7 +11,7 @@ from fdtpu_torch.train.state import (  # noqa: F401
     make_optimizer,
 )
 from fdtpu_torch.train.step import make_eval_step, make_train_step  # noqa: F401
-from fdtpu_torch.train.graphs import CapturedTrainStep  # noqa: F401
+from fdtpu_torch.train.graphs import CapturedEvalStep, CapturedTrainStep  # noqa: F401
 from fdtpu_torch.train.loop import Trainer  # noqa: F401
 from fdtpu_torch.train.widerface_eval import (  # noqa: F401
     evaluate_widerface,

@@ -3,20 +3,23 @@
 * :class:`StreamedDriver` — per-batch host -> device streaming through
   :class:`~fdtpu_torch.data.pipeline.DevicePrefetcher`, one train step a
   batch: on a card a replay of the Trainer's captured step (a CUDA graph,
-  ``train/graphs.py``); ``steps_per_dispatch`` sets fdtpu's group log
-  cadence (its ``ScanDispatchDriver``).
+  ``train/graphs.py``), the metrics step's and the eval step's too;
+  ``steps_per_dispatch`` sets fdtpu's group log cadence (its
+  ``ScanDispatchDriver``).
 * :class:`ResidentDriver` — ``device_data``: the dataset staged once on the
   device as ``(N, H, W, 3)`` u8 tensors plus boxes and masks; each epoch is
   a permutation on the device and batches are gathered by index. Where the
-  Trainer replays, every batch but the metrics one replays the captured
-  step, which gathers its rows inside the graph, so the epoch has one host
+  Trainer replays, every batch replays its captured step (the metrics one
+  too), which gathers its rows inside the graph, so the epoch has one host
   sync, at its end, as fdtpu's epoch is one device program; it prints no
-  step line, as fdtpu's epoch scan prints none.
+  step line, as fdtpu's epoch scan prints none. The eval epoch replays the
+  captured eval step the same way, fdtpu's eval scan.
 
 Drivers read and write training state through the owning ``Trainer``
-(``state``, ``epoch``, the step functions, ``captured_step``, ``config``,
-``device``, and ``rank``/``world`` under data parallelism); the Trainer
-keeps checkpointing, step construction, logging and the fit loop.
+(``state``, ``epoch``, each batch's step by ``runner``, ``replaying``,
+``config``, ``device``, and ``rank``/``world`` under data parallelism);
+the Trainer keeps checkpointing, step construction, logging and the fit
+loop.
 
 Under ``data_parallel`` every rank runs the same driver on its slice of
 each global batch, through the data-parallel steps (their reductions make
@@ -26,8 +29,8 @@ slice of every global batch (fdtpu's ``_stage_from_source_multihost``) and
 draws its own real-first permutation of it each epoch (fdtpu's
 ``_device_epoch_sharded``: a stratified shuffle, every global batch taking
 ``B / world`` rows from each rank's pool). Only rank 0 draws. Over an NCCL
-group on the cards every rank replays its captured data-parallel step, as
-fdtpu scans its ``shard_map``'d step: streamed (fdtpu's
+group on the cards every rank replays its captured data-parallel steps, as
+fdtpu scans its ``shard_map``'d steps: streamed (fdtpu's
 ``ScanDispatchDriver`` under ``shard_map``, with its group log cadence) and
 resident, where each rank's graph gathers its rows by its own permutation.
 Over gloo the data-parallel steps run eagerly.
@@ -106,17 +109,19 @@ class EpochDriver:
 
     def _step(self, last: bool):
         """The metrics step on an epoch's final batch (with
-        ``train_metrics``), the plain train step otherwise."""
+        ``train_metrics``), the plain train step otherwise; each replayed
+        where the Trainer replays."""
         t = self.t
-        return t._metrics_train_step() if (last and t.config.train_metrics) else t.train_step
+        return t.runner("metrics" if last and t.config.train_metrics else "train")
 
     def _visualize_batch(self, batch_args, save_name: str):
         """Render sample 0's predictions (ModelMeta.py:144-157), on rank 0
-        alone, through the eval step without collectives."""
+        alone, through the eval step without collectives (replayed where the
+        Trainer replays)."""
         t = self.t
         if not t.primary:
             return
-        _, (pred_boxes, pred_mask) = t.local_eval_step(t.state, *batch_args)
+        _, (pred_boxes, pred_mask) = t.runner("local_eval")(t.state, *batch_args)
         draw_bbx(batch_args[0][0].cpu().numpy(), pred_boxes[0].cpu().numpy(),
                  mask=pred_mask[0].cpu().numpy(), save_name=save_name)
 
@@ -125,10 +130,10 @@ class StreamedDriver(EpochDriver):
     """Per-batch streaming feed (host decode -> prefetch -> one train step a
     batch); eval has the same shape.
 
-    Where the Trainer replays (``Trainer.replays``) every batch but the
-    metrics one replays its captured step (``t.captured_step``, a CUDA
-    graph: ``train/graphs.py``), as fdtpu runs one compiled dispatch a
-    batch; on the CPU, with ``nan_check`` or over gloo the eager step runs.
+    Where the Trainer replays (``Trainer.replays``) every batch replays its
+    captured step (``t.runner``, a CUDA graph: ``train/graphs.py``; the
+    metrics batch its own), as fdtpu runs one compiled dispatch a batch; on
+    the CPU, with ``nan_check`` or over gloo the eager steps run.
     ``steps_per_dispatch`` = k sets the log cadence alone (fdtpu's
     ``ScanDispatchDriver`` for k > 1): the batches go in fdtpu's groups of
     k, one log line (a host sync) at the last step of every
@@ -140,7 +145,6 @@ class StreamedDriver(EpochDriver):
     def train_epoch(self) -> dict:
         t = self.t
         k = t.config.steps_per_dispatch
-        step = t.captured_step if t.captured_step is not None else t.train_step
         losses = []
         det_metrics: dict = {}
         nb = len(t.train_loader)
@@ -151,10 +155,8 @@ class StreamedDriver(EpochDriver):
             args = (batch.images, batch.boxes, batch.box_mask, batch.sample_mask)
             if bi == 0 and t.config.visualize_first_batch:
                 self._visualize_batch(args, f"train_epoch_{t.epoch}")
-            if bi < grouped:
-                t.state, scalars = step(t.state, *args)
-            else:
-                t.state, scalars = t._metrics_train_step()(t.state, *args)
+            t.state, scalars = self._step(bi >= grouped)(t.state, *args)
+            if bi >= grouped:
                 det_metrics = {key: scalars[key] for key in DETECTION_KEYS}
             losses.append(scalars["loss"])
             ends_group = (bi < grouped or k == 1) and ((bi + 1) % k == 0 or bi == grouped - 1)
@@ -164,11 +166,14 @@ class StreamedDriver(EpochDriver):
         return _finalize_train_metrics(t, losses, det_metrics)
 
     def eval_epoch(self, loader, split: str) -> dict:
+        """One eval step a batch, replayed from its CUDA graph where the
+        Trainer replays (a smaller last batch is a graph of its own)."""
         t = self.t
+        step = t.runner("eval")
         agg: dict[str, list] = {}
         first = True
         for batch in DevicePrefetcher(loader, t.device):
-            scalars, (pred_boxes, pred_mask) = t.eval_step(
+            scalars, (pred_boxes, pred_mask) = step(
                 t.state, batch.images, batch.boxes, batch.box_mask, batch.sample_mask)
             for k, v in scalars.items():
                 agg.setdefault(k, []).append(v)
@@ -280,14 +285,13 @@ class ResidentDriver(EpochDriver):
         if t.config.visualize_first_batch:
             self._visualize_batch(rows(0), f"train_epoch_{t.epoch}")
         losses = []
-        captured = t.captured_step
+        data = (imgs, boxes, bm, sm)
         for i in range(nb):  # fdtpu's epoch scan: no step line (each would wait for the card)
-            if captured is not None and not (i == nb - 1 and t.config.train_metrics):
-                # the rows gathered inside the graph
-                data = (imgs, boxes, bm, sm)
-                t.state, scalars = captured.gather(t.state, data, perm[i * batch:(i + 1) * batch])
+            step = self._step(i == nb - 1)
+            if t.replaying:  # the rows gathered inside the graph
+                t.state, scalars = step.gather(t.state, data, perm[i * batch:(i + 1) * batch])
             else:
-                t.state, scalars = self._step(i == nb - 1)(t.state, *rows(i))
+                t.state, scalars = step(t.state, *rows(i))
             losses.append(scalars["loss"])
         det = {k: scalars[k] for k in DETECTION_KEYS} if "iou" in scalars else {}
         return _finalize_train_metrics(t, losses, det)
@@ -296,21 +300,31 @@ class ResidentDriver(EpochDriver):
 
     def eval_epoch(self, loader, split: str) -> dict:
         """Resident eval epoch over the staged loader's batches (contiguous
-        slices, no permutation), honoring the loader's ``drop_last``."""
+        slices, no permutation), honoring the loader's ``drop_last``: fdtpu's
+        eval scan. Where the Trainer replays, each batch replays the captured
+        eval step's gather form (its rows gathered inside the graph); the
+        per-batch scalars stay on the card and the host reads their means
+        once, at the epoch's end (fdtpu's ``v.mean()`` over the scan)."""
         t = self.t
         if loader not in self._device_val:
             self._device_val[loader] = self._stage_from_source(loader)
         imgs, boxes, bm, sm, n_real = self._device_val[loader]
+        data = (imgs, boxes, bm, sm)
         batch = loader.batch_size // t.world
+        index = torch.arange(imgs.shape[0], device=imgs.device)
+        step = t.runner("eval")
         agg: dict[str, list] = {}
         for i in range(self._epoch_batches(loader, n_real)):
             sl = slice(i * batch, (i + 1) * batch)
-            args = (imgs[sl], boxes[sl], bm[sl], sm[sl])
-            scalars, (pred_boxes, pred_mask) = t.eval_step(t.state, *args)
+            if t.replaying:
+                out = step.gather(t.state, data, index[sl])
+            else:
+                out = step(t.state, *(x[sl] for x in data))
+            scalars, (pred_boxes, pred_mask) = out
             for k, v in scalars.items():
                 agg.setdefault(k, []).append(v)
             if i == 0 and t.config.visualize_first_batch and t.primary:
-                draw_bbx(args[0][0].cpu().numpy(), pred_boxes[0].cpu().numpy(),
+                draw_bbx(imgs[0].cpu().numpy(), pred_boxes[0].cpu().numpy(),
                          mask=pred_mask[0].cpu().numpy(), save_name=f"{split}_epoch_{t.epoch}")
         return _finalize_eval_metrics(t, agg, split)
 

@@ -31,17 +31,18 @@ Trainer broadcasts rank 0's initial params and buffers; rank 0 writes the
 logs, drawings and checkpoints, and every rank waits for each checkpoint
 before it goes on; every rank reads the checkpoint on ``maybe_resume``.
 
-Dispatch (fdtpu's jitted step, its ``steps_per_dispatch`` scan and its
-resident epoch scan, under ``shard_map`` too): the Trainer replays its
-train step from a CUDA graph (:attr:`captured_step`, ``train/graphs.py``,
-with a capturable Adam) wherever the card can (:meth:`Trainer.replays`): on
-a card, without ``nan_check``, and with no data-parallel group or an NCCL
-one, whose collectives the graph captures. Both drivers replay it for
-every batch but the metrics step. The eager step runs on the CPU, under
-``nan_check`` (anomaly mode checks each backward on the host) and over a
-gloo group (its collectives run on the host): a rule of the configuration,
-not a fallback on failure. ``steps_per_dispatch`` sets the streamed feed's
-group log cadence, fdtpu's, whichever step runs.
+Dispatch (fdtpu's jitted steps, its ``steps_per_dispatch`` scan and its
+resident epoch scans, under ``shard_map`` too): the Trainer replays its
+train step, its metrics step and its eval steps from CUDA graphs
+(:meth:`Trainer.runner`, the one place that picks a batch's step;
+``train/graphs.py``, with a capturable Adam, the graphs in one memory
+pool) wherever the card can (:meth:`Trainer.replays`): on a card, without
+``nan_check``, and with no data-parallel group or an NCCL one, whose
+collectives the graphs capture. Both drivers replay them for every batch. The eager steps run on the CPU,
+under ``nan_check`` (anomaly mode checks each backward on the host) and
+over a gloo group (its collectives run on the host): a rule of the
+configuration, not a fallback on failure. ``steps_per_dispatch`` sets the
+streamed feed's group log cadence, fdtpu's, whichever step runs.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ from fdtpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from fdtpu_torch.train.drivers import make_driver
-from fdtpu_torch.train.graphs import CapturedTrainStep
+from fdtpu_torch.train.graphs import CapturedEvalStep, CapturedTrainStep
 from fdtpu_torch.train.state import create_train_state
 from fdtpu_torch.train.step import make_eval_step, make_train_step
 from fdtpu_torch.utils.config import TrainConfig
@@ -125,22 +126,53 @@ class Trainer:
         self.train_step = make_train_step(
             self.module, config, augment=augment, compute_metrics=False, nms_params=nms_params,
             group=self.group, route=self.route, **self._loss_kw)
-        self.eval_step = make_eval_step(self.module, nms_params=nms_params, return_boxes=True,
-                                        group=self.group, **self._loss_kw)
-        # the first-batch drawings: rank 0's own rows, no collective
-        self.local_eval_step = self.eval_step if self.group is None else make_eval_step(
-            self.module, nms_params=nms_params, return_boxes=True, **self._loss_kw)
-        # the train step in a CUDA graph, captured at its first replay
-        self.captured_step = CapturedTrainStep(self.train_step) if replays else None
+        # where the card can, every step a replay of its CUDA graph (runner),
+        # each captured at its first call, all in one memory pool
+        self.replaying = replays
+        self.graph_pool = torch.cuda.graph_pool_handle() if replays else None
+        self.captured: dict[str, CapturedTrainStep | CapturedEvalStep] = {}  # slot -> graph
+        self.build_eval_steps()
         self.epoch = 0
         self.profile_dir: str | None = None  # set to trace the next train epoch
         # feed mode (streamed / resident) -> one driver
         self.driver = make_driver(self)
 
+    def build_eval_steps(self) -> None:
+        """The eval steps of :attr:`module`: :attr:`eval_step` (over the
+        group) and :attr:`local_eval_step` (the first-batch drawings: rank
+        0's own rows, no collective). Called again after :attr:`module` is
+        rebound, which drops their graphs: a graph reads the params of the
+        module it captured."""
+        kw = dict(nms_params=self._nms_params, return_boxes=True, **self._loss_kw)
+        self.eval_step = make_eval_step(self.module, group=self.group, **kw)
+        self.local_eval_step = self.eval_step if self.group is None else make_eval_step(
+            self.module, **kw)
+        for slot in ("eval", "local_eval"):
+            self.captured.pop(slot, None)
+
+    def runner(self, slot: str):
+        """The step a batch of ``slot`` runs: ``"train"``, ``"metrics"``
+        (an epoch's last train batch with ``train_metrics``), ``"eval"`` or
+        ``"local_eval"`` (:attr:`local_eval_step`). Where the Trainer
+        replays (:attr:`replaying`), the replay of the step's CUDA graph,
+        kept in :attr:`captured` by slot and captured at its first call;
+        the eager step otherwise."""
+        eager = (self._metrics_train_step() if slot == "metrics"
+                 else getattr(self, f"{slot}_step"))
+        if not self.replaying:
+            return eager
+        if slot == "local_eval" and self.group is None:
+            slot = "eval"  # the same step
+        if slot not in self.captured:
+            kind = CapturedEvalStep if slot.endswith("eval") else CapturedTrainStep
+            self.captured[slot] = kind(eager, self.graph_pool)
+        return self.captured[slot]
+
     @staticmethod
     def replays(device: torch.device, config: TrainConfig, group) -> bool:
-        """Whether the Trainer replays its train step from a CUDA graph: on
-        a card, without ``nan_check``, over no group or an NCCL one."""
+        """Whether the Trainer replays its train, metrics and eval steps
+        from CUDA graphs: on a card, without ``nan_check``, over no group
+        or an NCCL one."""
         return (device.type == "cuda" and not config.nan_check
                 and (group is None or dist.get_backend(group) == "nccl"))
 

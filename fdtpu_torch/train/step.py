@@ -24,9 +24,10 @@ reseeded from ``(config.seed, step)``, so a step repeats exactly.
 
 A step is a host prologue (reseed the generator, set the learning rate
 from the schedule) and a device body (``step.prologue``, ``step.body``);
-the body of a step without metrics, over no group or an NCCL one, is what
-``train/graphs.py`` captures in a CUDA graph, fdtpu's jit, and replays
-after the same prologue.
+the body of a step, with metrics or without, over no group or an NCCL one,
+is what ``train/graphs.py`` captures in a CUDA graph, fdtpu's jit, and
+replays after the same prologue. The eval step's body (``step.body``, after
+the default ``sample_mask``) is captured the same way.
 
 BatchNorm state (MobileNetV3): the train step's forwards normalise by the
 batch's statistics and the eval step's by the running ones, whatever
@@ -264,9 +265,10 @@ def make_train_step(
     def body(state: TrainState, images, boxes, box_mask, sample_mask) -> dict:
         """The step's device part, after :func:`prologue`: the params,
         the optimizer and the BatchNorm statistics change in place; the
-        step count does not. Without metrics it makes no host sync and no
-        shape that depends on the data, its collectives included, so a
-        CUDA graph can capture it (``train/graphs.py``)."""
+        step count does not. It makes no host sync and no shape that
+        depends on the data (the metrics' decode is K1 at a fixed
+        capacity), its collectives included, so a CUDA graph can capture it
+        (``train/graphs.py``)."""
         net = state.module
         gen = state.generator
         with record_function("train/augment"):
@@ -365,14 +367,17 @@ def make_eval_step(
     ``neg_pos_ratio`` and ``bg_push`` are the SSD loss's, as in training.
     With ``group`` each rank passes its slice of the batch: the loss and the
     metrics come back reduced across the ranks, the boxes are the rank's.
+    A step is a host prologue (the default ``sample_mask``) and a device
+    body (``step.body``), which ``train/graphs.py`` captures.
     """
     _check_supported(module)
     image_size = _image_size(module)
 
     @torch.no_grad()
-    def step(state: TrainState, images, boxes, box_mask, sample_mask=None):
-        if sample_mask is None:
-            sample_mask = torch.ones(images.shape[:1], dtype=torch.bool, device=images.device)
+    def body(state: TrainState, images, boxes, box_mask, sample_mask):
+        """The step's device part: no host sync and no shape that depends on
+        the data, its collectives included, so a CUDA graph can capture it
+        (``train/graphs.py``: ``CapturedEvalStep``)."""
         imgs, bx, bm = _prepare_inputs(images, boxes, box_mask, None)
         enc, gt_locs = _encode_targets(state.module, bx, bm, image_size)
         _, (loss_sum, out) = _loss_and_out(state.module, imgs, enc, sample_mask, None, gt_locs,
@@ -381,6 +386,13 @@ def make_eval_step(
         return eval_scalars(state.module, out, loss_sum, bx, bm, sample_mask, nms_params,
                             return_boxes, group, norm)
 
+    def step(state: TrainState, images, boxes, box_mask, sample_mask=None):
+        if sample_mask is None:  # the host prologue
+            sample_mask = torch.ones(images.shape[:1], dtype=torch.bool, device=images.device)
+        return body(state, images, boxes, box_mask, sample_mask)
+
+    # what a captured step (train/graphs.py) needs to know and run
+    step.body, step.group, step.mesh = body, group, None
     return step
 
 

@@ -22,10 +22,11 @@ torchrun's group, and N must be its world size (-1 takes it).
 ``--data-parallel -1``. ``--batch-size`` is the global batch; rank 0 writes
 the logs and checkpoints.
 
-On the card every train batch but the metrics one replays the step
-captured in a CUDA graph, streamed or with ``--device-data``, in one
-process or in each NCCL rank (its collectives in the graph); gloo ranks
-(``--device cpu``) run the eager step. ``--steps-per-dispatch K`` groups
+On the card every train batch replays the step captured in a CUDA graph
+(the metrics batch its own graph), and every val batch the captured eval
+step, streamed or with ``--device-data``, in one process or in each NCCL
+rank (its collectives in the graph); gloo ranks (``--device cpu``) run
+the eager steps. ``--steps-per-dispatch K`` groups
 the streamed batches by K as fdtpu does: one log line every
 ``log_every_steps // K`` groups, and with more than one rank fdtpu's
 shard_map route for K > 1.

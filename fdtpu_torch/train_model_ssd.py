@@ -16,9 +16,9 @@ permutation). Logs go to ``logs/out_<run>.log`` (+ ``.jsonl``,
 ``--data-parallel N`` and ``--multihost`` as in ``fdtpu_torch.train_model``
 (fdtpu's SSD entry point has ``--data-parallel`` only; the port gives it
 both), and ``--steps-per-dispatch K``: fdtpu's groups of K streamed
-batches, the log cadence (on a card every batch but the metrics one
-replays the step captured in a CUDA graph, whatever K; one process only
-for K > 1). Left out, as there: ``--platform`` (``--device`` names the device).
+batches, the log cadence (on a card every batch replays the step
+captured in a CUDA graph, the metrics and val batches theirs, whatever K;
+one process only for K > 1). Left out, as there: ``--platform`` (``--device`` names the device).
 """
 
 from __future__ import annotations

@@ -1,0 +1,179 @@
+"""Device bodies captured in CUDA graphs, the port's counterpart of fdtpu's
+``jax.jit``: one helper for every captured program (``export.GraphPredict``,
+the :class:`~fdtpu_torch.models.Detector`'s ``predict`` and
+``non_max_suppression``, and the train and eval steps of
+``train/graphs.py``).
+
+A program is captured from static inputs: tensors on the card that a call
+fills (``copy_``) before it replays the graph. Before the capture the body
+runs on a side stream (:func:`warm_up`), so that the kernels' library, K1's
+shared-memory limit, the decode tables and cuDNN's and cuBLAS's choices are
+settled; :func:`capture` then records the body once into a private memory
+pool, which an owner (a Detector, a Trainer) may share between its graphs
+(``torch.cuda.graph_pool_handle``): they replay one at a time on one stream
+and each replay's outputs are cloned before the next replay, so no graph
+reads what another wrote.
+
+Kernel launches are counted by the wrappers (``.launches``) where they run.
+The warm-up's launches are real and stay counted; they are also summed in
+:data:`WARMED`. The capture runs nothing, so its launches are taken back
+out of the wrappers' counts into the graph's :attr:`Graph.per_replay`, and a
+replay, which passes no wrapper, adds them to :data:`REPLAYED`: the
+wrappers' counts plus :data:`REPLAYED` are every launch on the card.
+
+On a CPU device nothing is captured: the helpers raise ValueError, and a
+failed capture raises; nothing falls back to the eager body.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Callable
+
+import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_map
+
+from fdtpu_torch.kernels.nms import decode_filter_nms_batch
+from fdtpu_torch.kernels.photometric import photometric_batch
+from fdtpu_torch.kernels.rotate import shear_cols, shear_rows
+
+# the wrappers whose launches a graph counts: name -> (function, attribute)
+COUNTED = {
+    "decode_filter_nms": (decode_filter_nms_batch, "launches"),
+    "shear_rows": (shear_rows, "launches"),
+    "shear_rows_stacked": (shear_rows, "stacked_launches"),
+    "shear_cols": (shear_cols, "launches"),
+    "photometric": (photometric_batch, "launches"),
+}
+
+# the kernel launches of every replay of every graph, by wrapper
+REPLAYED = {k: 0 for k in COUNTED}
+# the kernel launches of every warm-up before a capture, by wrapper (also in
+# the wrappers' own counts)
+WARMED = {k: 0 for k in COUNTED}
+
+
+def wrapper_counts() -> dict:
+    """The wrappers' own launch counts (a replay does not tick them)."""
+    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTED.items()}
+
+
+def set_counts(counts: dict) -> None:
+    for k, (fn, attr) in COUNTED.items():
+        setattr(fn, attr, counts[k])
+
+
+def require_card(device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"a CUDA graph needs a card, got {device}")
+
+
+def clone_outputs(outputs):
+    """A copy of a graph's outputs (tensors in tuples and dicts), which the
+    next replay overwrites."""
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, outputs)
+
+
+@dataclasses.dataclass
+class Graph:
+    """One captured program: the graph, its static inputs, its outputs,
+    the kernel launches one replay makes, the bytes the capture added to
+    the reserved memory and the seconds the warm-up and capture took."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: Any
+    outputs: Any
+    per_replay: dict
+    pool_bytes: int
+    capture_s: float
+    lr: float | None = None  # the rate an SGD step was captured at
+    replays: int = 0
+
+    def replay(self):
+        """Replay the graph and count its launches; returns its static
+        outputs (:func:`clone_outputs` before the next replay)."""
+        self.graph.replay()
+        self.replays += 1
+        for k, n in self.per_replay.items():
+            REPLAYED[k] += n
+        return self.outputs
+
+
+class GraphCache:
+    """Graphs by key, made at a key's first use; beyond ``size`` graphs the
+    least recently used one goes (its memory back to the pool)."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.graphs: collections.OrderedDict[Any, Graph] = collections.OrderedDict()
+
+    def get(self, key, make: Callable[[], Graph]) -> Graph:
+        g = self.graphs.get(key)
+        if g is not None:
+            self.graphs.move_to_end(key)
+            return g
+        g = self.graphs[key] = make()
+        while len(self.graphs) > self.size:
+            self.graphs.popitem(last=False)
+        return g
+
+    def __len__(self) -> int:
+        return len(self.graphs)
+
+
+def warm_up(run: Callable[[], Any], device: torch.device, n: int, groups=()) -> None:
+    """``run()`` ``n`` times on a side stream, after one eager all-reduce on
+    each of ``groups``, which makes its NCCL communicator (none can be made
+    inside a capture); the current stream then waits for it."""
+    require_card(device)
+    start = wrapper_counts()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for group in groups:
+            dist.all_reduce(torch.zeros(1, device=device), group=group)
+        for _ in range(n):
+            run()
+    torch.cuda.current_stream(device).wait_stream(side)
+    for k, v in wrapper_counts().items():
+        WARMED[k] += v - start[k]
+
+
+def capture(run: Callable[[], Any], device: torch.device, inputs=None, pool=None,
+            generator: torch.Generator | None = None, t0: float | None = None) -> Graph:
+    """Capture ``run()`` into a graph whose outputs are what it returns,
+    after a :func:`warm_up`; ``pool`` is a ``graph_pool_handle`` to share,
+    ``generator`` a generator whose seed and offset a replay reads at replay
+    time (``CUDAGraph.register_generator_state``). ``t0``: when the warm-up
+    began, for :attr:`Graph.capture_s`."""
+    require_card(device)
+    t0 = time.perf_counter() if t0 is None else t0
+    torch.cuda.synchronize(device)
+    counts = wrapper_counts()
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    torch.cuda.empty_cache()  # as the capture does first: its pool is what it adds
+    reserved = torch.cuda.memory_reserved(device)
+    with torch.cuda.device(device), \
+            torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        outputs = run()
+    torch.cuda.synchronize(device)
+    after = wrapper_counts()
+    set_counts(counts)
+    return Graph(graph, inputs, outputs, {k: after[k] - counts[k] for k in COUNTED},
+                 torch.cuda.memory_reserved(device) - reserved, time.perf_counter() - t0)
+
+
+def capture_body(body: Callable[..., Any], inputs: tuple, pool=None, warmup: int = 2,
+                 groups=()) -> Graph:
+    """``body(*inputs)`` warmed up and captured, ``inputs`` its static
+    inputs on the card: the stateless programs' form of
+    :func:`warm_up` and :func:`capture`."""
+    device = inputs[0].device
+    t0 = time.perf_counter()
+    warm_up(lambda: body(*inputs), device, warmup, groups)
+    return capture(lambda: body(*inputs), device, inputs, pool, t0=t0)

@@ -230,7 +230,8 @@ def record(n, k, train_metrics, port: bool):
             return state, scalars(torch.tensor(float(idx(images))))
 
         t = type("T", (), {})()
-        t.captured_step, t.primary, t.device = None, True, torch.device("cpu")
+        t.primary, t.device = True, torch.device("cpu")
+        t.runner = lambda slot: metrics_step if slot == "metrics" else train_step  # eager
         driver = StreamedDriver(t)
     else:
         def train_step(state, images, *rest):
@@ -322,17 +323,23 @@ def nccl_backend(monkeypatch):
 
 @pytest.mark.parametrize("what", ["compute_metrics", "group", "mesh", "timer"])
 def test_captured_step_refuses_metrics_group_and_mesh(what, gloo_world, monkeypatch):
-    """A step with metrics, a data-parallel or spatial step over a gloo
-    group (its collectives run on the host) and any step while
-    ``parallel.halo.timer`` is set (it synchronises the card) are refused
-    at construction; a timer set after construction is refused at the
-    capture."""
+    """A data-parallel or spatial step over a gloo group (its collectives
+    run on the host) and any step while ``parallel.halo.timer`` is set (it
+    synchronises the card) are refused at construction; a timer set after
+    construction is refused at the capture. A step with metrics (K1's
+    decode and the metrics are device ops) is taken like any other: here
+    the CPU refuses its graph at its first call."""
     state, cfg = small_state()
-    match = {"compute_metrics": "metrics", "group": "gloo", "mesh": "gloo",
-             "timer": "halo.timer"}[what]
+    match = {"group": "gloo", "mesh": "gloo", "timer": "halo.timer"}.get(what)
     if what == "compute_metrics":
-        step = make_train_step(state.module, cfg, compute_metrics=True)
-    elif what == "group":
+        captured = CapturedTrainStep(make_train_step(state.module, cfg, compute_metrics=True))
+        batch = (torch.zeros((2, *SIZE, 3), dtype=torch.uint8), torch.zeros((2, 4, 5)),
+                 torch.zeros((2, 4), dtype=torch.bool))
+        with pytest.raises(ValueError, match="needs a card"):
+            captured(state, *batch)
+        assert state.step == 0 and not captured.graphs
+        return
+    if what == "group":
         step = make_dp_train_step(state.module, cfg, group=gloo_world)
     elif what == "mesh":
         step = make_dp_train_step(state.module, cfg, mesh=make_mesh(1, 1))
@@ -419,7 +426,7 @@ def test_dispatch_with_nan_check_raises(nan_check_fits):
     NaN in a backward raises."""
     (tt, got, got_lines), (jt, want, want_lines) = (nan_check_fits[side]
                                                     for side in ("port", "fdtpu"))
-    assert tt.captured_step is None
+    assert not tt.replaying and not tt.captured
     assert type(jt.driver).__name__ == "ScanDispatchDriver"
     assert list(got) == list(want)
     for key in want:
@@ -446,7 +453,7 @@ def test_dispatch_with_a_data_parallel_group_raises(tmp_path, gloo_world, monkey
     cfg = TrainConfig(steps_per_dispatch=2, log_path=str(tmp_path / "l.log"))
     trainer = Trainer(module, cfg, loader_, device="cpu")
     assert trainer.group is gloo_world and trainer.route == "shard_map"
-    assert trainer.train_step.group is gloo_world and trainer.captured_step is None
+    assert trainer.train_step.group is gloo_world and not trainer.replaying
     assert trainer.state.optimizer.param_groups[0]["capturable"] is False
     with pytest.raises(ValueError, match="gloo"):
         CapturedTrainStep(trainer.train_step)
@@ -492,7 +499,7 @@ def test_adam_is_capturable_only_where_a_graph_replays(tmp_path):
     for k in (1, 3):
         cfg = TrainConfig(steps_per_dispatch=k, log_path=str(tmp_path / f"l{k}.log"))
         trainer = Trainer(module, cfg, loader_, device="cpu")
-        assert trainer.captured_step is None
+        assert not trainer.replaying and not trainer.captured
         assert trainer.state.optimizer.param_groups[0]["capturable"] is False
 
 

@@ -1,0 +1,113 @@
+"""On a card (``gpu``; skipped without one): ``Detector.predict``,
+``non_max_suppression`` and the eval step replayed from their CUDA graphs
+equal their eager bodies bit for bit. No jax here, so the file runs on a
+machine without it: ``python -m pytest --noconftest
+tests/test_torch_serve_graphs_card.py``. ``chip_smoke.py`` phase 22 runs
+the full sweep at full width."""
+
+import numpy as np
+import pytest
+import torch
+
+from fdtpu_torch.models import Detector, PoolResnet
+from fdtpu_torch.train import CapturedEvalStep, create_train_state, make_eval_step
+from fdtpu_torch.utils.config import TrainConfig
+
+SIZE = (160, 160)
+THRESHOLDS = ((0.5, 0.5), (0.7, 0.01))
+
+
+def frames():
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, size=(*SIZE, 3), dtype=np.uint8),
+            rng.integers(0, 256, size=(480, 640, 3), dtype=np.uint8),
+            rng.uniform(0, 255, size=(*SIZE, 3)).astype(np.float32)]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_predict_and_nms_replay_equal_eager(card):
+    torch.manual_seed(0)
+    det = Detector(PoolResnet(16, SIZE, 5, 2).to(card), nms_capacity=32)
+    assert len(det._graphs) == 0
+    for _ in range(2):
+        for image in frames():
+            for prob, iou in THRESHOLDS:
+                got = det.predict(image, prob, iou)
+                with torch.inference_mode():
+                    img = torch.tensor(det.host_frame(image), device=card)
+                    want = det.predict_body(img, prob, iou)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w[0])
+    assert len(det._graphs) == 4  # (u8, float32) x two threshold pairs
+    assert sum(g.replays for g in det._graphs.graphs.values()) == 12
+    for b in (1, 8):
+        out = det.apply(torch.rand((b, *SIZE, 3), device=card))
+        got = det.non_max_suppression(out)
+        want = det._decode(out, det.probability_threshold, det.iou_threshold, det.nms_capacity)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_eval_step_replay_equals_eager(card):
+    torch.manual_seed(0)
+    module = PoolResnet(16, SIZE, 5, 2).to(card)
+    state = create_train_state(module, TrainConfig(), capturable=True)
+    step = make_eval_step(module, nms_params=(0.05, 0.5, 64), return_boxes=True)
+    captured = CapturedEvalStep(step)
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(0, 256, (4, *SIZE, 3), dtype=np.uint8)).to(card)
+    boxes = torch.tensor([[[1.0, 10, 20, 40, 50]] * 4] * 4, device=card)
+    mask = torch.tensor([[True, False, False, False]] * 4, device=card)
+    sample = torch.tensor([True, True, True, False], device=card)
+    for form in ("batch", "gather"):
+        ws, (wb, wm) = step(state, images, boxes, mask, sample)
+        if form == "batch":
+            gs, (gb, gm) = captured(state, images, boxes, mask, sample)
+        else:
+            gs, (gb, gm) = captured.gather(state, (images, boxes, mask, sample),
+                                           torch.arange(4, device=card))
+        assert all(torch.equal(ws[k], gs[k]) for k in ws)
+        assert torch.equal(wb, gb) and torch.equal(wm, gm)
+    assert captured.replays == 2
+
+
+@pytest.mark.gpu
+def test_threads_share_one_detector(card):
+    """More threads than cores predict on one Detector, two threshold pairs
+    in turn, the switch interval shortened: every result is its frame's
+    eager body, so no call read another's static buffers."""
+    import concurrent.futures
+    import os
+    import sys
+
+    torch.manual_seed(0)
+    det = Detector(PoolResnet(16, SIZE, 5, 2).to(card), nms_capacity=32)
+    rng = np.random.default_rng(2)
+    images = [rng.integers(0, 256, size=(*SIZE, 3), dtype=np.uint8) for _ in range(16)]
+    with torch.inference_mode():
+        want = [[det.predict_body(torch.tensor(im, device=card), p, i) for p, i in THRESHOLDS]
+                for im in images]
+
+    def run(k):
+        prob, iou = THRESHOLDS[k % 2]
+        return k, det.predict(images[k % len(images)], prob, iou)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = 2 * (os.cpu_count() or 1)
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            results = [f.result(timeout=120) for f in [pool.submit(run, k) for k in range(256)]]
+    finally:
+        sys.setswitchinterval(interval)
+    for k, got in results:
+        w = want[k % len(images)][k % 2]
+        assert all(torch.equal(g, x[0]) for g, x in zip(got, w)), k
+    assert len(results) == 256

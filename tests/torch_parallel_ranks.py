@@ -118,7 +118,7 @@ def dp_trainer(spec: dict, root: str, rank: int, world: int, name: str, **config
 
 def fitted(t: Trainer, metrics: dict, **extra) -> dict:
     return {"metrics": metrics, "step": t.state.step, "driver": type(t.driver).__name__,
-            "route": t.route, "replays": t.captured_step is not None,
+            "route": t.route, "replays": t.replaying,
             "state_dict": {k: v.clone() for k, v in t.state.module.state_dict().items()}, **extra}
 
 
