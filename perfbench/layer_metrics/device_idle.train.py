@@ -1,0 +1,8 @@
+"""The share of the traced training window in which no device operation
+ran."""
+
+from perfbench.layer_metrics._common import idle_percent
+
+
+def read(ctx):
+    return idle_percent(ctx, "train")
