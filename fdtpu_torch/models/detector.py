@@ -39,6 +39,7 @@ statistics (its forward runs with ``train=False``).
 from __future__ import annotations
 
 import copy
+import itertools
 import threading
 
 import numpy as np
@@ -52,6 +53,7 @@ from fdtpu_torch.models.poolresnet import PoolResnet
 from fdtpu_torch.models.resnet import Resnet
 from fdtpu_torch.models.separable import SeparableCNN
 from fdtpu_torch.models.ssd import SSD, ssd_patch_sizes
+from fdtpu_torch.utils import trace
 from fdtpu_torch.utils.graphs import Graph, GraphCache, capture_body, clone_outputs
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -108,6 +110,7 @@ class Detector:
         self._pool = self._done = None
         self._staging: dict[torch.dtype, tuple] = {}
         self._lock = threading.Lock()
+        self._calls = itertools.count()  # predict's calls: its spans' unit
 
     @property
     def device(self) -> torch.device:
@@ -150,7 +153,6 @@ class Detector:
         return decode_filter_nms(output, self.module.grid_size(), self.image_size, prob, iou,
                                  capacity)
 
-    @torch.inference_mode()
     def predict(
         self,
         image,
@@ -165,30 +167,37 @@ class Detector:
         the CPU :meth:`predict_body` then runs eagerly, on a card the frame
         goes through a pinned staging buffer into the static input of
         :meth:`predict_body` captured in a CUDA graph, and that graph
-        replays (fdtpu's jitted ``_predict_jit``).
+        replays (fdtpu's jitted ``_predict_jit``). Traced as
+        ``fdtpu/predict`` and its stages (``utils/trace.py``).
         """
         prob = self.probability_threshold if probability_threshold is None else probability_threshold
         iou = self.iou_threshold if iou_threshold is None else iou_threshold
-        arr = self.host_frame(image)
-        if self.device.type != "cuda":
-            norm, boxes, mask = self.predict_body(torch.tensor(arr, device=self.device), prob, iou)
-            return norm[0], boxes[0], mask[0]
-        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype  # arr may have negative strides
-        key = graph_key("predict", arr.shape, dtype, prob, iou, self.nms_capacity)
-        with self._lock, torch.cuda.device(self.device):
-            staging = self._staging.get(dtype)
-            if staging is None:
-                staging = self._staging[dtype] = (
-                    torch.empty(arr.shape, dtype=dtype, pin_memory=True), torch.cuda.Event())
-            buf, copied = staging
-            copied.synchronize()  # the last copy out of the staging buffer is done
-            buf.numpy()[...] = arr
-            g = self._graph(key, lambda: (buf.to(self.device),),
-                            lambda img: self.predict_body(img, prob, iou))
-            g.inputs[0].copy_(buf, non_blocking=True)
-            copied.record()
-            norm, boxes, mask = g.replay()
-            return self._release((norm[0], boxes[0], mask[0]))
+        with trace.span("fdtpu/predict", next(self._calls)), torch.inference_mode():
+            with trace.span("fdtpu/predict/host_frame"):
+                arr = self.host_frame(image)
+            if self.device.type != "cuda":
+                norm, boxes, mask = self.predict_body(torch.tensor(arr, device=self.device),
+                                                      prob, iou)
+                return norm[0], boxes[0], mask[0]
+            with self._lock, torch.cuda.device(self.device):
+                with trace.span("fdtpu/predict/stage"):
+                    # arr may have negative strides
+                    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+                    key = graph_key("predict", arr.shape, dtype, prob, iou, self.nms_capacity)
+                    staging = self._staging.get(dtype)
+                    if staging is None:
+                        staging = self._staging[dtype] = (
+                            torch.empty(arr.shape, dtype=dtype, pin_memory=True),
+                            torch.cuda.Event())
+                    buf, copied = staging
+                    copied.synchronize()  # the last copy out of the staging buffer is done
+                    buf.numpy()[...] = arr
+                    g = self._graph(key, lambda: (buf.to(self.device),),
+                                    lambda img: self.predict_body(img, prob, iou))
+                    g.inputs[0].copy_(buf, non_blocking=True)
+                    copied.record()
+                norm, boxes, mask = g.replay()
+                return self._release((norm[0], boxes[0], mask[0]))
 
     def host_frame(self, image) -> np.ndarray:
         """:meth:`predict`'s host step: ``image`` (numpy or a tensor, any
@@ -219,8 +228,9 @@ class Detector:
     def _release(self, outputs):
         """Clones of a replay's ``outputs``; the next replay, whichever
         stream it goes on, waits for them."""
-        outputs = clone_outputs(outputs)
-        self._done.record()
+        with trace.span("fdtpu/predict/release"):
+            outputs = clone_outputs(outputs)
+            self._done.record()
         return outputs
 
     def _graph(self, key: tuple, make_inputs, body) -> Graph:

@@ -45,7 +45,10 @@ every rank of a spatial step does. ``timer``, when a dict, collects the
 host seconds of the collectives (the device synchronised before and after
 each): the row exchanges under ``forward`` and ``backward``, a
 :func:`sum_over` under its own ``kind``: the measurement of
-``chip_smoke.py`` phase 19.
+``chip_smoke.py`` phase 19. While a profiler is active each collective is a
+span (``utils/trace.py``), in ``Trainer.profile``'s trace: ``spatial/halo``,
+``spatial/gather``, ``spatial/<kind>``, ``spatial/halo_backward`` and
+``spatial/<kind>_backward``.
 
 **Under a CUDA graph** (``train/graphs.py``). The tables are host
 constants of the plan, so every buffer's shape follows from the layer's
@@ -70,10 +73,10 @@ import time
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from fdtpu_torch.models.layers import conv, same_pads
 from fdtpu_torch.parallel.mesh import row_split
+from fdtpu_torch.utils import trace
 
 timer: dict | None = None
 
@@ -195,7 +198,7 @@ class _Halo(torch.autograd.Function):
         ctx.ex, ctx.index, ctx.group = ex, index, group
         ctx.shape = x.shape
         (sb, nb), (m0, nm), (sa, na) = ex.runs(index)
-        with record_function("spatial/halo"), _timed("forward", x.device):
+        with trace.span("spatial/halo"), _timed("forward", x.device):
             buf = _rows_like(x, len(ex.slots))
             for s0, r0, n in ex.writes(index):
                 buf[:, :, s0:s0 + n] = x[:, :, r0:r0 + n]
@@ -207,7 +210,7 @@ class _Halo(torch.autograd.Function):
     def backward(ctx, g):
         ex, index = ctx.ex, ctx.index
         (sb, nb), (m0, nm), (sa, na) = ex.runs(index)
-        with record_function("spatial/halo_backward"), _timed("backward", g.device):
+        with trace.span("spatial/halo_backward"), _timed("backward", g.device):
             grad = _rows_like(g, ctx.shape[2])
             buf = _rows_like(g, len(ex.slots))
             buf[:, :, sb:sb + nb] = g[:, :, :nb]
@@ -255,7 +258,7 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, y, own: tuple[tuple[int, int], ...], index: int, group):
         ctx.rows = own[index]
         a, b = ctx.rows
-        with record_function("spatial/gather"), _timed("forward", y.device):
+        with trace.span("spatial/gather"), _timed("forward", y.device):
             buf = _rows_like(y, own[-1][1])
             buf[:, :, a:b] = y
             dist.all_reduce(buf, group=group)
@@ -281,14 +284,14 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, kind: str):
         ctx.group, ctx.kind = group, kind
-        with record_function(f"spatial/{kind}"), _timed(f"{kind} forward", x.device):
+        with trace.span(f"spatial/{kind}"), _timed(f"{kind} forward", x.device):
             total = x.contiguous().clone()
             dist.all_reduce(total, group=group)
         return total
 
     @staticmethod
     def backward(ctx, g):
-        with record_function(f"spatial/{ctx.kind}_backward"), \
+        with trace.span(f"spatial/{ctx.kind}_backward"), \
                 _timed(f"{ctx.kind} backward", g.device):
             total = g.contiguous().clone()
             dist.all_reduce(total, group=ctx.group)

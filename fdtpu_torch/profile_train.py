@@ -38,8 +38,8 @@ in a CUDA graph (``fdtpu_torch.train.graphs.CapturedTrainStep``) and
 replayed, with its step ms by CUDA events, device busy ms and idle share,
 and the host's CUDA launch calls a step (kernel launches, graph launches,
 copies and fills) beside the kernels a replay runs on the card. A replay
-passes no ``record_function`` span, so the graph arm has no phase
-breakdown: the graph is one span. It also prints the graph's private pool
+runs no phase span (its host code ran at the capture), so the graph arm has
+no phase breakdown: the step is one ``fdtpu/train/step`` span. It also prints the graph's private pool
 bytes and the seconds its warm-up and capture took. The graph needs a
 capturable Adam (``train/state.py``), which ``--graph`` builds for both
 arms, so that they run the same arithmetic; without it the eager arm's Adam

@@ -50,6 +50,13 @@ counts) and its :attr:`Graph.replays`, and every replay adds its launches
 to ``utils.graphs.REPLAYED``, the count of all graphs' replays by
 wrapper, K1's among them.
 
+While a profiler is active (``utils/trace.py``) the call of a train or
+metrics step is the span ``fdtpu/train/step`` (its unit the state's step
+before the call: the feed's copy, the prologue, the replay's
+``fdtpu/graph/replay``, the outputs' clones); the eval step's call has none.
+A replay runs no host code, so the ``train/*`` phase spans of
+``train/step.py`` run in eager steps, warm-ups and captures only.
+
 A data-parallel or spatial step (``make_dp_train_step``,
 ``make_dp_eval_step``) is captured with its collectives: over an NCCL group
 each ``dist.all_reduce`` is a kernel on NCCL's stream, which the capture
@@ -71,7 +78,7 @@ raises, naming the rank; nothing falls back to the eager step.
 
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Callable
 
 import torch
@@ -79,6 +86,7 @@ import torch.distributed as dist
 
 from fdtpu_torch.parallel import halo
 from fdtpu_torch.train.state import TrainState, init_optimizer_state, is_capturable
+from fdtpu_torch.utils import trace
 from fdtpu_torch.utils.graphs import (
     COUNTED,
     Graph,
@@ -134,6 +142,7 @@ class _CapturedStep:
     sample_mask)`` staged on the card), gathered inside the graph."""
 
     warmup = 2  # body runs before a capture
+    traced_as = None  # the span of a call
 
     def __init__(self, step: Callable, pool=None):
         check_capturable(step)
@@ -148,21 +157,24 @@ class _CapturedStep:
     # -- calls ---------------------------------------------------------------------------
 
     def __call__(self, state: TrainState, images, boxes, box_mask, sample_mask=None):
-        if sample_mask is None:
-            sample_mask = torch.ones(images.shape[:1], dtype=torch.bool, device=images.device)
-        batch = (images, boxes, box_mask, sample_mask)
-        key = ("batch",) + tuple((tuple(t.shape), t.dtype) for t in batch)
-        g = self._graph(state, key, lambda: tuple(t.clone() for t in batch), lambda x: x)
-        for buf, t in zip(g.inputs, batch):
-            buf.copy_(t)
-        return self._replay(g, state)
+        with self._span(state):
+            if sample_mask is None:
+                sample_mask = torch.ones(images.shape[:1], dtype=torch.bool,
+                                         device=images.device)
+            batch = (images, boxes, box_mask, sample_mask)
+            key = ("batch",) + tuple((tuple(t.shape), t.dtype) for t in batch)
+            g = self._graph(state, key, lambda: tuple(t.clone() for t in batch), lambda x: x)
+            for buf, t in zip(g.inputs, batch):
+                buf.copy_(t)
+            return self._replay(g, state)
 
     def gather(self, state: TrainState, data: tuple, rows: torch.Tensor):
-        key = ("rows", tuple(rows.shape)) + tuple(id(t) for t in data)
-        g = self._graph(state, key, lambda: (rows.clone(), data),
-                        lambda x: tuple(t[x[0]] for t in x[1]))
-        g.inputs[0].copy_(rows)
-        return self._replay(g, state)
+        with self._span(state):
+            key = ("rows", tuple(rows.shape)) + tuple(id(t) for t in data)
+            g = self._graph(state, key, lambda: (rows.clone(), data),
+                            lambda x: tuple(t[x[0]] for t in x[1]))
+            g.inputs[0].copy_(rows)
+            return self._replay(g, state)
 
     def launches(self) -> dict:
         """The kernel launches of every replay so far, by wrapper."""
@@ -173,6 +185,13 @@ class _CapturedStep:
     @property
     def replays(self) -> int:
         return self._retired_replays + sum(g.replays for g in self.graphs.values())
+
+    def _span(self, state: TrainState):
+        """A call's span (``utils/trace.py``), its unit the state's step
+        before the call; none where the class names none."""
+        if self.traced_as is None:
+            return contextlib.nullcontext()
+        return trace.span(self.traced_as, state.step)
 
     # -- capture -------------------------------------------------------------------------
 
@@ -212,6 +231,7 @@ class CapturedTrainStep(_CapturedStep):
     ``state`` must be the one the graphs were captured on."""
 
     what = "train step"
+    traced_as = "fdtpu/train/step"
 
     def __init__(self, step: Callable, pool=None):
         super().__init__(step, pool)
@@ -235,23 +255,23 @@ class CapturedTrainStep(_CapturedStep):
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(f"torch {torch.__version__} cannot register the step's generator "
                                "with a CUDA graph (CUDAGraph.register_generator_state)")
-        t0 = time.perf_counter()
-        init_optimizer_state(state.optimizer)
-        saved = [t.clone() for t in state_tensors(state)]
 
-        def body():  # from the state, which is put back afterwards
+        def body():
             self.step.prologue(state)
             self.step.body(state, *feed(inputs))
             self.warmed += 1
 
-        warm_up(body, device, self.warmup, step_groups(self.step))
-        with torch.no_grad():
-            for t, s in zip(state_tensors(state), saved):
-                t.copy_(s)
-        del saved
-        self.step.prologue(state)  # the rate the capture reads, for SGD
+        def warm():  # from a copy of the state, which is put back afterwards
+            init_optimizer_state(state.optimizer)
+            saved = [t.clone() for t in state_tensors(state)]
+            warm_up(body, device, self.warmup, step_groups(self.step))
+            with torch.no_grad():
+                for t, s in zip(state_tensors(state), saved):
+                    t.copy_(s)
+            self.step.prologue(state)  # the rate the capture reads, for SGD
+
         g = capture(lambda: self.step.body(state, *feed(inputs)), device, inputs, self.pool,
-                    state.generator, t0)
+                    state.generator, warm)
         g.lr = lr
         return g
 

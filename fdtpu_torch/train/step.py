@@ -75,10 +75,12 @@ statistics over the whole mesh, GSPMD's global batch; its loss is weighed
 before the backward, as on the GSPMD route. The loss and the metrics, the
 same on every rank of a row, are reduced over the data group only.
 
-The train step's phases run under ``torch.profiler.record_function`` spans
-(``train/augment``, ``train/targets``, ``train/gradients``,
+The train step's phases run under spans (``utils/trace.py``:
+``train/augment``, ``train/targets``, ``train/gradients``,
 ``train/optimizer``, ``train/metrics``), which ``fdtpu_torch.profile_train``
-reads for device time by phase.
+reads for device time by phase. They are on only while a profiler is
+active, and run where the body's host code runs: in an eager step, a
+warm-up and a capture, not in a replay (``train/graphs.py``).
 """
 
 from __future__ import annotations
@@ -88,7 +90,6 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from fdtpu_torch.core.grid import encode_grid_targets
 from fdtpu_torch.core.nms import decode_filter_nms, ssd_output_filter_nms
@@ -114,6 +115,7 @@ from fdtpu_torch.parallel.spatial import spatial_forward, spatial_plan
 from fdtpu_torch.train.metrics import detection_metrics
 from fdtpu_torch.train.sam import global_norm, sam_gradients
 from fdtpu_torch.train.state import TrainState, set_learning_rate
+from fdtpu_torch.utils import trace
 from fdtpu_torch.utils.config import TrainConfig
 
 
@@ -271,13 +273,13 @@ def make_train_step(
         (``train/graphs.py``)."""
         net = state.module
         gen = state.generator
-        with record_function("train/augment"):
+        with trace.span("train/augment"):
             imgs, bx, bm = _prepare_inputs(
                 images, boxes, box_mask, gen if augment else None,
                 rotate=config.rotate_device, positional_crop=bool(config.positional_crop),
                 fused_photometric=config.fused_photometric,
             )
-        with record_function("train/targets"):
+        with trace.span("train/targets"):
             enc, gt_locs = _encode_targets(net, bx, bm, image_size)
         masks = DropoutMasks(gen)
         evaluations = 0
@@ -303,7 +305,7 @@ def make_train_step(
             return (loss, aux) if loss_scale is None else (loss * loss_scale, aux)
 
         params = [p for p in net.parameters() if p.requires_grad]
-        with record_function("train/gradients"), \
+        with trace.span("train/gradients"), \
                 batch_norm_over(net, group if global_stats else None):
             if config.use_sam:
                 _, aux, grads = sam_gradients(loss_fn, params, config.sam_rho, grad_reduce)
@@ -318,7 +320,7 @@ def make_train_step(
             if not global_stats:
                 mean_buffers(scalar_group, _batch_stats(net))
 
-        with record_function("train/optimizer"):
+        with trace.span("train/optimizer"):
             opt = state.optimizer
             for p, g in zip(params, grads):
                 p.grad = g
@@ -327,7 +329,7 @@ def make_train_step(
             scalars = {"loss": loss_sum.detach(), "grad_norm": global_norm(grads)}
 
         if compute_metrics:
-            with record_function("train/metrics"):
+            with trace.span("train/metrics"):
                 pred_boxes, pred_mask = _decode_predictions(
                     net, out.detach(), image_size, prob, iou_thr, capacity)
                 det = detection_metrics(pred_boxes, pred_mask, bx, bm, sample_mask)

@@ -21,6 +21,12 @@ out of the wrappers' counts into the graph's :attr:`Graph.per_replay`, and a
 replay, which passes no wrapper, adds them to :data:`REPLAYED`: the
 wrappers' counts plus :data:`REPLAYED` are every launch on the card.
 
+While a profiler is active (``utils/trace.py``) every capture, its warm-up
+included, is the span ``fdtpu/graph/capture`` and adds one to the counter
+``graph_captures``, and every replay's launch is the span
+``fdtpu/graph/replay``, a child of its caller's span (a predict, a train
+step).
+
 On a CPU device nothing is captured: the helpers raise ValueError, and a
 failed capture raises; nothing falls back to the eager body.
 """
@@ -39,6 +45,7 @@ from torch.utils._pytree import tree_map
 from fdtpu_torch.kernels.nms import decode_filter_nms_batch
 from fdtpu_torch.kernels.photometric import photometric_batch
 from fdtpu_torch.kernels.rotate import shear_cols, shear_rows
+from fdtpu_torch.utils import trace
 
 # the wrappers whose launches a graph counts: name -> (function, attribute)
 COUNTED = {
@@ -95,7 +102,8 @@ class Graph:
     def replay(self):
         """Replay the graph and count its launches; returns its static
         outputs (:func:`clone_outputs` before the next replay)."""
-        self.graph.replay()
+        with trace.span("fdtpu/graph/replay"):
+            self.graph.replay()
         self.replays += 1
         for k, n in self.per_replay.items():
             REPLAYED[k] += n
@@ -143,29 +151,37 @@ def warm_up(run: Callable[[], Any], device: torch.device, n: int, groups=()) -> 
 
 
 def capture(run: Callable[[], Any], device: torch.device, inputs=None, pool=None,
-            generator: torch.Generator | None = None, t0: float | None = None) -> Graph:
+            generator: torch.Generator | None = None,
+            warm: Callable[[], Any] | None = None) -> Graph:
     """Capture ``run()`` into a graph whose outputs are what it returns,
-    after a :func:`warm_up`; ``pool`` is a ``graph_pool_handle`` to share,
-    ``generator`` a generator whose seed and offset a replay reads at replay
-    time (``CUDAGraph.register_generator_state``). ``t0``: when the warm-up
-    began, for :attr:`Graph.capture_s`."""
+    after ``warm()`` (a :func:`warm_up`, and whatever the caller does
+    between it and the capture); ``pool`` is a ``graph_pool_handle`` to
+    share, ``generator`` a generator whose seed and offset a replay reads at
+    replay time (``CUDAGraph.register_generator_state``).
+    :attr:`Graph.capture_s`, the span ``fdtpu/graph/capture`` and the counter
+    ``graph_captures`` (``utils/trace.py``) cover the warm-up and the
+    capture."""
     require_card(device)
-    t0 = time.perf_counter() if t0 is None else t0
-    torch.cuda.synchronize(device)
-    counts = wrapper_counts()
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    torch.cuda.empty_cache()  # as the capture does first: its pool is what it adds
-    reserved = torch.cuda.memory_reserved(device)
-    with torch.cuda.device(device), \
-            torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-        outputs = run()
-    torch.cuda.synchronize(device)
-    after = wrapper_counts()
-    set_counts(counts)
-    return Graph(graph, inputs, outputs, {k: after[k] - counts[k] for k in COUNTED},
-                 torch.cuda.memory_reserved(device) - reserved, time.perf_counter() - t0)
+    with trace.span("fdtpu/graph/capture"):
+        trace.count("graph_captures")
+        t0 = time.perf_counter()
+        if warm is not None:
+            warm()
+        torch.cuda.synchronize(device)
+        counts = wrapper_counts()
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        torch.cuda.empty_cache()  # as the capture does first: its pool is what it adds
+        reserved = torch.cuda.memory_reserved(device)
+        with torch.cuda.device(device), \
+                torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            outputs = run()
+        torch.cuda.synchronize(device)
+        after = wrapper_counts()
+        set_counts(counts)
+        return Graph(graph, inputs, outputs, {k: after[k] - counts[k] for k in COUNTED},
+                     torch.cuda.memory_reserved(device) - reserved, time.perf_counter() - t0)
 
 
 def capture_body(body: Callable[..., Any], inputs: tuple, pool=None, warmup: int = 2,
@@ -174,6 +190,5 @@ def capture_body(body: Callable[..., Any], inputs: tuple, pool=None, warmup: int
     inputs on the card: the stateless programs' form of
     :func:`warm_up` and :func:`capture`."""
     device = inputs[0].device
-    t0 = time.perf_counter()
-    warm_up(lambda: body(*inputs), device, warmup, groups)
-    return capture(lambda: body(*inputs), device, inputs, pool, t0=t0)
+    return capture(lambda: body(*inputs), device, inputs, pool,
+                   warm=lambda: warm_up(lambda: body(*inputs), device, warmup, groups))
