@@ -325,6 +325,19 @@ non-zero; without a CUDA card it fails at once and prints no result):
     ``--serve`` runs phases 1, 2 and 22 alone. Phases 5, 6, 14-18 and 20
     go through the same replays (K1 counted once a call, eager or
     replayed; the warm-ups before a capture apart, ``utils.graphs.WARMED``).
+23. PoolResnet-128's narrow convolutions in the no-grad bf16 forward
+    (``layers.narrow_conv``): the 3-channel stem and the 5-channel head,
+    channels_last, at b1, b2, b4, b8, b16 and b32 at 480 px and b1, b4, b8
+    and b128 at 320 px (the head's input the blocks' output of a random
+    frame), ``F.conv2d`` through cuDNN against ``conv_gemm`` (im2col and
+    one GEMM), ten calls of an arm replayed from one CUDA graph and timed
+    by ``device_ms``, in turns (cuDNN, GEMM, GEMM, cuDNN, twice), each arm's
+    largest error against the float32 convolution of the same bf16
+    operands beside one bf16 step at the output's scale, the form the rule
+    picks and, at b1, each arm's kernels; the rejected candidate (the
+    stem's input channels zero-padded to 8 through cuDNN) timed once at
+    each shape. One JSON line, ``narrow_convs``. ``--stem`` runs phases 1
+    and 23 alone.
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment,
@@ -368,6 +381,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from fdtpu_torch import bench as fbench
 from fdtpu_torch import bench_pool_fusion as bpf
@@ -382,7 +396,8 @@ from fdtpu_torch.kernels import nms as knms
 from fdtpu_torch.kernels import photometric as kphoto
 from fdtpu_torch.kernels import rotate as krot
 from fdtpu_torch.losses.ssd import hard_negative_mining
-from fdtpu_torch.models.layers import BatchNorm, DropoutMasks
+from fdtpu_torch.kernels.conv_gemm import conv_gemm
+from fdtpu_torch.models.layers import BatchNorm, DropoutMasks, conv, narrow_conv
 from fdtpu_torch.models import (
     SSD,
     Detector,
@@ -3974,7 +3989,8 @@ def graph_counts() -> dict:
     """The launch counts of the kernels a train step can run, replays
     included (:func:`kernel_counts`)."""
     return {**kernel_counts(),
-            "photometric": kphoto.photometric_batch.launches + ugraphs.REPLAYED["photometric"]}
+            "photometric": kphoto.photometric_batch.launches + ugraphs.REPLAYED["photometric"],
+            "conv_gemm": conv_gemm.launches + ugraphs.REPLAYED["conv_gemm"]}
 
 
 def graph_state(spec: tuple):
@@ -4663,6 +4679,116 @@ def phase_serve(card, tmp) -> int:
     return launches
 
 
+# phase 23: the narrow convolutions, (batch, size, grid)
+NARROW_SHAPES = ((1, 480, 10), (2, 480, 10), (4, 480, 10), (8, 480, 10), (16, 480, 10),
+                 (32, 480, 10), (1, 320, 15), (4, 320, 15), (8, 320, 15), (128, 320, 15))
+NARROW_CALLS = 10  # calls of an arm in one CUDA graph
+
+
+def stem_padded_to_8(layer, x):
+    """The rejected candidate for the stem: its input channels zero-padded
+    to 8, input and weight, through cuDNN (the added products are exact
+    zeros)."""
+    pad = 8 - x.shape[1]
+    xp = F.pad(x.permute(0, 2, 3, 1), (0, pad)).permute(0, 3, 1, 2)
+    w = F.pad(layer.weight.to(x.dtype).permute(0, 2, 3, 1), (0, pad)).permute(0, 3, 1, 2)
+    return F.conv2d(xp, w, layer.bias.to(x.dtype), layer.stride, layer.padding)
+
+
+def graph_ms(fn, iters: int) -> float:
+    """The card's time for one call of ``fn``: :data:`NARROW_CALLS` calls
+    captured in one CUDA graph, its replays timed by :func:`device_ms`, so
+    that no call waits for the host's launches (a b1 call of ``conv_gemm``
+    launches for longer than the card runs it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(NARROW_CALLS):
+            fn()
+    ms = device_ms(graph.replay, iters) / NARROW_CALLS
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def kernel_names(fn, n: int = 3) -> list:
+    """The kernels ``fn`` runs, by device ms a call, longest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key[:100], round(e.self_device_time_total / n / 1e3, 5))
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase_narrow_convs(card) -> dict:
+    """23: the stem and the head, cuDNN against ``conv_gemm``."""
+    rows = []
+    with torch.no_grad():
+        for b, size, grid in NARROW_SHAPES:
+            det = Detector(build_model("poolresnet", DetectorConfig(input_shape=(size, size),
+                                                                    num_patches=grid),
+                                       "cuda", torch.Generator().manual_seed(SEED)))
+            net = det.net
+            x = torch.rand((b, size, size, 3), device="cuda").permute(0, 3, 1, 2)
+            x = x.to(torch.bfloat16)
+            feat = conv(net.conv1, x)
+            for block in net.residual_blocks:
+                feat = block(feat)
+            for name, layer, inp in (("stem", net.conv1, x), ("head", net.out, feat)):
+                ref = F.conv2d(inp.float(), layer.weight.float(), layer.bias.float(),
+                               layer.stride, layer.padding)
+                step = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+                arms = {"cudnn": lambda: conv(layer, inp), "conv_gemm": lambda: conv_gemm(layer, inp)}
+                row = {"layer": name, "shape": list(inp.shape), "bf16_step": step}
+                for arm, fn in arms.items():
+                    row[f"{arm}_err"] = (fn().float() - ref).abs().max().item()
+                iters = 20 if b == 1 else 5
+                times = {arm: [] for arm in arms}
+                for order in (("cudnn", "conv_gemm", "conv_gemm", "cudnn"),) * 2:
+                    for arm in order:
+                        times[arm].append(graph_ms(arms[arm], iters))
+                for arm in arms:
+                    row[f"{arm}_ms"] = statistics.median(times[arm])
+                    row[f"{arm}_ms_all"] = [round(t, 5) for t in times[arm]]
+                start = conv_gemm.launches
+                narrow_conv(layer, inp)
+                row["rule"] = "conv_gemm" if conv_gemm.launches > start else "cudnn"
+                if name == "stem":
+                    row["padded_to_8_ms"] = graph_ms(lambda: stem_padded_to_8(layer, inp), iters)
+                    row["padded_to_8_err"] = (stem_padded_to_8(layer, inp).float()
+                                              - ref).abs().max().item()
+                if b == 1:
+                    row["kernels"] = {arm: kernel_names(fn)[:4] for arm, fn in arms.items()}
+                check(row["conv_gemm_err"] <= row["cudnn_err"] + step,
+                      f"{name} b{b}: conv_gemm off by {row['conv_gemm_err']}")
+                rows.append(row)
+                print(f"[23 narrow] {name} {tuple(inp.shape)}: cuDNN {row['cudnn_ms']:.4f} ms, "
+                      f"conv_gemm {row['conv_gemm_ms']:.4f} ms, rule {row['rule']}; err "
+                      f"{row['cudnn_err']:.4g} / {row['conv_gemm_err']:.4g} (bf16 step {step})")
+            del det, net, x, feat
+            torch.cuda.empty_cache()
+    out = {"narrow_convs": {"card": card, "rows": rows}}
+    print(json.dumps(out))
+    return out
+
+
+def stem_only() -> None:
+    """``--stem``: the card and phase 23 alone."""
+    card, _ = phase_card()
+    phase_narrow_convs(card)
+
+
 def graph_only() -> None:
     """``--graph``: the card, the build and phase 21 alone, with 21c's
     timings."""
@@ -4746,6 +4872,7 @@ def main() -> None:
         entry_launches = phase_entry(card, tmp)
         graph_launches = phase_graph(card, tmp)["launches"]
         serve_launches = phase_serve(card, tmp)
+    phase_narrow_convs(card)
     k1_recorded_map_bounds()
 
     def entry(meta, launches, err, times, library_ms=None):
@@ -4799,5 +4926,7 @@ if __name__ == "__main__":
         graph_only()
     elif sys.argv[1:] == ["--serve"]:
         serve_only()
+    elif sys.argv[1:] == ["--stem"]:
+        stem_only()
     else:
         main()

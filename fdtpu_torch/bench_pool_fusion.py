@@ -34,7 +34,7 @@ import torch
 
 from fdtpu_torch.kernels.epilogue import fused_residual_tail
 from fdtpu_torch.models import Detector, build_model
-from fdtpu_torch.models.layers import conv, leaky_relu
+from fdtpu_torch.models.layers import conv, leaky_relu, narrow_conv
 from fdtpu_torch.utils.config import DetectorConfig
 
 ARMS = ("prod", "slicemax", "fused")
@@ -78,13 +78,14 @@ def slicemax_tail(c2: torch.Tensor, skip: torch.Tensor, pool: bool) -> torch.Ten
 
 
 def slicemax_forward(net, images: torch.Tensor) -> torch.Tensor:
-    """``net``'s eval forward with the slicemax tail in every block."""
+    """``net``'s eval forward with the slicemax tail in every block (the
+    stem and head as the forward runs them, ``layers.narrow_conv``)."""
     x = images.permute(0, 3, 1, 2).to(net.conv1.weight.dtype)
-    x = conv(net.conv1, x)
+    x = narrow_conv(net.conv1, x)
     for block in net.residual_blocks:
         c2 = conv(block.conv2, leaky_relu(conv(block.conv1, x)))
         x = slicemax_tail(c2, x, c2.shape[2] > block.pool_until)
-    x = conv(net.out, x)
+    x = narrow_conv(net.out, x)
     return torch.sigmoid(x.float()).permute(0, 2, 3, 1).contiguous()
 
 

@@ -1,5 +1,7 @@
 """Hand-written Hopper kernels with their plain PyTorch versions. The build
-module (``kernels/build.py``) is imported only when a kernel launches."""
+module (``kernels/build.py``) is imported only when a kernel launches.
+``conv_gemm.py`` holds no hand-written kernel: a convolution as one library
+GEMM, counted as the kernels' wrappers are."""
 
 from fdtpu_torch.kernels.epilogue import fused_residual_tail, reference_tail  # noqa: F401
 from fdtpu_torch.kernels.nms import (  # noqa: F401

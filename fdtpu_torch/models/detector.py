@@ -254,7 +254,11 @@ class Detector:
         serving copy on a zero image. A row counts what the module and the
         modules it calls compute: a layer its parent applies (the port
         applies its convolutions through ``layers.conv``) is counted in the
-        parent's row."""
+        parent's row. In bfloat16 that forward runs PoolResnet's stem and
+        head as one GEMM each (``layers.narrow_conv``, at batch 1), and
+        the counter counts the GEMMs: the stem's as its convolution (``K =
+        k^2 C``, nothing padded), the head's with its 5 output columns
+        padded to 8, so 8/5 of the head's convolution."""
         from torch.utils.flop_counter import FlopCounterMode
 
         h, w = self.module.input_shape

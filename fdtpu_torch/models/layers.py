@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fdtpu_torch.kernels.conv_gemm import conv_gemm
 from fdtpu_torch.kernels.epilogue import fused_residual_tail
 
 
@@ -77,6 +78,24 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, with_bias: bool = True,
     bias = layer.bias.to(x.dtype) if with_bias and layer.bias is not None else None
     return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride,
                     layer.padding if padding is None else padding, layer.dilation, layer.groups)
+
+
+def narrow_conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """:func:`conv` where a channel count is not a multiple of 8, which
+    cuDNN serves poorly: in a forward without autograd (``no_grad``,
+    ``inference_mode``) in bfloat16, the same convolution as one GEMM
+    (:func:`~fdtpu_torch.kernels.conv_gemm.conv_gemm`) where ``x`` has such
+    a channel count (a 3-channel stem, whose channels cuDNN pads in a pass
+    of its own), or where the layer's output has one and the batch is at
+    most 4 (a 5-channel head, which on an H100 cuDNN runs off the tensor
+    cores up to batch 4 at 480 px; from batch 8 it takes a tensor-core
+    kernel, which the GEMM's im2col matrix, ``k^2`` times the input at
+    stride 1, does not beat). Otherwise :func:`conv`, as in every step
+    that takes gradients."""
+    if not torch.is_grad_enabled() and x.dtype == torch.bfloat16 and (
+            x.shape[1] % 8 or (layer.out_channels % 8 and x.shape[0] <= 4)):
+        return conv_gemm(layer, x)
+    return conv(layer, x)
 
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:

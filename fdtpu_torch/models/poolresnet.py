@@ -5,7 +5,10 @@ the spatial size exceeds twice the grid, then a valid head conv (k=6 by
 default, 15 -> 10 at 480 px / grid 10) and a float32 sigmoid.
 
 The stem is the plain convolution; fdtpu's two-stage stem lowering has the
-same math and the same params, so its weights load here unchanged.
+same math and the same params, so its weights load here unchanged. In a
+forward without autograd in bfloat16 the stem, and the head up to batch 4,
+run as one GEMM each (``layers.narrow_conv``), which cuDNN serves poorly
+at 3 input or 5 output channels.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fdtpu_torch.models.layers import Dropout2d, DropoutMasks, ResidualBlock, conv, lecun_normal_
+from fdtpu_torch.models.layers import (Dropout2d, DropoutMasks, ResidualBlock, lecun_normal_,
+                                      narrow_conv)
 
 
 class PoolResnet(nn.Module):
@@ -93,10 +97,10 @@ class PoolResnet(nn.Module):
     def forward(self, images: torch.Tensor, masks: DropoutMasks | None = None) -> torch.Tensor:
         # an NHWC tensor seen as NCHW is in channels_last memory format
         x = images.permute(0, 3, 1, 2).to(self.compute_dtype or self.conv1.weight.dtype)
-        x = conv(self.conv1, x)
+        x = narrow_conv(self.conv1, x)
         for block in self.residual_blocks:
             x = block(x, masks)
-        x = conv(self.out, self.head_dropout(x, masks))
+        x = narrow_conv(self.out, self.head_dropout(x, masks))
         return torch.sigmoid(x.float()).permute(0, 2, 3, 1).contiguous()
 
 

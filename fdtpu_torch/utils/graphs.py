@@ -42,18 +42,21 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
+from fdtpu_torch.kernels.conv_gemm import conv_gemm
 from fdtpu_torch.kernels.nms import decode_filter_nms_batch
 from fdtpu_torch.kernels.photometric import photometric_batch
 from fdtpu_torch.kernels.rotate import shear_cols, shear_rows
 from fdtpu_torch.utils import trace
 
-# the wrappers whose launches a graph counts: name -> (function, attribute)
+# the wrappers whose launches a graph counts: name -> (function, attribute);
+# conv_gemm's are its GEMMs (the narrow convolutions of a no-grad bf16 forward)
 COUNTED = {
     "decode_filter_nms": (decode_filter_nms_batch, "launches"),
     "shear_rows": (shear_rows, "launches"),
     "shear_rows_stacked": (shear_rows, "stacked_launches"),
     "shear_cols": (shear_cols, "launches"),
     "photometric": (photometric_batch, "launches"),
+    "conv_gemm": (conv_gemm, "launches"),
 }
 
 # the kernel launches of every replay of every graph, by wrapper

@@ -22,6 +22,7 @@ import torch
 from fdtpu.models import PoolResnet as JaxPoolResnet
 from fdtpu.utils.config import DetectorConfig as JaxDetectorConfig
 from fdtpu_torch.compat import poolresnet_state_dict
+from fdtpu_torch.kernels.conv_gemm import conv_gemm
 from fdtpu_torch.models import SSD, Detector, PoolResnet, build_model
 from fdtpu_torch.utils.config import DetectorConfig
 
@@ -87,6 +88,22 @@ def test_forward_bf16_matches_fdtpu():
     assert det.net.conv1.weight.dtype == torch.bfloat16
     assert tm.conv1.weight.dtype == torch.float32  # the master stays float32
     np.testing.assert_allclose(got.numpy(), want, atol=BF16_ATOL, rtol=0)
+
+
+def test_forward_bf16_no_grad_matches_fdtpu():
+    """The serving copy's forward under ``no_grad``, where the stem, and the
+    head up to batch 4, run as one GEMM each (``layers.narrow_conv``), stays
+    within the same 2^-7 of fdtpu."""
+    jm, variables, tm = pair(dtype=jnp.bfloat16)
+    det = Detector(tm, dtype=torch.bfloat16)
+    for b, gemms in ((1, 2), (5, 1)):
+        x = images(b=b, seed=b)
+        want = np.asarray(jm.apply(variables, jnp.asarray(x), train=False))
+        start = conv_gemm.launches
+        with torch.no_grad():
+            got = det.net(torch.from_numpy(x))
+        assert conv_gemm.launches - start == gemms
+        np.testing.assert_allclose(got.numpy(), want, atol=BF16_ATOL, rtol=0)
 
 
 def test_fast_stem_params_load():

@@ -1,17 +1,21 @@
 """On a card (``gpu``; skipped without one): ``Detector.predict``,
 ``non_max_suppression`` and the eval step replayed from their CUDA graphs
-equal their eager bodies bit for bit. No jax here, so the file runs on a
-machine without it: ``python -m pytest --noconftest
+equal their eager bodies bit for bit, and the bf16 PoolResnet-128 predict
+graph at 480 px runs its stem and head as GEMMs (``layers.narrow_conv``),
+which no SSD predict graph and no train step graph does. No jax here, so
+the file runs on a machine without it: ``python -m pytest --noconftest
 tests/test_torch_serve_graphs_card.py``. ``chip_smoke.py`` phase 22 runs
-the full sweep at full width."""
+the full sweep at full width, phase 23 times the narrow convolutions."""
 
 import numpy as np
 import pytest
 import torch
 
-from fdtpu_torch.models import Detector, PoolResnet
-from fdtpu_torch.train import CapturedEvalStep, create_train_state, make_eval_step
-from fdtpu_torch.utils.config import TrainConfig
+from fdtpu_torch.models import Detector, PoolResnet, build_model
+from fdtpu_torch.train import (CapturedEvalStep, CapturedTrainStep, create_train_state,
+                               make_eval_step, make_train_step)
+from fdtpu_torch.utils import graphs
+from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 
 SIZE = (160, 160)
 THRESHOLDS = ((0.5, 0.5), (0.7, 0.01))
@@ -111,3 +115,74 @@ def test_threads_share_one_detector(card):
         w = want[k % len(images)][k % 2]
         assert all(torch.equal(g, x[0]) for g, x in zip(got, w)), k
     assert len(results) == 256
+
+
+def replay_kernel_names(det, frame, prob) -> set:
+    """The names of the kernels the card ran for one ``predict``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        det.predict(frame, prob)
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.gpu
+def test_poolresnet_predict_graph_runs_its_narrow_convs_as_gemms(card):
+    """The config of record's bf16 Detector (PoolResnet-128, 480 px, grid
+    10): the predict graph captured the stem's and the head's GEMMs
+    (``conv_gemm``, 2 a replay, ``REPLAYED`` up by 2 a frame), its replay
+    runs no cuDNN ``precomputed_convolve`` kernel, equals the eager body
+    bit for bit, and reads the serving copy's params as they are at the
+    replay."""
+    det = Detector(build_model("poolresnet", DetectorConfig(), card,
+                               torch.Generator().manual_seed(0)))
+    frame = np.random.default_rng(3).integers(0, 256, size=(480, 480, 3), dtype=np.uint8)
+    prob = 0.01  # boxes carry the scores of many candidates
+
+    def eager():
+        with torch.inference_mode():
+            return det.predict_body(torch.tensor(frame, device=card), prob, det.iou_threshold)
+
+    first = det.predict(frame, prob)
+    (g,) = det._graphs.graphs.values()
+    assert g.per_replay["conv_gemm"] == 2
+    start = graphs.REPLAYED["conv_gemm"]
+    names = replay_kernel_names(det, frame, prob)
+    assert graphs.REPLAYED["conv_gemm"] - start == 2
+    assert names and not [n for n in names if "precomputed_convolve" in n]
+    assert all(torch.equal(a, w[0]) for a, w in zip(first, eager()))
+    with torch.no_grad():
+        det.net.conv1.weight.mul_(0.5)
+        det.net.out.bias.add_(0.25)
+    changed = det.predict(frame, prob)
+    assert all(torch.equal(a, w[0]) for a, w in zip(changed, eager()))
+    assert not torch.equal(changed[1], first[1])
+    assert len(det._graphs) == 1
+
+
+@pytest.mark.gpu
+def test_ssd_predict_and_train_step_graphs_run_no_gemm_form(card):
+    """The cells' other graphs keep cuDNN: the bf16 SSD-16 predict graph at
+    480 px (the SSD has its own stem) and the train steps replayed at
+    PoolResnet-128 b8/480 and SSD-16 b24/480 (grad on)."""
+    gen = torch.Generator().manual_seed(0)
+    ssd_det = Detector(build_model("ssd", SSDConfig(), card, gen))
+    ssd_det.predict(np.zeros((480, 480, 3), dtype=np.uint8))
+    assert [g.per_replay["conv_gemm"] for g in ssd_det._graphs.graphs.values()] == [0]
+    rng = np.random.default_rng(4)
+    for family, cfg, b, tcfg in (
+            ("poolresnet", DetectorConfig(), 8, TrainConfig(rotate_device=True,
+                                                              positional_crop=True)),
+            ("ssd", SSDConfig(), 24, TrainConfig())):
+        module = build_model(family, cfg, card, torch.Generator().manual_seed(0),
+                             compute_dtype=torch.bfloat16)
+        state = create_train_state(module, tcfg, 100, capturable=True)
+        captured = CapturedTrainStep(make_train_step(module, tcfg))
+        images = torch.from_numpy(rng.integers(0, 256, (b, 480, 480, 3), dtype=np.uint8))
+        boxes = torch.tensor([[[1.0, 100, 120, 80, 90]] * 4] * b)
+        mask = torch.tensor([[True, False, False, False]] * b)
+        captured(state, images.to(card), boxes.to(card), mask.to(card))
+        (g,) = captured.graphs.values()
+        assert g.per_replay["conv_gemm"] == 0, family
+        assert captured.launches()["conv_gemm"] == 0, family
