@@ -6,7 +6,9 @@ framework, on one NVIDIA H100.
 JSON line. Everything is found by name from the cell's entry:
 
 * ``configs/<config>.json``: the model's sizes, its source and cuts, and
-  the name of its plain reference under ``reference/``;
+  its family's two modules (``families.py``): its plain reference,
+  ``reference/<reference>.py``, and how the program builds it,
+  ``programs/<family>.py``;
 * ``traffic/<mix>.json``: the parameters of a traffic mix, read by the
   module its ``mode`` names (``modes/train.py``, ``modes/stream.py``) and
   by the one data generator (``data.py``);

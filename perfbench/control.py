@@ -43,7 +43,7 @@ from perfbench import cell, data, judge, reference, weights  # noqa: E402
 from perfbench.modes import cell_class  # noqa: E402
 from perfbench.modes.stream import stream_weights  # noqa: E402
 from perfbench.reference.nn import Precision  # noqa: E402
-from perfbench.reference.serve import candidates, frame_rows, greedy_nms  # noqa: E402
+from perfbench.reference.serve import frame_rows, greedy_nms  # noqa: E402
 from perfbench.reference.train import follow  # noqa: E402
 
 
@@ -80,8 +80,10 @@ def control_train(spec, seed: int, device) -> dict:
         low = follow(ref, conf["model"], t, params, made, seed, steps, Precision("float8"))
         half = follow(ref, conf["model"], t, params, made, seed, steps, fault="half")
         bf16 = follow(ref, conf["model"], t, params, made, seed, steps, Precision("bfloat16"))
-    return {"control": judge.train_numbers(low, base), "half": judge.train_numbers(half, base),
-            "bfloat16": judge.train_numbers(bf16, base)}
+    rows = ref.box_rows(conf["model"])
+    return {"control": judge.train_numbers(low, base, rows),
+            "half": judge.train_numbers(half, base, rows),
+            "bfloat16": judge.train_numbers(bf16, base, rows)}
 
 
 def drop_half(rows, mask):
@@ -109,13 +111,12 @@ def control_stream(spec, seed: int, device) -> dict:
         lower = {kind: frame_rows(ref, params, frames, m, Precision(name))
                  for kind, name in (("control", "float8"), ("bfloat16", "bfloat16"))}
     lower["half_kept"] = base
-    tables = ref.decode_tables(m, base.shape[1], device)
     out = {}
     for kind, low in lower.items():
         numbers = []
         for b, lo in zip(base, low):
-            scores, boxes = candidates(b, tables)
-            rows, mask = greedy_nms(*candidates(lo, tables), prob, iou, cap)
+            scores, boxes = ref.candidates(b, m)
+            rows, mask = greedy_nms(*ref.candidates(lo, m), prob, iou, cap)
             if kind == "half_kept":
                 rows, mask = drop_half(rows, mask)
             numbers.append(judge.answer_numbers(rows, mask, scores, boxes, prob, iou, cap))

@@ -10,6 +10,11 @@ leaf or of the median leaf, whichever is larger):
 * ``grad_gap``: the first step's gradient as Adam received it, worked out
   from its first moment after the step (``m_1 = (1 - beta1) g``): the gap
   of ``|g|`` and ``|g_ref|``;
+* ``box_grad_gap``: that gradient's box rows alone (the rows of the
+  leaves that write box coordinates, the family's ``box_rows``, which the
+  loss reads at the positives only, so that no mining choice moves them):
+  each leaf's gap of norms against the larger of its norm and the median
+  box leaf's, the root mean square over those leaves;
 * ``change_gap``: the gap of the norms of each parameter's change over the
   three steps. Leaves whose reference gradient is under a thousandth of
   the median leaf's are left out (their change under Adam is round-off).
@@ -91,9 +96,19 @@ def moving_leaves(first_grad_ref: dict) -> set[str]:
     return {k for k, n in norms.items() if n >= 1e-3 * median}
 
 
-def train_numbers(prog: dict, ref: dict) -> dict[str, float]:
+def box_gap(prog: dict, ref: dict, rows: list[tuple[str, slice]]) -> float:
+    """The root mean square over the ``(leaf, rows)`` of each one's gap of
+    norms, against the larger of its reference norm and the median one's."""
+    norms = [float(torch.linalg.vector_norm(ref[k][r].float())) for k, r in rows]
+    median = float(torch.tensor(norms).median())
+    gaps = [abs(float(torch.linalg.vector_norm(prog[k][r].float())) - n) / max(n, median, 1e-30)
+            for (k, r), n in zip(rows, norms)]
+    return (sum(g * g for g in gaps) / len(gaps)) ** 0.5
+
+
+def train_numbers(prog: dict, ref: dict, box_rows: list[tuple[str, slice]]) -> dict[str, float]:
     """``prog`` and ``ref``: ``losses`` (the first steps'), ``first_grad``
-    and ``change`` by parameter name."""
+    and ``change`` by parameter name; ``box_rows``: the family's."""
     gaps = [abs(p - r) / max(abs(r), 1e-30) for p, r in zip(prog["losses"], ref["losses"])]
     if len(prog["losses"]) != len(ref["losses"]):
         gaps = [float("inf")]
@@ -101,7 +116,9 @@ def train_numbers(prog: dict, ref: dict) -> dict[str, float]:
     change, change_median = _leaf_gaps(prog["change"], ref["change"],
                                        moving_leaves(ref["first_grad"]))
     return {"loss_gap": max(gaps), "loss1_gap": gaps[0], "grad_gap": grad,
-            "grad_gap_median": grad_median, "change_gap": change,
+            "grad_gap_median": grad_median,
+            "box_grad_gap": box_gap(prog["first_grad"], ref["first_grad"], box_rows),
+            "change_gap": change,
             "change_gap_median": change_median}
 
 

@@ -34,7 +34,7 @@ import torch
 from torch.profiler import record_function
 
 from perfbench import data, judge, program, reference, weights
-from perfbench.reference.serve import candidates, frame_rows
+from perfbench.reference.serve import frame_rows
 from perfbench.roofline import flops
 from perfbench.trace import traced
 
@@ -115,7 +115,7 @@ class Cell:
 
     def layer_context(self) -> dict:
         return {"mode": "stream", "images_per_unit": 1,
-                "flops_per_image": flops.forward_flops(self.config["family"],
+                "flops_per_image": flops.forward_flops(self.config["reference"],
                                                        self.config["model"]),
                 "latencies_ms": self.latencies_ms, "nms": getattr(self, "nms_work", [])}
 
@@ -134,8 +134,7 @@ class Cell:
         frames = torch.from_numpy(np.stack(self.frames)).to(self.device)
         with reference.strict_float32():
             rows = frame_rows(ref, self.weights, frames, m)
-        tables = ref.decode_tables(m, rows.shape[1], self.device)
-        cands = [candidates(r, tables) for r in rows]
+        cands = [ref.candidates(r, m) for r in rows]
         distinct: dict = {}
         for frame, boxes, mask in self.answers:
             key = (frame, boxes.tobytes(), mask.tobytes())

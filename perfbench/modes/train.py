@@ -1,5 +1,6 @@
 """The ``train`` mode: resident training through the program's Trainer,
-``train_model --device-data``'s path (``train_model_ssd``'s for the SSD).
+``train_model --device-data``'s path (``train_model_ssd``'s for the SSD),
+with the family's loss arguments (``programs/<family>.py``).
 
 Set-up makes the dataset (``data.faces``, the configuration's
 ``train_images`` at its input size, on the card, then on the host, where
@@ -172,8 +173,7 @@ class Cell:
                            rotate_device=t["rotate_device"])
         self.trainer = Trainer(net, tcfg, loader, None, augment=t["augment"],
                                run_name=self.name, device=self.device,
-                               neg_pos_ratio=t.get("neg_pos_ratio", 10),
-                               bg_push=t.get("bg_push", 0.0))
+                               **program.family(c).loss_kwargs(c))
         self.steps_per_epoch = len(loader)
         self.recorder = Recorder(self.mix["check_steps"])
         rotating = t["augment"] and t["rotate_device"]
@@ -220,7 +220,7 @@ class Cell:
     def layer_context(self) -> dict:
         m, t = self.config["model"], self.train
         return {"mode": "train", "images_per_unit": self.batch,
-                "flops_per_image": flops.train_step_flops(self.config["family"], m),
+                "flops_per_image": flops.train_step_flops(self.config["reference"], m),
                 "shear_launches": self.shear_launches}
 
     def release(self) -> None:
@@ -250,4 +250,5 @@ class Cell:
             print("check: the program's rows differ from the reference's row order",
                   file=sys.stderr)
         self.details = judge.train_details(self.program_out, out)
-        return judge.train_numbers(self.program_out, out), 0
+        rows = ref.box_rows(self.config["model"])
+        return judge.train_numbers(self.program_out, out, rows), 0

@@ -3,10 +3,13 @@
 Each family is a module of functions over a dict of float32 tensors named
 as the program's ``state_dict``: ``param_specs(model)`` (names, shapes and
 initialisers, from which ``perfbench/weights.py`` draws the weights that
-both sides get) and ``forward(params, images, model, precision, masks)``.
-The augmentation, the targets, the losses, SAM with Adam and the decode
-with greedy NMS are frozen copies of the program's semantics, written over
-again in float32. Nothing here imports ``fdtpu_torch`` or the JAX package,
+both sides get), ``forward(params, images, model, precision, masks)``, and
+whatever else the generic code needs of a family (``perfbench/families.py``
+lists it): its FLOPs, the width of its rows, its decode, the biases that
+set its scores, its targets and loss, and its size for the CPU dry runs.
+The augmentation, the losses' parts, SAM with Adam and greedy NMS are
+shared, frozen copies of the program's semantics, written over again in
+float32. Nothing here imports ``fdtpu_torch`` or the JAX package,
 and nothing takes a tensor the program made: the references work out the
 augmentation draws, the targets and the row order again from the seed.
 
@@ -17,6 +20,8 @@ and cuBLAS while a reference runs and restores the flags after it.
 import contextlib
 
 import torch
+
+from perfbench import families
 
 
 @contextlib.contextmanager
@@ -32,13 +37,6 @@ def strict_float32():
 
 
 def family(name: str):
-    """The reference module of a configuration's ``reference`` key."""
-    if name == "poolresnet":
-        from perfbench.reference import poolresnet
-
-        return poolresnet
-    if name == "ssd":
-        from perfbench.reference import ssd
-
-        return ssd
-    raise ValueError(f"no reference named {name!r}")
+    """The reference module of a configuration's ``reference`` key,
+    ``reference/<name>.py`` (``perfbench/families.py``)."""
+    return families.load("reference", name)

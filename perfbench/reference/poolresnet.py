@@ -15,7 +15,15 @@ from __future__ import annotations
 
 import torch
 
+from perfbench.reference import objectives
 from perfbench.reference.nn import FLOAT32, NO_DROPOUT, Masks, Precision, conv, leaky, max_pool
+from perfbench.reference.serve import linear_candidates
+from perfbench.roofline import flops
+
+flop_counts = flops.poolresnet  # the forward's FLOPs of one image, and the stem's
+ROW = 5  # [conf, x_rel, y_rel, w_norm, h_norm]
+TINY = dict(filters=8, input_shape=[64, 64], num_patches=2, num_residual_blocks=2,
+            output_kernel_size=3)  # the CPU dry runs' sizes
 
 
 def _blocks(model: dict) -> int:
@@ -39,10 +47,16 @@ def param_specs(model: dict) -> list[tuple[str, tuple, tuple]]:
     return specs + layer("out", 5, f, ok)
 
 
-def score_heads(model: dict) -> list[tuple[str, slice]]:
-    """The bias whose first entry sets the candidates' scores, and which
-    candidates it sets."""
-    return [("out.bias", slice(None))]
+def score_heads(model: dict) -> list[tuple[str, slice, int]]:
+    """The bias that sets the candidates' scores, which candidates it
+    sets, and its entry that shifts their score logits."""
+    return [("out.bias", slice(None), 0)]
+
+
+def box_rows(model: dict) -> list[tuple[str, slice]]:
+    """The leaves whose rows (along dim 0) write the box coordinates, and
+    those rows: the head's ``[x_rel, y_rel, w_norm, h_norm]``."""
+    return [("out.weight", slice(1, 5)), ("out.bias", slice(1, 5))]
 
 
 def grid_size(model: dict) -> int:
@@ -87,3 +101,21 @@ def decode_tables(model: dict, n_rows: int, device) -> tuple:
     col, row = (cells % s).float(), torch.div(cells, s, rounding_mode="floor").float()
     return (torch.full((s * s,), xp, device=device), col * xp,
             torch.full((s * s,), yp, device=device), row * yp, float(w), float(h))
+
+
+def candidates(rows: torch.Tensor, model: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """One frame's ``(S * S, 5)`` rows -> scores and boxes, by the shared
+    linear decode."""
+    return linear_candidates(rows, decode_tables(model, rows.shape[0], rows.device))
+
+
+def targets(model: dict, train: dict, boxes, valid, size: tuple[int, int], device):
+    """A batch's pixel boxes -> the grid's ``(B, S, S, 5)`` targets."""
+    return objectives.grid_targets(boxes, valid, grid_size(model), size)
+
+
+def loss(pred, target, real, train: dict):
+    """-> ``(the YOLO loss's mean over the batch's real images, which is
+    differentiated, its batch sum, which is reported)``."""
+    total = (objectives.yolo_loss(pred, target) * real).sum()
+    return total / real.sum().clamp_min(1), total

@@ -2,7 +2,9 @@
 every candidate and greedy NMS, with the semantics of the reference
 repository's decode as the program keeps them.
 
-A candidate's box is ``x = x_out * scale_x + offset_x`` (the grid's cell
+A family decodes its own rows (its reference module's ``candidates``);
+the linear decode here is the one the grid and the SSD share: a
+candidate's box is ``x = x_out * scale_x + offset_x`` (the grid's cell
 offsets, or the SSD's pixel scaling of normalised rows), ``w = w_out *
 W``; its corners are rounded half to even, and the box is ``[x0, y0, x1 -
 x0, y1 - y0]``. A candidate is eligible where its score is above the
@@ -25,9 +27,10 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def candidates(rows: torch.Tensor, tables) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(N, 5)`` model rows -> scores ``(N,)`` and boxes ``(N, 4)``
-    ``[x0, y0, w, h]`` with rounded corners."""
+def linear_candidates(rows: torch.Tensor, tables) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(N, 5)`` model rows ``[score, x, y, w, h]`` and a family's decode
+    tables -> scores ``(N,)`` and boxes ``(N, 4)`` ``[x0, y0, w, h]`` with
+    rounded corners."""
     sx, ox, sy, oy, w_scale, h_scale = tables
     x = rows[:, 1] * sx + ox
     y = rows[:, 2] * sy + oy
@@ -78,12 +81,12 @@ def greedy_nms(scores, boxes, prob: float, iou_thr: float, capacity: int):
 
 def frame_rows(ref, params, frames_u8, model, precision: Precision = FLOAT32,
                block: int = 16) -> torch.Tensor:
-    """The model's rows ``(F, N, 5)`` for ``(F, H, W, 3)`` uint8 frames, in
-    blocks of ``block`` frames."""
+    """The model's rows ``(F, N, ref.ROW)`` for ``(F, H, W, 3)`` uint8
+    frames, in blocks of ``block`` frames."""
     out = []
     with torch.no_grad():
         for i in range(0, frames_u8.shape[0], block):
             x = frames_u8[i:i + block].float() / 255.0
             y = ref.forward(params, x, model, precision)
-            out.append(y.reshape(y.shape[0], -1, 5))
+            out.append(y.reshape(y.shape[0], -1, ref.ROW))
     return torch.cat(out)

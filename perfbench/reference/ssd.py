@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from perfbench.reference import objectives
 from perfbench.reference.nn import (
     FLOAT32,
     NO_DROPOUT,
@@ -28,6 +29,12 @@ from perfbench.reference.nn import (
     linear,
     max_pool,
 )
+from perfbench.reference.serve import linear_candidates
+from perfbench.roofline import flops
+
+flop_counts = flops.ssd  # the forward's FLOPs of one image, and the stem's
+ROW = 5  # [score, x, y, w, h], normalised
+TINY = dict(filters=4, input_shape=[64, 64], patch_sizes=[8, 4, 2, 1])  # the CPU dry runs'
 
 
 def blocks(model: dict) -> list[tuple[str, int, int, bool]]:
@@ -62,14 +69,22 @@ def param_specs(model: dict) -> list[tuple[str, tuple, tuple]]:
     return specs + heads
 
 
-def score_heads(model: dict) -> list[tuple[str, slice]]:
-    """Each head's bias, whose first entry sets its scale's scores, and
-    the candidates of that scale."""
+def score_heads(model: dict) -> list[tuple[str, slice, int]]:
+    """Each head's bias, the candidates of its scale, and the bias's entry
+    that shifts their score logits."""
     out, start = [], 0
     for i, ps in enumerate(model["patch_sizes"]):
-        out.append((f"heads.{i}.bias", slice(start, start + ps * ps)))
+        out.append((f"heads.{i}.bias", slice(start, start + ps * ps), 0))
         start += ps * ps
     return out
+
+
+def box_rows(model: dict) -> list[tuple[str, slice]]:
+    """The leaves whose rows (along dim 0) write the box coordinates, and
+    those rows: each head's ``[x, y, w, h]``, which the loss reads at the
+    positives alone (mining does not select them)."""
+    return [(f"heads.{i}.{part}", slice(1, 5))
+            for i in range(len(model["patch_sizes"])) for part in ("weight", "bias")]
 
 
 def priors(patch_sizes, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -122,3 +137,28 @@ def decode_tables(model: dict, n_rows: int, device) -> tuple:
     ones = torch.ones(n_rows, device=device)
     zeros = torch.zeros(n_rows, device=device)
     return ones * w, zeros, ones * h, zeros, float(w), float(h)
+
+
+def candidates(rows: torch.Tensor, model: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """One frame's ``(N, 5)`` rows -> scores and boxes, by the shared
+    linear decode."""
+    return linear_candidates(rows, decode_tables(model, rows.shape[0], rows.device))
+
+
+def targets(model: dict, train: dict, boxes, valid, size: tuple[int, int], device):
+    """A batch's pixel boxes -> ``(the (B, N, 5) prior targets, their
+    (B, N, 4) locations with the priors applied)``."""
+    enc = objectives.ssd_targets(boxes, valid, model["patch_sizes"], size)
+    corner, scale = priors(model["patch_sizes"], device)
+    gt_locs = torch.cat([enc[..., 1:3] * scale[:, None] + corner, enc[..., 3:5]], -1)
+    return enc, gt_locs
+
+
+def loss(pred, target, real, train: dict):
+    """The SSD loss with the batch's left-out images' labels zeroed; it is
+    both differentiated and reported."""
+    enc, gt_locs = target
+    e = enc * real[:, None, None]
+    out = objectives.ssd_loss(pred[..., 0], pred[..., 1:5], e[..., 0], gt_locs,
+                              train["neg_pos_ratio"], train.get("bg_push", 0.0))
+    return out, out

@@ -10,10 +10,11 @@ works out again what the program's first steps do:
   which the augmentation and then the dropout masks are drawn in the
   program's order (:mod:`perfbench.reference.augment`); without
   augmentation the images are ``u8 / 255`` and boxes under 10 px^2 drop;
-* the targets, the loss (the YOLO loss's batch sum, reported, and its mean
-  over the batch, differentiated; or the SSD loss), SAM's two points (the
-  gradient at ``w + rho g / (|g| + 1e-12)``, the same masks at both) and
-  Adam (betas 0.9 / 0.999, eps 1e-8, the rate of the MultiStep schedule).
+* the family's targets and loss (its reference module's ``targets`` and
+  ``loss``: the loss differentiated and the loss reported), SAM's two
+  points (the gradient at ``w + rho g / (|g| + 1e-12)``, the same masks
+  at both) and Adam (betas 0.9 / 0.999, eps 1e-8, the rate of the
+  MultiStep schedule).
 
 ``precision`` computes the layers and the photometric chain in a lower
 precision (the control) and
@@ -26,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from perfbench.reference import augment, objectives
+from perfbench.reference import augment
 from perfbench.reference.nn import FLOAT32, Masks, Precision
 
 BETA1, BETA2, EPS = 0.9, 0.999, 1e-8
@@ -48,7 +49,7 @@ def epoch_rows(seed: int, epoch: int, n: int, batch: int, device) -> torch.Tenso
 
 
 def _inputs(ref, model, train, imgs_u8, boxes, masks, gen, precision):
-    """Augmented float images, targets and (SSD) target locations."""
+    """Augmented float images and the family's targets."""
     b, h, w, _ = imgs_u8.shape
     if train["augment"]:
         if b >= 16:
@@ -58,13 +59,7 @@ def _inputs(ref, model, train, imgs_u8, boxes, masks, gen, precision):
     else:
         imgs = imgs_u8.float() / 255.0
         valid = masks & (boxes[..., 3] * boxes[..., 4] >= augment.MIN_AREA)
-    size = (w, h)
-    if "patch_sizes" in model:  # the SSD
-        enc = objectives.ssd_targets(boxes, valid, model["patch_sizes"], size)
-        corner, scale = ref.priors(model["patch_sizes"], imgs.device)
-        gt_locs = torch.cat([enc[..., 1:3] * scale[:, None] + corner, enc[..., 3:5]], -1)
-        return imgs, enc, gt_locs
-    return imgs, objectives.grid_targets(boxes, valid, ref.grid_size(model), size), None
+    return imgs, ref.targets(model, train, boxes, valid, (w, h), imgs.device)
 
 
 def follow(ref, model: dict, train: dict, params0: dict, data: tuple, seed: int,
@@ -72,7 +67,10 @@ def follow(ref, model: dict, train: dict, params0: dict, data: tuple, seed: int,
     """-> ``{"losses": [...], "first_grad": {name: g}, "change": {name:
     p_steps - p_0}, "rows": [...]}``. ``data`` is the benchmark's dataset
     ``(images u8, boxes, mask)``, on the host or on the parameters'
-    device, where the steps run."""
+    device, where the steps run. Only Adam is followed: another optimizer
+    raises."""
+    if train["optimizer"] != "adam":
+        raise ValueError(f"follow follows Adam only, not {train['optimizer']!r}")
     images, all_boxes, all_masks = data
     device = next(iter(params0.values())).device
     b = train["batch_size"]
@@ -87,9 +85,8 @@ def follow(ref, model: dict, train: dict, params0: dict, data: tuple, seed: int,
         out["rows"].append(rows)
         gen = torch.Generator(device=device).manual_seed(hashed_seed(seed, step))
         at = rows.to(images.device)
-        imgs, enc, gt_locs = _inputs(ref, model, train, images[at].to(device),
-                                     all_boxes[at].to(device), all_masks[at].to(device), gen,
-                                     precision)
+        imgs, target = _inputs(ref, model, train, images[at].to(device),
+                               all_boxes[at].to(device), all_masks[at].to(device), gen, precision)
         real = torch.ones(b, device=device)
         if fault == "half":
             real[b // 2:] = 0.0
@@ -97,14 +94,7 @@ def follow(ref, model: dict, train: dict, params0: dict, data: tuple, seed: int,
 
         def loss_at(p):
             masks.rewind()
-            pred = ref.forward(p, imgs, model, precision, masks)
-            if gt_locs is not None:  # the SSD
-                e = enc * real[:, None, None]
-                loss = objectives.ssd_loss(pred[..., 0], pred[..., 1:5], e[..., 0], gt_locs,
-                                           train["neg_pos_ratio"], train.get("bg_push", 0.0))
-                return loss, loss
-            total = (objectives.yolo_loss(pred, enc) * real).sum()
-            return total / real.sum().clamp_min(1), total
+            return ref.loss(ref.forward(p, imgs, model, precision, masks), target, real, train)
 
         leaves = [params[k].requires_grad_(True) for k in names]
         loss, reported = loss_at(params)

@@ -10,10 +10,14 @@ but the first (whose input is the image), at each of SAM's two points:
 PoolResnet's arithmetic is ``fdtpu_torch/bench.py``'s
 ``poolresnet_forward_flops`` (itself a copy of the JAX package's
 ``bench.py``), generalised to the stem and head geometry of the
-configuration; the SSD's is new.
+configuration; the SSD's is new. A family's reference module names its
+counter (``flop_counts``), which :func:`forward_flops` and
+:func:`train_step_flops` reach by the configuration's ``reference`` key.
 """
 
 from __future__ import annotations
+
+from perfbench.reference import family
 
 
 def _conv(out_hw: int, cout: int, cin: int, k: int) -> float:
@@ -62,14 +66,13 @@ def ssd(model: dict) -> tuple[float, float]:
     return total, stem
 
 
-FAMILIES = {"poolresnet": poolresnet, "ssd": ssd}
+def forward_flops(reference: str, model: dict) -> float:
+    """The forward's FLOPs of one image, by the family's reference module
+    (its ``flop_counts``)."""
+    return family(reference).flop_counts(model)[0]
 
 
-def forward_flops(family: str, model: dict) -> float:
-    return FAMILIES[family](model)[0]
-
-
-def train_step_flops(family: str, model: dict) -> float:
+def train_step_flops(reference: str, model: dict) -> float:
     """A SAM training step's FLOPs an image."""
-    fwd, first = FAMILIES[family](model)
+    fwd, first = family(reference).flop_counts(model)
     return 2.0 * (3.0 * fwd - first)

@@ -13,7 +13,7 @@ from perfbench.control import control_stream, control_train
 from perfbench.tests import tiny
 
 
-@pytest.mark.parametrize("name", ["poolresnet128-train-b8-480", "ssd16-train-b24-480"])
+@pytest.mark.parametrize("name", tiny.cells("train"))
 def test_train_control_fails(name):
     got = control_train(tiny.spec(name), 2**33 + 5, "cpu")
     lim = judge.limits(name)
@@ -21,7 +21,7 @@ def test_train_control_fails(name):
     assert not judge.verdict(got["half"], lim)[0], got["half"]
 
 
-@pytest.mark.parametrize("name", ["poolresnet128-stream-b1-480", "ssd16-stream-b1-480"])
+@pytest.mark.parametrize("name", tiny.cells("stream"))
 def test_stream_control_fails(name):
     got = control_stream(tiny.spec(name), 2**33 + 5, "cpu")
     assert not judge.verdict(got["control"], judge.limits(name))[0], got["control"]

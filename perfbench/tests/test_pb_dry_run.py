@@ -7,19 +7,19 @@ import pytest
 
 from perfbench.tests import tiny
 
-CELLS = ["poolresnet128-train-b8-480", "ssd16-train-b24-480", "poolresnet128-stream-b1-480",
-         "ssd16-stream-b1-480"]
-TRAIN_LIMITS = {"loss1_gap": 1e-3, "grad_gap_median": 3e-2, "change_gap": 3e-2}
+TRAIN, STREAM = tiny.cells("train"), tiny.cells("stream")
+TRAIN_LIMITS = {"loss1_gap": 1e-3, "grad_gap_median": 3e-2, "box_grad_gap": 3e-2,
+                "change_gap": 3e-2}
 STREAM_LIMITS = {"box_gap_px": 2.0, "score_gap": 1e-3, "kept_gap": 0.0, "nms_gap": 1e-3,
                  "overlap": 0.0, "malformed": 0.0}
 
 
 def limits(name):
-    return TRAIN_LIMITS if "train" in name else STREAM_LIMITS
+    return TRAIN_LIMITS if name in TRAIN else STREAM_LIMITS
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["measured", "traced"])
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", TRAIN + STREAM)
 def test_dry_run(name, trace, tmp_path):
     out = tiny.run(name, trace=trace, limits=limits(name), tmp_path=tmp_path)
     assert list(out)[:3] == ["correct", "attempted", "failed"] and list(out)[-1] == "checks"
@@ -30,7 +30,7 @@ def test_dry_run(name, trace, tmp_path):
         assert set(out["metrics"]) <= {"frame_p50_ms.stream", "frame_p95_ms.stream"}
     else:
         assert out["metrics"]["setup_s"]["value"] > 0
-        rate = "train_img_s" if "train" in name else "frame_ms"
+        rate = "train_img_s" if name in TRAIN else "frame_ms"
         assert out["metrics"][rate]["value"] > 0
 
 

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from perfbench.tests import tiny
-from perfbench.tests.test_pb_dry_run import STREAM_LIMITS, TRAIN_LIMITS
+from perfbench.tests.test_pb_dry_run import STREAM, STREAM_LIMITS, TRAIN, TRAIN_LIMITS
 
 
 def _train_step_wrapped(monkeypatch, wrap):
@@ -47,14 +47,14 @@ def half_batch(step):
 
 
 @pytest.mark.parametrize("fault", [unchanged, half_batch], ids=lambda f: f.__name__)
-@pytest.mark.parametrize("name", ["poolresnet128-train-b8-480", "ssd16-train-b24-480"])
+@pytest.mark.parametrize("name", TRAIN)
 def test_train_fault(name, fault, monkeypatch, tmp_path):
     _train_step_wrapped(monkeypatch, fault)
     out = tiny.run(name, limits=TRAIN_LIMITS, tmp_path=tmp_path)
     assert not out["correct"], out["checks"]
 
 
-@pytest.mark.parametrize("name", ["poolresnet128-stream-b1-480", "ssd16-stream-b1-480"])
+@pytest.mark.parametrize("name", STREAM)
 def test_answer_altered(name, monkeypatch, tmp_path):
     """A kept box moved where the answer is produced."""
     from fdtpu_torch.models import detector
@@ -72,7 +72,7 @@ def test_answer_altered(name, monkeypatch, tmp_path):
     assert not out["correct"], out["checks"]
 
 
-@pytest.mark.parametrize("name", ["poolresnet128-stream-b1-480", "ssd16-stream-b1-480"])
+@pytest.mark.parametrize("name", STREAM)
 def test_kept_rows_dropped(name, monkeypatch, tmp_path):
     """Half of each answer's kept rows (rounded up) dropped where the
     answer is produced."""

@@ -7,8 +7,11 @@ comes from a generator on the device; each parameter takes its slice:
 ``lecun_normal`` is a normal truncated at two standard deviations (by its
 inverse distribution function, so the uniform draw serves) of variance
 ``1 / fan_in``, ``torch_uniform`` is ``U(-1/sqrt(fan_in),
-1/sqrt(fan_in))``, ``zeros`` is 0. Float32, the type the program keeps
-its parameters in (its serving copy casts them itself).
+1/sqrt(fan_in))``, ``zeros`` is 0 and ``ones`` is 1 (a BatchNorm's scale
+or running variance). Every parameter takes its slice whatever its
+initialiser, so a parameter's draw depends on its place in the specs
+alone. Float32, the type the program keeps its parameters in (its
+serving copy casts them itself).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ def draw(specs: list, seed: int, device) -> dict[str, torch.Tensor]:
             v = (2.0 * u[at:at + n] - 1.0) / math.sqrt(fan_in)
         elif kind == "zeros":
             v = torch.zeros(n, device=device)
+        elif kind == "ones":
+            v = torch.ones(n, device=device)
         else:
             raise ValueError(f"unknown initialiser {kind!r}")
         out[name] = v.reshape(shape).clone()
@@ -48,24 +53,24 @@ def draw(specs: list, seed: int, device) -> dict[str, torch.Tensor]:
 
 def center_scores(ref, params: dict, model: dict, frames_u8: torch.Tensor,
                   eligible_per_frame: float) -> None:
-    """Shift each head's score bias in ``params`` so that, over
-    ``frames_u8``, about ``eligible_per_frame`` of a frame's candidates
-    score above 0.5, in proportion to each head's candidates: each head's
-    candidate logits are moved so that their ``1 - eligible / N`` quantile
-    sits at 0. Trained maps are that sparse; random weights put a frame's
+    """Shift each head's score bias in ``params`` (the entry that its
+    reference's ``score_heads`` names) so that, over ``frames_u8``, about
+    ``eligible_per_frame`` of a frame's candidates score above 0.5, in
+    proportion to each head's candidates: each head's candidate logits
+    are moved so that their ``1 - eligible / N`` quantile sits at 0. Trained maps are that sparse; random weights put a frame's
     scores anywhere, all on one side of 0.5 for some seeds. By the float32
     reference, before the program is built."""
     images = frames_u8.float() / 255.0
     for _ in range(6):
         with torch.no_grad():
             rows = ref.forward(params, images, model)
-        rows = rows.reshape(rows.shape[0], -1, 5)
+        rows = rows.reshape(rows.shape[0], -1, ref.ROW)
         q = 1.0 - eligible_per_frame / rows.shape[1]
         worst = 0.0
-        for name, cands in ref.score_heads(model):
+        for name, cands, entry in ref.score_heads(model):
             p = rows[:, cands, 0].clamp(1e-6, 1.0 - 1e-6)
             at = float(torch.quantile(torch.logit(p).flatten().double(), q))
-            params[name][0] -= at
+            params[name][entry] -= at
             worst = max(worst, abs(at))
         if worst < 0.05:
             return
