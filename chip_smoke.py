@@ -338,6 +338,20 @@ non-zero; without a CUDA card it fails at once and prints no result):
     stem's input channels zero-padded to 8 through cuDNN) timed once at
     each shape. One JSON line, ``narrow_convs``. ``--stem`` runs phases 1
     and 23 alone.
+24. RetinaFace-R50 at 840 px (every ``cfg_re50`` width, random weights):
+    K1 at its served shape, B=1, N=29,126 priors, capacity 750, thresholds
+    0.6/0.4, on its global-scratch path, the plain op and the indexed op
+    (``fdtpu_decode_filter_nms_indexed``) on served-like maps (about 60
+    candidates over 0.6), saturated and tie maps, outputs allocated over
+    0xFF blocks, bit-equal to the plain version (the index too), one
+    scratch launch a call; then the bf16 Detector's ``predict`` on a frame
+    (the face-score biases shifted so that 50 of the float32 forward's
+    candidates score over 0.6, the served threshold), three replays after the
+    capture with the counters zeroed first: K1 and its scratch path
+    launched once a replay and no eager launch, boxes compacted, the
+    landmarks zero past the kept rows, every replay's answer the same.
+    One JSON line, ``retinaface``. ``--retinaface`` runs phases 1, 2 and
+    24 alone.
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment,
@@ -399,6 +413,7 @@ from fdtpu_torch.losses.ssd import hard_negative_mining
 from fdtpu_torch.kernels.conv_gemm import conv_gemm
 from fdtpu_torch.models.layers import BatchNorm, DropoutMasks, conv, narrow_conv
 from fdtpu_torch.models import (
+    DTYPES,
     SSD,
     Detector,
     MobileNetV3Backbone,
@@ -433,7 +448,7 @@ from fdtpu_torch.train import step as tstep
 from fdtpu_torch.train.checkpoint import latest_checkpoint
 from fdtpu_torch.train.sam import global_norm
 from fdtpu_torch.utils import graphs as ugraphs
-from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
+from fdtpu_torch.utils.config import DetectorConfig, RetinaFaceConfig, SSDConfig, TrainConfig
 from fdtpu_torch.utils.tb import read_scalars
 
 SEED = 0
@@ -3738,7 +3753,6 @@ def camera_detector(frames):
     from PIL import Image
 
     from fdtpu_torch import demo_model
-    from fdtpu_torch.models import DTYPES
 
     args = demo_model.parse_args(CAMERA_ARGS)
     cfg = DetectorConfig(filters=args.filters, input_shape=(args.input, args.input),
@@ -3747,12 +3761,12 @@ def camera_detector(frames):
     resized = np.stack([np.asarray(Image.fromarray(np.ascontiguousarray(f[..., ::-1])).resize(
         (args.input, args.input), Image.BILINEAR)) for f in frames])
     batch = torch.from_numpy(resized.astype(np.float32)).to(args.device)
-    prob = args.prob_threshold
+    prob, iou = demo_model.thresholds(args, cfg)
     with torch.no_grad():
         score = module(batch / 255.0)[..., 0].double().clamp(1e-9, 1 - 1e-9)
         logit = torch.quantile(torch.logit(score).flatten(), 1 - CAMERA_PASS)
         module.out.bias[0] += math.log(prob / (1 - prob)) - float(logit)
-    return Detector(module, probability_threshold=prob, iou_threshold=args.iou_threshold,
+    return Detector(module, probability_threshold=prob, iou_threshold=iou,
                     nms_capacity=cfg.nms_capacity, dtype=DTYPES[cfg.dtype])
 
 
@@ -4783,6 +4797,110 @@ def phase_narrow_convs(card) -> dict:
     return out
 
 
+RF_PRIORS, RF_CAP, RF_PROB, RF_IOU = 29126, 750, 0.6, 0.4  # cfg_re50 at 840 px, detect.py's
+RF_ELIGIBLE = 50  # phase 24's frame: candidates of the float32 forward over RF_PROB
+
+
+def served_like(rng, b: int, n: int) -> torch.Tensor:
+    """(B, N, 5) normalised prior rows with about 60 of ``n`` candidates an
+    image over 0.6 (a served frame's load), boxes of 2-40% of the side."""
+    v = rng.uniform(0, 1, size=(b, n, 5)).astype(np.float32)
+    v[..., 0] = np.where(rng.uniform(size=(b, n)) < 150 / n, v[..., 0], np.float32(0.1))
+    v[..., 3:] = 0.02 + 0.38 * v[..., 3:]
+    return torch.from_numpy(v).cuda()
+
+
+def phase_retinaface(card) -> dict:
+    """Phase 24 (module docstring): K1 at RetinaFace's served shape, both
+    ops, against the plain version; the 840 px predict's launches a
+    replay."""
+    n, cap = RF_PRIORS, RF_CAP
+    check(n > knms.max_candidates(0), f"N={n} is not past the shared-memory limit")
+    rng = np.random.default_rng(SEED + 24)
+    tables = knms.ssd_output_tables_on(n, (840, 840), torch.device("cuda"))
+    cases = {"served": served_like(rng, 1, n), "saturated": candidates(rng, 1, n, "saturated"),
+             "tie": candidates(rng, 1, n, "tie")}
+    kept = {}
+    for case, vals in cases.items():
+        where = f"B=1 N={n} cap={cap} {case} {RF_PROB}/{RF_IOU}"
+        scratch = knms.decode_filter_nms_batch.scratch_launches
+        poison(((1, cap, 5), torch.float32), ((1, cap), torch.bool), ((1, cap), torch.int32))
+        gb, gm, gi = knms.decode_filter_nms_batch(vals, tables, RF_PROB, RF_IOU, cap, indexed=True)
+        poison(((1, cap, 5), torch.float32), ((1, cap), torch.bool))
+        pb, pm = knms.decode_filter_nms_batch(vals, tables, RF_PROB, RF_IOU, cap)
+        wb, wm, wi = knms.decode_filter_nms_reference(vals, tables, RF_PROB, RF_IOU, cap,
+                                                      indexed=True)
+        torch.cuda.synchronize()
+        check(knms.decode_filter_nms_batch.scratch_launches == scratch + 2,
+              f"not two scratch launches at {where}")
+        check(torch.equal(gm, wm) and torch.equal(gb, wb), f"indexed op differs at {where}")
+        check(torch.equal(gi, wi), f"index differs at {where}")
+        check(torch.equal(pm, wm) and torch.equal(pb, wb), f"plain op differs at {where}")
+        k = int(gm.sum())
+        check(bool((gi[0, :k] >= 0).all()) and bool((gi[0, k:] == -1).all()),
+              f"index not -1 past the kept rows at {where}")
+        kept[case] = k
+    check(kept["saturated"] == cap, f"not saturated: {kept['saturated']} kept")
+
+    cfg = RetinaFaceConfig()
+    module = build_model("retinaface", cfg, "cuda", torch.Generator().manual_seed(SEED)).eval()
+    frame = np.random.default_rng(SEED + 25).integers(0, 256, size=(840, 840, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        rows = module(torch.from_numpy(frame).cuda().float()[None] / 255.0)
+        # the threshold halfway between the RF_ELIGIBLE-th score and the next
+        edge = torch.logit(rows[0, :, 0].double().topk(RF_ELIGIBLE + 1).values[-2:], eps=1e-12)
+        shift = math.log(RF_PROB / (1 - RF_PROB)) - float(edge.mean())
+        for head in module.ClassHead:  # channel 2a + 1: anchor a's face logit
+            head.conv1x1.bias[1::2] += shift
+    det = Detector(module, cfg.probability_threshold, cfg.iou_threshold, cfg.nms_capacity,
+                   DTYPES[cfg.dtype])
+    start = knms.decode_filter_nms_batch.launches
+    det.predict(frame)  # the capture, after its warm-up (a real launch)
+    warm = knms.decode_filter_nms_batch.launches - start
+    (g,) = det._graphs.graphs.values()
+    for key in ("decode_filter_nms", "decode_filter_nms_scratch"):
+        ugraphs.REPLAYED[key] = ugraphs.WARMED[key] = 0
+    knms.decode_filter_nms_batch.launches = knms.decode_filter_nms_batch.scratch_launches = 0
+    preds = [det.predict(frame) for _ in range(3)]
+    torch.cuda.synchronize()
+    per = {key: ugraphs.REPLAYED[key] / len(preds)
+           for key in ("decode_filter_nms", "decode_filter_nms_scratch")}
+    eager = (knms.decode_filter_nms_batch.launches, knms.decode_filter_nms_batch.scratch_launches)
+    check(per == {"decode_filter_nms": 1.0, "decode_filter_nms_scratch": 1.0},
+          f"predict's launches a replay {per}")
+    check(eager == (0, 0), f"eager K1 launches during the replays {eager}")
+    norm, boxes, mask = preds[0]
+    points = preds[0].landmarks
+    k = int(check_boxes(boxes, mask, cap, cfg.probability_threshold, "retinaface predict"))
+    check(norm.shape == (840, 840, 3) and points.shape == (cap, 10), "retinaface predict shapes")
+    check(bool(torch.isfinite(points).all()) and bool((points[k:] == 0).all()),
+          "landmarks not zero past the kept rows")
+    check(all(torch.equal(a, b) for p in preds[1:] for a, b in zip((*p, p.landmarks),
+                                                                  (*preds[0], points))),
+          "replays answer differently")
+    check(0 < k < cap, f"predict kept {k} of {cap}")
+    out = {"shape": [1, n, cap], "thresholds": [RF_PROB, RF_IOU], "kept": kept,
+           "predict_kept": k, "per_replay": per, "graph_per_replay": {
+               key: g.per_replay[key] for key in ("decode_filter_nms",
+                                                  "decode_filter_nms_scratch")},
+           "launches": 2 * len(cases) + warm + ugraphs.REPLAYED["decode_filter_nms"]}
+    print(f"[24 retinaface] K1 at B=1 N={n} cap={cap} {RF_PROB}/{RF_IOU} on global scratch "
+          f"(limit {knms.max_candidates(0)}): plain and indexed op bit-equal to the plain "
+          f"version, index too, on {', '.join(f'{c} ({v} kept)' for c, v in kept.items())}; "
+          f"840 px bf16 predict: {k} kept with landmarks, a replay launches K1 "
+          f"{per['decode_filter_nms']:g} and its scratch path "
+          f"{per['decode_filter_nms_scratch']:g} times, no eager launch [{card}]")
+    print(json.dumps({"retinaface": out}))
+    return out
+
+
+def retinaface_only() -> None:
+    """``--retinaface``: the card, the build and phase 24 alone."""
+    card, _ = phase_card()
+    phase_build()
+    phase_retinaface(card)
+
+
 def stem_only() -> None:
     """``--stem``: the card and phase 23 alone."""
     card, _ = phase_card()
@@ -4873,6 +4991,7 @@ def main() -> None:
         graph_launches = phase_graph(card, tmp)["launches"]
         serve_launches = phase_serve(card, tmp)
     phase_narrow_convs(card)
+    rf_launches = phase_retinaface(card)["launches"]
     k1_recorded_map_bounds()
 
     def entry(meta, launches, err, times, library_ms=None):
@@ -4891,7 +5010,7 @@ def main() -> None:
                         + zoo_launches["decode_filter_nms"] + dp_launches["decode_filter_nms"]
                         + deploy_launches + sp_launches["decode_filter_nms"]
                         + entry_launches + graph_launches["decode_filter_nms"]
-                        + serve_launches,
+                        + serve_launches + rf_launches,
                         worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
     path = (train_launches, photo_launches, trainer_launches, zoo_launches, dp_launches,
@@ -4928,5 +5047,7 @@ if __name__ == "__main__":
         serve_only()
     elif sys.argv[1:] == ["--stem"]:
         stem_only()
+    elif sys.argv[1:] == ["--retinaface"]:
+        retinaface_only()
     else:
         main()

@@ -17,7 +17,7 @@ import torch
 
 from fdtpu_torch.export import export_predict
 from fdtpu_torch.models import DTYPES, FAMILIES, build_model
-from fdtpu_torch.utils.config import DetectorConfig
+from fdtpu_torch.utils.config import DetectorConfig, serving_config
 
 
 def add_model_args(p: argparse.ArgumentParser, out: str) -> None:
@@ -39,10 +39,11 @@ def load_model(args) -> torch.nn.Module:
     """The model the flags name, on ``--device``, with ``--checkpoint``'s
     weights (random from seed 0 without one); a reference grid checkpoint
     comes wrapped in ``ReferenceLayoutGrid``. The SSD's patch sizes follow
-    from ``--input``."""
+    from ``--input``; RetinaFace's config is its own (``serving_config``),
+    and both exports refuse it."""
     from fdtpu_torch.demo_model import load_weights
 
-    cfg = DetectorConfig(filters=args.filters, input_shape=(args.input, args.input),
+    cfg = serving_config(args.model, args.input, filters=args.filters,
                          num_patches=args.patches, num_residual_blocks=args.blocks)
     module = build_model(args.model, cfg, args.device, torch.Generator().manual_seed(0))
     return load_weights(module, args.checkpoint, args.device)

@@ -23,17 +23,19 @@ from fdtpu_torch.kernels.nms import (
 DEFAULT_CAPACITY = 128
 
 
-def _filter_nms(rows, tables_fn, probability_threshold, iou_threshold, capacity):
+def _filter_nms(rows, tables_fn, probability_threshold, iou_threshold, capacity,
+                indexed=False):
     """K1 over ``(B, N, 5)`` rows, or over unbatched ``(N, 5)`` ones;
-    ``tables_fn(device)`` gives the decode tables."""
+    ``tables_fn(device)`` gives the decode tables; ``indexed`` adds the
+    kept rows' candidate indices to the outputs."""
     unbatched = rows.dim() == 2
     if unbatched:
         rows = rows[None]
-    boxes, mask = decode_filter_nms_batch(
-        rows, tables_fn(rows.device), probability_threshold, iou_threshold, capacity)
+    out = decode_filter_nms_batch(
+        rows, tables_fn(rows.device), probability_threshold, iou_threshold, capacity, indexed)
     if unbatched:
-        return boxes[0], mask[0]
-    return boxes, mask
+        return tuple(t[0] for t in out)
+    return out
 
 
 def decode_filter_nms(
@@ -73,12 +75,15 @@ def ssd_output_filter_nms(
     probability_threshold: float,
     iou_threshold: float,
     capacity: int = DEFAULT_CAPACITY,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Filter + NMS of the SSD model's output, ``(B, N, 5)`` (or ``(N, 5)``)
-    normalized ``[score, x, y, w, h]`` with the priors applied in the graph:
-    only the pixel scaling remains."""
+    indexed: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """Filter + NMS of a model's normalized prior rows, ``(B, N, 5)`` (or
+    ``(N, 5)``) ``[score, x, y, w, h]`` with the priors applied in the graph
+    (the SSD's, RetinaFace's): only the pixel scaling remains. ``indexed``
+    adds each kept row's candidate index, ``(..., capacity)`` int32, -1
+    past the kept rows."""
     return _filter_nms(x, lambda d: ssd_output_tables_on(x.shape[-2], tuple(image_size), d),
-                       probability_threshold, iou_threshold, capacity)
+                       probability_threshold, iou_threshold, capacity, indexed)
 
 
 def compact_boxes(boxes, mask) -> np.ndarray:

@@ -1,5 +1,7 @@
 """SSD multi-scale prior grid: priors, target encoding, decoding
-(``fdtpu/core/priors.py``).
+(``fdtpu/core/priors.py``); and RetinaFace's anchored priors with their
+centre-size decode (:func:`anchor_priors`, :func:`decode_boxes`,
+:func:`decode_landmarks`).
 
 Each prior is an anchor at a grid cell's top-left corner with zero extent.
 Encoded rows are ``(conf, x_cell_rel, y_cell_rel, w_norm, h_norm)``, the
@@ -133,3 +135,73 @@ def decode_ssd(
     out = apply_priors(x, priors, scales)
     sx = torch.tensor([1.0, width, height, width, height], dtype=x.dtype, device=x.device)
     return out * sx
+
+
+# -- anchored priors (RetinaFace) ------------------------------------------------
+
+
+def feature_maps(image_size: tuple[int, int], steps: tuple[int, ...]) -> list[tuple[int, int]]:
+    """``(rows, cols)`` of each level's map for an ``(H, W)`` image:
+    ``ceil(H / step)``, ``ceil(W / step)``, as ``prior_box.py`` sizes them."""
+    h, w = image_size
+    return [(-(-h // s), -(-w // s)) for s in steps]
+
+
+def anchor_priors(
+    min_sizes: tuple[tuple[int, ...], ...],
+    steps: tuple[int, ...],
+    image_size: tuple[int, int],
+    clip: bool = False,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """``(N, 4)`` float32 priors ``[cx, cy, s_kx, s_ky]`` normalised to the
+    ``(H, W)`` image, in ``layers/functions/prior_box.py``'s order: level,
+    row, column, then the level's ``min_sizes``. Each value is worked out in
+    double precision and rounded to float32 once, as the published code
+    builds a Python list and makes a float32 tensor of it. ``clip`` clamps
+    every value to [0, 1]."""
+    h, w = image_size
+    levels = []
+    for (rows, cols), step, sizes in zip(feature_maps(image_size, steps), steps, min_sizes):
+        cy = (torch.arange(rows, dtype=torch.float64) + 0.5) * step / h
+        cx = (torch.arange(cols, dtype=torch.float64) + 0.5) * step / w
+        k = len(sizes)
+        size = torch.tensor(sizes, dtype=torch.float64)
+        levels.append(torch.stack([
+            cx[None, :, None].expand(rows, cols, k), cy[:, None, None].expand(rows, cols, k),
+            (size / w).expand(rows, cols, k), (size / h).expand(rows, cols, k)], -1)
+            .reshape(-1, 4))
+    out = torch.cat(levels).to(torch.float32)
+    if clip:
+        out = out.clamp(0.0, 1.0)
+    return out.to(device)
+
+
+@device_cache
+def anchors_on(min_sizes: tuple[tuple[int, ...], ...], steps: tuple[int, ...],
+               image_size: tuple[int, int], clip: bool, device: torch.device) -> torch.Tensor:
+    """:func:`anchor_priors` on ``device``, made once per argument tuple,
+    outside inference mode, shared and never written (as :func:`priors_on`)."""
+    with torch.inference_mode(False):
+        return anchor_priors(min_sizes, steps, image_size, clip, device)
+
+
+def decode_boxes(loc: torch.Tensor, priors: torch.Tensor,
+                 variances: tuple[float, float]) -> torch.Tensor:
+    """``(..., N, 4)`` offsets -> normalised ``[x0, y0, w, h]`` boxes:
+    ``utils/box_utils.py``'s ``decode`` (centre ``c + l * v0 * s``, size ``s
+    exp(l * v1)``, then the corner ``centre - size / 2``), left as corner
+    and size rather than two corners."""
+    centre = priors[:, :2] + loc[..., :2] * variances[0] * priors[:, 2:]
+    size = priors[:, 2:] * torch.exp(loc[..., 2:] * variances[1])
+    return torch.cat([centre - size / 2, size], dim=-1)
+
+
+def decode_landmarks(pre: torch.Tensor, priors: torch.Tensor,
+                     variances: tuple[float, float]) -> torch.Tensor:
+    """``(..., N, 10)`` offsets -> five normalised points ``[x1, y1, ...,
+    x5, y5]``: ``box_utils.py``'s ``decode_landm``, ``c + l * v0 * s``."""
+    n = pre.shape[-2]
+    points = pre.reshape(*pre.shape[:-1], 5, 2) * variances[0] * priors[:, None, 2:] \
+        + priors[:, None, :2]
+    return points.reshape(*pre.shape[:-2], n, 10)

@@ -7,7 +7,10 @@ and saved. An image directory without images gets three synthetic frames
 (``make_synthetic_widerface``), as fdtpu's demo does. ``--camera`` runs the
 reference's webcam loop instead (OpenCV, camera 0, ESC stops it), the
 frames through the same ``predict``. ``--model`` names the family (any of
-the zoo; the SSD's patch sizes follow from ``--input``). The weights come
+the zoo; the SSD's patch sizes follow from ``--input``; ``retinaface``
+takes ``cfg_re50``'s widths at ``--input``, ``detect.py``'s thresholds 0.6
+and 0.4 and capacity 750 unless given, and the image demo prints each
+face's five points). The weights come
 from ``--checkpoint``: a checkpoint of the port (as ``train_model`` or
 ``train_model_ssd`` writes it, or ``convert_fdtpu_checkpoint.py`` from
 fdtpu's), or a reference TorchScript ``.pth``, imported through
@@ -31,7 +34,7 @@ from fdtpu_torch.core.nms import compact_boxes
 from fdtpu_torch.compat.torch_import import load_reference_detector
 from fdtpu_torch.models import DTYPES, FAMILIES, Detector, build_model
 from fdtpu_torch.train.checkpoint import restore_variables
-from fdtpu_torch.utils.config import DetectorConfig
+from fdtpu_torch.utils.config import RetinaFaceConfig, serving_config
 from fdtpu_torch.utils.draw import draw_bbx
 
 
@@ -46,31 +49,40 @@ def parse_args(argv=None):
     p.add_argument("--patches", type=int, default=10)
     p.add_argument("--filters", type=int, default=64)
     p.add_argument("--blocks", type=int, default=10)
-    p.add_argument("--prob-threshold", type=float, default=0.7)
-    p.add_argument("--iou-threshold", type=float, default=0.01)
+    p.add_argument("--prob-threshold", type=float, default=None,
+                   help="default 0.7, the reference demo's; retinaface: 0.6, detect.py's")
+    p.add_argument("--iou-threshold", type=float, default=None,
+                   help="default 0.01, the reference demo's; retinaface: 0.4, detect.py's")
     p.add_argument("--camera", action="store_true", help="webcam loop (needs cv2)")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     return p.parse_args(argv)
 
 
 def build_detector(args) -> Detector:
-    cfg = DetectorConfig(
-        filters=args.filters,
-        input_shape=(args.input, args.input),
-        num_patches=args.patches,
-        num_residual_blocks=args.blocks,
-    )
+    cfg = serving_config(args.model, args.input, filters=args.filters,
+                         num_patches=args.patches, num_residual_blocks=args.blocks)
+    prob, iou = thresholds(args, cfg)
     gen = torch.Generator().manual_seed(0)
     module = build_model(args.model, cfg, device=args.device, generator=gen)
     # before the Detector is built: it serves a copy of the params
     module = load_weights(module, args.checkpoint, args.device)
     return Detector(
         module,
-        probability_threshold=args.prob_threshold,
-        iou_threshold=args.iou_threshold,
+        probability_threshold=prob,
+        iou_threshold=iou,
         nms_capacity=cfg.nms_capacity,
         dtype=DTYPES[cfg.dtype],
     )
+
+
+def thresholds(args, cfg) -> tuple[float, float]:
+    """``--prob-threshold`` and ``--iou-threshold``; by default the
+    reference demo's 0.7 and 0.01 for the zoo, and ``detect.py``'s (the
+    config's) for RetinaFace."""
+    prob, iou = ((cfg.probability_threshold, cfg.iou_threshold)
+                 if isinstance(cfg, RetinaFaceConfig) else (0.7, 0.01))
+    return (prob if args.prob_threshold is None else args.prob_threshold,
+            iou if args.iou_threshold is None else args.iou_threshold)
 
 
 def load_weights(module, checkpoint: str | None, device):
@@ -103,10 +115,15 @@ def run_images(det: Detector, image_dir: str, out_dir: str) -> None:
     for p in paths:
         img = np.asarray(Image.open(p).convert("RGB"))
         t0 = time.perf_counter()
-        norm, boxes, mask = det.predict(img)
+        pred = det.predict(img)
+        norm, boxes, mask = pred
         n = int(mask.sum())  # waits for the device
         dt = time.perf_counter() - t0
         print(f"{p.name}: {n} faces in {dt*1000:.1f} ms")
+        if pred.landmarks is not None:
+            for row, pts in zip(compact_boxes(boxes, mask), pred.landmarks[:n].cpu().numpy()):
+                print(f"  box {np.round(row[1:], 1).tolist()} points "
+                      f"{np.round(pts, 1).tolist()}")
         draw_bbx(norm.cpu().numpy(), compact_boxes(boxes, mask), save_name=p.stem, out_dir=out_dir)
 
 

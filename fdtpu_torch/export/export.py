@@ -35,7 +35,7 @@ from fdtpu_torch.kernels.nms import (
     grid_tables_on,
     ssd_output_tables_on,
 )
-from fdtpu_torch.models.detector import Detector, is_ssd
+from fdtpu_torch.models.detector import Detector, is_ssd, refuse_served_only
 from fdtpu_torch.utils.graphs import capture_body, clone_outputs
 
 
@@ -53,6 +53,7 @@ class PredictProgram(nn.Module):
                  iou_threshold: float = 0.01, capacity: int = 64,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        refuse_served_only(model, "a .pt2 export")
         det = Detector(model, probability_threshold, iou_threshold, capacity, dtype)
         self.net = det.net
         self.input_shape = tuple(model.input_shape)

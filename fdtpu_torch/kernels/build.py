@@ -105,6 +105,10 @@ def load_library() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P,
     ]
     lib.fdtpu_decode_filter_nms_scratch.restype = _I
+    lib.fdtpu_decode_filter_nms_indexed.argtypes = [
+        _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P,
+    ]
+    lib.fdtpu_decode_filter_nms_indexed.restype = _I
     lib.fdtpu_decode_filter_nms_scratch_floats.argtypes = [_I]
     lib.fdtpu_decode_filter_nms_scratch_floats.restype = ctypes.c_longlong
     lib.fdtpu_decode_filter_nms_max_candidates.argtypes = [_I, ctypes.POINTER(_I)]

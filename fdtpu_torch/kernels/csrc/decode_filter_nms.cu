@@ -40,7 +40,9 @@
 //      at the front of the list. It stops at `capacity` kept or the end of
 //      the list;
 //   4. writes every output row, the zero rows after the last kept one
-//      included, so the caller allocates the outputs uninitialised.
+//      included, so the caller allocates the outputs uninitialised; given
+//      an index output, each kept row's candidate index there too, -1 past
+//      the kept rows (a null index pointer writes nothing).
 // That is ~M/32 chunks of two barriers each in place of `capacity` rounds
 // of two (M ~ 112 at b128 on random maps: 4 chunks against 64 rounds).
 //
@@ -123,6 +125,7 @@ __global__ void __launch_bounds__(kThreads) decode_filter_nms_kernel(
     int capacity,
     float* __restrict__ boxes,           // (B, capacity, 5), every row written
     unsigned char* __restrict__ mask,    // (B, capacity), every entry written
+    int* __restrict__ index,             // null, or (B, capacity), every entry written
     float* scratch) {  // null: the working set in shared memory; else
                        // (B, work_floats(n)) in device memory
   extern __shared__ float smem[];
@@ -319,6 +322,10 @@ __global__ void __launch_bounds__(kThreads) decode_filter_nms_kernel(
     out[j] = val;
   }
   for (int j = tid; j < capacity; j += kThreads) out_mask[j] = j < kept;
+  if (index) {
+    int* out_index = index + static_cast<size_t>(blockIdx.x) * capacity;
+    for (int j = tid; j < capacity; j += kThreads) out_index[j] = j < kept ? sorted[j] : -1;
+  }
 }
 
 }  // namespace
@@ -330,7 +337,7 @@ namespace {
 int launch(const void* values, const void* sx, const void* ox, const void* sy,
            const void* oy, float w_scale, float h_scale, float prob_thr,
            float iou_thr, int batch, int n, int capacity, void* boxes,
-           void* mask, void* scratch, void* stream) {
+           void* mask, void* index, void* scratch, void* stream) {
   const size_t smem = scratch ? 0 : work_floats(n) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -344,7 +351,7 @@ int launch(const void* values, const void* sx, const void* ox, const void* sy,
       static_cast<const float*>(ox), static_cast<const float*>(sy),
       static_cast<const float*>(oy), w_scale, h_scale, prob_thr, iou_thr, n,
       capacity, static_cast<float*>(boxes), static_cast<unsigned char*>(mask),
-      static_cast<float*>(scratch));
+      static_cast<int*>(index), static_cast<float*>(scratch));
   return cudaGetLastError();
 }
 
@@ -360,7 +367,7 @@ int fdtpu_decode_filter_nms(const void* values, const void* sx, const void* ox,
                             int batch, int n, int capacity, void* boxes,
                             void* mask, void* stream) {
   return launch(values, sx, ox, sy, oy, w_scale, h_scale, prob_thr, iou_thr,
-                batch, n, capacity, boxes, mask, nullptr, stream);
+                batch, n, capacity, boxes, mask, nullptr, nullptr, stream);
 }
 
 // The same, with each image's working set in `scratch`: device memory of
@@ -375,7 +382,23 @@ int fdtpu_decode_filter_nms_scratch(const void* values, const void* sx,
                                     void* scratch, void* stream) {
   if (scratch == nullptr) return cudaErrorInvalidValue;
   return launch(values, sx, ox, sy, oy, w_scale, h_scale, prob_thr, iou_thr,
-                batch, n, capacity, boxes, mask, scratch, stream);
+                batch, n, capacity, boxes, mask, nullptr, scratch, stream);
+}
+
+// Either of the two above, which also writes each kept row's candidate
+// index to `index`, (batch, capacity) int32, -1 past the kept rows: the
+// working set in `scratch` where it is not null, else in shared memory
+// (n <= max_candidates).
+int fdtpu_decode_filter_nms_indexed(const void* values, const void* sx,
+                                    const void* ox, const void* sy,
+                                    const void* oy, float w_scale,
+                                    float h_scale, float prob_thr,
+                                    float iou_thr, int batch, int n,
+                                    int capacity, void* boxes, void* mask,
+                                    void* index, void* scratch, void* stream) {
+  if (index == nullptr) return cudaErrorInvalidValue;
+  return launch(values, sx, ox, sy, oy, w_scale, h_scale, prob_thr, iou_thr,
+                batch, n, capacity, boxes, mask, index, scratch, stream);
 }
 
 // Floats of scratch one image takes at `n` candidates.

@@ -27,6 +27,10 @@ float32 plane against a weakly typed Python float in float32.
 Both versions sit behind one registered op, ``fdtpu_torch::decode_filter_nms``
 (:data:`decode_filter_nms_op`), so that ``torch.export`` records K1 as one
 node of an exported predict program and a CUDA graph captures its launch.
+A second op, ``fdtpu_torch::decode_filter_nms_indexed``
+(:data:`decode_filter_nms_indexed_op`), is the same kernel and plain version
+returning each kept row's candidate index as well (a family that reads more
+of a kept candidate's row than its box, RetinaFace's landmarks).
 """
 
 from __future__ import annotations
@@ -134,14 +138,17 @@ def decode_filter_nms_reference(
     probability_threshold: float,
     iou_threshold: float,
     capacity: int = 128,
+    indexed: bool = False,
 ):
     """Plain batched PyTorch decode+filter+NMS with the kernel's semantics.
 
     ``values``: ``(B, N, 5)`` float32 rows ``[conf, x, y, w, h]`` as the model
     emits them; ``tables``: ``(sx, ox, sy, oy)`` float32 ``(N,)`` tensors on
     ``values``' device, then ``w_scale, h_scale`` floats. Returns ``boxes``
-    ``(B, capacity, 5)`` float32 and ``mask`` ``(B, capacity)`` bool. The
-    scalars are rounded to float32 first, as the kernel receives them.
+    ``(B, capacity, 5)`` float32 and ``mask`` ``(B, capacity)`` bool, and
+    with ``indexed`` ``index`` ``(B, capacity)`` int32: each kept row's
+    candidate, -1 past the kept rows. The scalars are rounded to float32
+    first, as the kernel receives them.
 
     Every step is its own elementwise op (no fused multiply-add), so the
     results are bit-equal to the CUDA kernel's and to fdtpu's kernel in
@@ -165,6 +172,7 @@ def decode_filter_nms_reference(
     rows = torch.arange(b, device=dev)
     boxes = torch.zeros((b, capacity, 5), dtype=torch.float32, device=dev)
     mask = torch.zeros((b, capacity), dtype=torch.bool, device=dev)
+    index = torch.full((b, capacity), -1, dtype=torch.int32, device=dev)
     alive = conf > probability_threshold
     for k in range(capacity):
         if k % 8 == 0 and not bool(alive.any()):
@@ -177,6 +185,7 @@ def decode_filter_nms_reference(
         row = torch.stack([best, bx0, by0, bx1 - bx0, by1 - by0], dim=1)
         boxes[:, k] = torch.where(valid[:, None], row, 0.0)
         mask[:, k] = valid
+        index[:, k] = torch.where(valid, idx, -1).to(torch.int32)
 
         ix0 = torch.maximum(x0, bx0[:, None])
         iy0 = torch.maximum(y0, by0[:, None])
@@ -186,7 +195,7 @@ def decode_filter_nms_reference(
         union = area + barea[:, None] - inter
         iou = torch.where(union > 0, inter / union, 0.0)
         alive = alive & (iou <= iou_threshold) & (cand != idx[:, None]) & valid[:, None]
-    return boxes, mask
+    return (boxes, mask, index) if indexed else (boxes, mask)
 
 
 # -- the registered op ---------------------------------------------------------------
@@ -195,7 +204,9 @@ def decode_filter_nms_reference(
 # records as one node and a CUDA graph captures. ``values`` ``(B, N, 5)``
 # float32, the tables ``(N,)`` float32 on its device, the scalars already
 # rounded to float32 (the schema's ``float`` is a double) -> ``boxes``
-# ``(B, capacity, 5)`` float32 and ``mask`` ``(B, capacity)`` bool. The
+# ``(B, capacity, 5)`` float32 and ``mask`` ``(B, capacity)`` bool;
+# ``fdtpu_torch::decode_filter_nms_indexed`` also -> ``index`` ``(B,
+# capacity)`` int32, the same kernel writing it through its index pointer. The
 # implementation is chosen by the tensors' device alone: on the CPU the
 # plain version, on a card the kernel (:func:`_launch`); any other device
 # has none and raises. It is registered with the dispatcher directly
@@ -206,11 +217,16 @@ _LIB.define(
     "decode_filter_nms(Tensor values, Tensor sx, Tensor ox, Tensor sy, Tensor oy, "
     "float w_scale, float h_scale, float prob, float iou, int capacity) -> (Tensor, Tensor)"
 )
+_LIB.define(
+    "decode_filter_nms_indexed(Tensor values, Tensor sx, Tensor ox, Tensor sy, Tensor oy, "
+    "float w_scale, float h_scale, float prob, float iou, int capacity) "
+    "-> (Tensor, Tensor, Tensor)"
+)
 
 
-def _plain(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
+def _plain(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity, indexed=False):
     return decode_filter_nms_reference(values, (sx, ox, sy, oy, w_scale, h_scale), prob, iou,
-                                       capacity)
+                                       capacity, indexed)
 
 
 @torch.library.register_fake("fdtpu_torch::decode_filter_nms", lib=_LIB)
@@ -220,9 +236,17 @@ def _fake(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
             values.new_empty((b, capacity), dtype=torch.bool))
 
 
-def _launch(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
+@torch.library.register_fake("fdtpu_torch::decode_filter_nms_indexed", lib=_LIB)
+def _fake_indexed(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
+    return (*_fake(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity),
+            values.new_empty((values.shape[0], capacity), dtype=torch.int32))
+
+
+def _launch(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity, indexed=False):
     """The kernel on the card: shared memory up to :func:`max_candidates`
-    rows an image, global scratch above. Everything goes onto the current
+    rows an image, global scratch above (counted apart,
+    :attr:`decode_filter_nms_batch.scratch_launches`); with ``indexed`` the
+    kept rows' candidate indices too. Everything goes onto the current
     stream and is allocated by ``torch.empty``, so a CUDA graph captures the
     launch (warm :func:`max_candidates` before capturing)."""
     cols = (sx, ox, sy, oy)
@@ -241,25 +265,45 @@ def _launch(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
     mask = torch.empty((b, capacity), dtype=torch.bool, device=values.device)
     args = (values.data_ptr(), *(c.data_ptr() for c in cols), w_scale, h_scale, prob, iou,
             b, n, capacity, boxes.data_ptr(), mask.data_ptr())
+    index = torch.empty((b, capacity), dtype=torch.int32, device=values.device) \
+        if indexed else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if n <= max_candidates(dev):
-            err = lib.fdtpu_decode_filter_nms(*args, stream)
-        else:
+        scratch = None
+        if n > max_candidates(dev):
             scratch = torch.empty((b, lib.fdtpu_decode_filter_nms_scratch_floats(n)),
                                   dtype=torch.float32, device=values.device)
+        if indexed:
+            err = lib.fdtpu_decode_filter_nms_indexed(
+                *args, index.data_ptr(), None if scratch is None else scratch.data_ptr(), stream)
+        elif scratch is None:
+            err = lib.fdtpu_decode_filter_nms(*args, stream)
+        else:
             err = lib.fdtpu_decode_filter_nms_scratch(*args, scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"decode_filter_nms kernel launch failed: {build.cuda_error_string(err)}"
         )
     decode_filter_nms_batch.launches += 1
-    return boxes, mask
+    if scratch is not None:
+        decode_filter_nms_batch.scratch_launches += 1
+    return (boxes, mask, index) if indexed else (boxes, mask)
+
+
+def _plain_indexed(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
+    return _plain(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity, True)
+
+
+def _launch_indexed(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity):
+    return _launch(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity, True)
 
 
 _LIB.impl("decode_filter_nms", _plain, "CPU")
 _LIB.impl("decode_filter_nms", _launch, "CUDA")
+_LIB.impl("decode_filter_nms_indexed", _plain_indexed, "CPU")
+_LIB.impl("decode_filter_nms_indexed", _launch_indexed, "CUDA")
 decode_filter_nms_op = torch.ops.fdtpu_torch.decode_filter_nms.default
+decode_filter_nms_indexed_op = torch.ops.fdtpu_torch.decode_filter_nms_indexed.default
 
 
 # -- the dispatching wrapper --------------------------------------------------------
@@ -271,6 +315,7 @@ def decode_filter_nms_batch(
     probability_threshold: float,
     iou_threshold: float,
     capacity: int = 128,
+    indexed: bool = False,
 ):
     """Batched fused decode+filter+NMS; the counterpart of
     ``pallas_decode_filter_nms_batch`` (and, at ``B = 1``, of
@@ -278,7 +323,9 @@ def decode_filter_nms_batch(
 
     ``values``: ``(B, N, 5)`` float32; ``tables``: from one of the
     ``*_decode_tables`` functions (numpy) or :func:`grid_tables_on` (tensors).
-    Returns ``(boxes (B, capacity, 5) [score, x, y, w, h] pixels, mask)``.
+    Returns ``(boxes (B, capacity, 5) [score, x, y, w, h] pixels, mask)``,
+    and with ``indexed`` also ``index (B, capacity)`` int32, each kept row's
+    candidate, -1 past the kept rows (``fdtpu_torch::decode_filter_nms_indexed``).
 
     It checks the arguments and calls ``fdtpu_torch::decode_filter_nms``
     (:data:`decode_filter_nms_op`) where a tracer would see the call
@@ -292,7 +339,9 @@ def decode_filter_nms_batch(
     take raises.
     Up to :func:`max_candidates` rows an image the kernel keeps its working
     set in shared memory; above that the same kernel works in a scratch
-    tensor, ``B`` times the planes and the sort list of the padded ``N``.
+    tensor, ``B`` times the planes and the sort list of the padded ``N``,
+    and :attr:`decode_filter_nms_batch.scratch_launches` counts the launch
+    too (``utils/graphs.py`` counts a graph's as ``decode_filter_nms_scratch``).
     """
     if values.dim() != 3 or values.shape[-1] != 5:
         raise ValueError(f"values must be (B, N, 5), got {tuple(values.shape)}")
@@ -310,9 +359,10 @@ def decode_filter_nms_batch(
         raise ValueError(f"decode tables must each be ({n},)")
     scalars = tuple(_f32(v) for v in (w_scale, h_scale, probability_threshold, iou_threshold))
     if _traced(values):
-        return decode_filter_nms_op(values, *cols, *scalars, capacity)
+        op = decode_filter_nms_indexed_op if indexed else decode_filter_nms_op
+        return op(values, *cols, *scalars, capacity)
     impl = _launch if device.type == "cuda" else _plain
-    return impl(values, *cols, *scalars, capacity)
+    return impl(values, *cols, *scalars, capacity, indexed)
 
 
 def _traced(values: torch.Tensor) -> bool:
@@ -326,6 +376,7 @@ def _traced(values: torch.Tensor) -> bool:
 
 
 decode_filter_nms_batch.launches = 0
+decode_filter_nms_batch.scratch_launches = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,7 +2,9 @@
 checkpoint (the port's ``.pt`` or a reference TorchScript ``.pth``), fetch
 one validation sample, decode ground-truth and predicted boxes, print both.
 ``--model`` names any family of the zoo; ``ssd`` takes its patch sizes
-from ``--input``.
+from ``--input``; ``retinaface`` serves at ``--input`` with ``cfg_re50``'s
+widths and ``detect.py``'s thresholds (0.6, 0.4, 750 rows), and prints
+each predicted face's five points too.
 
     python -m fdtpu_torch.load_checkpoint --data-dir DIR --checkpoint PATH [--device cuda]
 """
@@ -17,7 +19,7 @@ from fdtpu_torch.core.nms import compact_boxes
 from fdtpu_torch.data import WIDERFaceDataSource, load_targets
 from fdtpu_torch.demo_model import load_weights
 from fdtpu_torch.models import DTYPES, FAMILIES, Detector, build_model
-from fdtpu_torch.utils.config import DetectorConfig
+from fdtpu_torch.utils.config import serving_config
 
 
 def main(argv=None):
@@ -34,14 +36,13 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    cfg = DetectorConfig(
-        filters=args.filters, input_shape=(args.input, args.input),
-        num_patches=args.patches, num_residual_blocks=args.blocks,
-    )
+    cfg = serving_config(args.model, args.input, filters=args.filters,
+                         num_patches=args.patches, num_residual_blocks=args.blocks)
     module = build_model(args.model, cfg, args.device, torch.Generator().manual_seed(0))
     # before the Detector is built: it serves a copy of the params
     module = load_weights(module, args.checkpoint, args.device)
-    det = Detector(module, nms_capacity=cfg.nms_capacity, dtype=DTYPES[cfg.dtype])
+    det = Detector(module, cfg.probability_threshold, cfg.iou_threshold, cfg.nms_capacity,
+                   DTYPES[cfg.dtype])
 
     targets = load_targets(args.data_dir, "val", max_faces=3)
     src = WIDERFaceDataSource(targets, cfg.input_shape, 8)
@@ -49,10 +50,14 @@ def main(argv=None):
     print("ground truth boxes:")
     print(gt_boxes[gt_mask])
 
-    _, boxes, mask = det.predict(img)
+    answer = det.predict(img)
+    _, boxes, mask = answer
     pred = compact_boxes(boxes, mask)
     print("predicted boxes:")
     print(pred)
+    if answer.landmarks is not None:
+        print("their five points:")
+        print(answer.landmarks[: len(pred)].cpu().numpy())
     return gt_boxes[gt_mask], pred
 
 

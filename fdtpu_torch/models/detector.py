@@ -4,9 +4,13 @@ thresholds and the serving API.
 * :meth:`Detector.apply` — the raw forward on ``(B, H, W, 3)`` float images;
 * :meth:`Detector.non_max_suppression` — batched decode+filter+NMS of the raw
   output through the fused kernel (``kernels/nms.py``): the grid tables for
-  the grid families, the SSD output tables (pixel scaling) for the SSD;
+  the grid families, the SSD output tables (pixel scaling) for a family
+  whose rows are normalised prior rows (the SSD, RetinaFace: its first five
+  columns); for a family with landmarks (RetinaFace) also the kept rows'
+  five points, gathered by K1's index of each kept candidate;
 * :meth:`Detector.predict` — one image of any size: host-side PIL resize and
-  RGB normalisation, ``/255``, forward, decode+filter+NMS.
+  RGB normalisation, ``/255``, forward, decode+filter+NMS, as a
+  :class:`Prediction` (with the landmarks, for a family that has them).
 
 On a card ``predict`` and ``non_max_suppression`` replay their device
 bodies from CUDA graphs (``utils/graphs.py``), fdtpu's jitted
@@ -51,13 +55,16 @@ from fdtpu_torch.models.layers import BatchNorm
 from fdtpu_torch.models.mobilenetv3 import MobileNetV3Backbone
 from fdtpu_torch.models.poolresnet import PoolResnet
 from fdtpu_torch.models.resnet import Resnet
+from fdtpu_torch.models.retinaface import RetinaFace
 from fdtpu_torch.models.separable import SeparableCNN
 from fdtpu_torch.models.ssd import SSD, ssd_patch_sizes
 from fdtpu_torch.utils import trace
+from fdtpu_torch.utils.config import RetinaFaceConfig
 from fdtpu_torch.utils.graphs import Graph, GraphCache, capture_body, clone_outputs
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-FAMILIES = ("poolresnet", "resnet", "separable", "mobilenetv3", "ssd")
+FAMILIES = ("poolresnet", "resnet", "separable", "mobilenetv3", "ssd", "retinaface")
+SERVED_ONLY = ("retinaface",)  # families the port serves and does not train or export
 MAX_GRAPHS = 8  # the CUDA graphs a Detector keeps
 
 
@@ -72,6 +79,28 @@ def graph_key(kind: str, shape, dtype: torch.dtype, prob: float, iou: float,
 
 def is_ssd(module) -> bool:
     return isinstance(module, SSD)
+
+
+class Prediction(tuple):
+    """:meth:`Detector.predict`'s answer. It unpacks as ``(normalized_image
+    (H, W, 3), boxes (capacity, 5), mask)``; ``landmarks`` is the kept rows'
+    five points ``(capacity, 10)`` ``[x1, y1, ..., x5, y5]`` in pixels,
+    zero past the kept rows, for a family with landmarks, and ``None`` for
+    the others."""
+
+    def __new__(cls, norm, boxes, mask, landmarks=None):
+        out = super().__new__(cls, (norm, boxes, mask))
+        out.landmarks = landmarks
+        return out
+
+
+def refuse_served_only(module, what: str) -> None:
+    """Raise for a family the port serves and does not ``what`` (train,
+    export): RetinaFace has no targets, loss or ``.pt2`` program yet."""
+    if isinstance(module, RetinaFace):
+        raise NotImplementedError(
+            f"RetinaFace is served only: {what} is not ported for it (no landmark "
+            "annotations, MultiBox loss or export program yet)")
 
 
 def has_batch_stats(module: torch.nn.Module) -> bool:
@@ -126,14 +155,15 @@ class Detector:
     @torch.inference_mode()
     def apply(self, images: torch.Tensor) -> torch.Tensor:
         """Raw forward on preprocessed ``(B, H, W, 3)`` float images ->
-        ``(B, S, S, 5)`` float32 grid map, or ``(B, N, 5)`` normalized prior
-        rows for the SSD."""
+        ``(B, S, S, 5)`` float32 grid map, ``(B, N, 5)`` normalized prior
+        rows for the SSD, ``(B, N, 15)`` for RetinaFace."""
         return self.net(images)
 
     def non_max_suppression(self, output: torch.Tensor):
         """Batched decode+filter+NMS over raw model output: ``(boxes, mask)``
         with ``boxes`` ``(B, capacity, 5)`` rows ``[score, x, y, w, h]`` in
-        pixels. On a card a replay of K1 captured for ``output``'s shape
+        pixels, and for a family with landmarks a third output, their points
+        ``(B, capacity, 10)``. On a card a replay of K1 captured for ``output``'s shape
         (fdtpu's jitted ``_nms_batch``)."""
         prob, iou, cap = self.probability_threshold, self.iou_threshold, self.nms_capacity
         if output.device.type != "cuda":
@@ -148,22 +178,37 @@ class Detector:
             return self._release(outputs)
 
     def _decode(self, output: torch.Tensor, prob: float, iou: float, capacity: int):
-        if is_ssd(self.module):
+        """K1 over the model's output -> ``(boxes, mask)``; for a family
+        with landmarks also the kept rows' five points ``(B, capacity, 10)``
+        in pixels, zero past the kept rows, gathered by K1's index of each
+        kept candidate."""
+        if isinstance(self.module, SSD):  # normalised prior rows
             return ssd_output_filter_nms(output, self.image_size, prob, iou, capacity)
-        return decode_filter_nms(output, self.module.grid_size(), self.image_size, prob, iou,
-                                 capacity)
+        if not isinstance(self.module, RetinaFace):
+            return decode_filter_nms(output, self.module.grid_size(), self.image_size, prob,
+                                     iou, capacity)
+        # RetinaFace: normalised prior rows, then the five points
+        boxes, mask, index = ssd_output_filter_nms(output[..., :5].contiguous(), self.image_size,
+                                                   prob, iou, capacity, indexed=True)
+        w, h = self.image_size
+        kept = index.clamp_min(0).long()[..., None].expand(-1, -1, 10)
+        xy = torch.gather(output[..., 5:], 1, kept).unflatten(-1, (5, 2))
+        points = torch.stack([xy[..., 0] * float(w), xy[..., 1] * float(h)], -1).flatten(-2)
+        return boxes, mask, torch.where(index[..., None] >= 0, points, 0.0)
 
     def predict(
         self,
         image,
         probability_threshold: float | None = None,
         iou_threshold: float | None = None,
-    ):
+    ) -> Prediction:
         """Single-image inference from a raw uint8/float image of any size.
 
-        Returns ``(normalized_image (H, W, 3), boxes (capacity, 5), mask)`` on
-        the detector's device; :func:`fdtpu_torch.core.compact_boxes` gives
-        the ragged view. The host step (:meth:`host_frame`) runs first; on
+        Returns a :class:`Prediction`: ``(normalized_image (H, W, 3), boxes
+        (capacity, 5), mask)`` on the detector's device, and for a family
+        with landmarks the kept rows' points as its ``landmarks``;
+        :func:`fdtpu_torch.core.compact_boxes` gives the ragged view. The
+        host step (:meth:`host_frame`) runs first; on
         the CPU :meth:`predict_body` then runs eagerly, on a card the frame
         goes through a pinned staging buffer into the static input of
         :meth:`predict_body` captured in a CUDA graph, and that graph
@@ -176,9 +221,8 @@ class Detector:
             with trace.span("fdtpu/predict/host_frame"):
                 arr = self.host_frame(image)
             if self.device.type != "cuda":
-                norm, boxes, mask = self.predict_body(torch.tensor(arr, device=self.device),
-                                                      prob, iou)
-                return norm[0], boxes[0], mask[0]
+                outs = self.predict_body(torch.tensor(arr, device=self.device), prob, iou)
+                return Prediction(*(o[0] for o in outs))
             with self._lock, torch.cuda.device(self.device):
                 with trace.span("fdtpu/predict/stage"):
                     # arr may have negative strides
@@ -196,8 +240,8 @@ class Detector:
                                     lambda img: self.predict_body(img, prob, iou))
                     g.inputs[0].copy_(buf, non_blocking=True)
                     copied.record()
-                norm, boxes, mask = g.replay()
-                return self._release((norm[0], boxes[0], mask[0]))
+                outs = g.replay()
+                return Prediction(*self._release(tuple(o[0] for o in outs)))
 
     def host_frame(self, image) -> np.ndarray:
         """:meth:`predict`'s host step: ``image`` (numpy or a tensor, any
@@ -220,10 +264,10 @@ class Detector:
     def predict_body(self, img: torch.Tensor, prob: float, iou: float):
         """:meth:`predict`'s device body on an ``(H, W, 3)`` frame on the
         device: ``/255``, the forward, decode+filter+NMS (K1). Returns the
-        batched ``(norm (1, H, W, 3), boxes (1, capacity, 5), mask)``."""
+        batched ``(norm (1, H, W, 3), boxes (1, capacity, 5), mask)``, and
+        for a family with landmarks their points ``(1, capacity, 10)``."""
         norm = img.float()[None] / 255.0
-        boxes, mask = self._decode(self.net(norm), prob, iou, self.nms_capacity)
-        return norm, boxes, mask
+        return (norm, *self._decode(self.net(norm), prob, iou, self.nms_capacity))
 
     def _release(self, outputs):
         """Clones of a replay's ``outputs``; the next replay, whichever
@@ -299,9 +343,12 @@ def build_model(
     caller names ``"cpu"`` (no fallback: without a card the default raises).
     ``"ssd"`` takes an ``SSDConfig``, or any config without ``patch_sizes``
     (a ``DetectorConfig``), whose patch sizes then follow from its input
-    shape (:func:`~fdtpu_torch.models.ssd.ssd_patch_sizes`); the others
-    take a ``DetectorConfig``, each the fields fdtpu's ``build_model``
-    reads (``fast_stem`` is fdtpu's TPU lowering of the same stem and is
+    shape (:func:`~fdtpu_torch.models.ssd.ssd_patch_sizes`);
+    ``"retinaface"`` takes a ``RetinaFaceConfig`` alone (a family the port
+    serves only, :data:`SERVED_ONLY`; ``TypeError`` for another config,
+    whose thresholds and capacity are not RetinaFace's); the others take a
+    ``DetectorConfig``, each the fields fdtpu's ``build_model`` reads
+    (``fast_stem`` is fdtpu's TPU lowering of the same stem and is
     ignored). For serving, the compute dtype (``config.dtype``) is the
     :class:`Detector`'s, see :data:`DTYPES`; a module to train takes
     ``compute_dtype`` and keeps its params float32."""
@@ -334,6 +381,13 @@ def build_model(
             patch_sizes=tuple(patch) if patch else ssd_patch_sizes(config.input_shape),
             **common,
         )
+    elif name == "retinaface":
+        if not isinstance(config, RetinaFaceConfig):
+            raise TypeError(f"retinaface takes a RetinaFaceConfig, not {type(config).__name__} "
+                            "(utils.config.serving_config makes one)")
+        module = RetinaFace(config.input_shape, config.in_channels, config.out_channel,
+                            config.min_sizes, config.steps, config.variance, config.clip,
+                            config.mean, **common)
     else:
         raise ValueError(f"unknown model family: {name}")
     return module.to(device)

@@ -64,7 +64,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from fdtpu_torch.models import FAMILIES, build_model, ssd_patch_sizes
+from fdtpu_torch.models import FAMILIES, SERVED_ONLY, build_model, ssd_patch_sizes
 from fdtpu_torch.parallel import initialize_multihost, make_dp_train_step, shutdown
 from fdtpu_torch.train import CapturedTrainStep, create_train_state, make_train_step
 from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
@@ -141,6 +141,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args()
+    if args.model in SERVED_ONLY:
+        ap.error(f"--model {args.model}: the port serves it and does not train it")
     ssd = args.model == "ssd"
     zoo = args.model not in ("poolresnet", "ssd")
     args.batch = args.batch or (24 if ssd else 8 if zoo else 128)

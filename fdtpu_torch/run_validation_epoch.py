@@ -31,7 +31,7 @@ import torch
 
 from fdtpu_torch.data import BatchLoader, DevicePrefetcher, WIDERFaceDataSource, load_targets
 from fdtpu_torch.compat.torch_import import load_reference_detector
-from fdtpu_torch.models import DTYPES, FAMILIES, build_model, ssd_patch_sizes
+from fdtpu_torch.models import DTYPES, FAMILIES, SERVED_ONLY, build_model, ssd_patch_sizes
 from fdtpu_torch.train import Trainer
 from fdtpu_torch.train.checkpoint import restore_checkpoint
 from fdtpu_torch.train.metrics import average_precision, f1_score
@@ -65,7 +65,11 @@ def parse_args(argv=None):
                    help="with --widerface-gt-dir: also dump detections in the official "
                         "submission txt layout")
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.model in SERVED_ONLY:
+        p.error(f"--model {args.model}: the port serves it and does not evaluate it (no "
+                "targets or loss for it yet)")
+    return args
 
 
 def main(argv=None) -> dict:

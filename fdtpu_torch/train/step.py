@@ -98,7 +98,7 @@ from fdtpu_torch.data.augment import augment_batch_fast, resize_only_batch
 from fdtpu_torch.losses.ssd import ssd_loss
 from fdtpu_torch.losses.yolo import yolo_loss
 from fdtpu_torch.compat.torch_import import ReferenceLayoutGrid
-from fdtpu_torch.models.detector import has_batch_stats, is_ssd
+from fdtpu_torch.models.detector import has_batch_stats, is_ssd, refuse_served_only
 from fdtpu_torch.models.layers import BatchNorm, DropoutMasks
 from fdtpu_torch.models.mobilenetv3 import MobileNetV3Backbone
 from fdtpu_torch.models.poolresnet import PoolResnet
@@ -121,6 +121,7 @@ from fdtpu_torch.utils.config import TrainConfig
 
 def _check_supported(module) -> None:
     inner = module.inner if isinstance(module, ReferenceLayoutGrid) else module
+    refuse_served_only(inner, "training and evaluation")
     if not isinstance(inner, (PoolResnet, MobileNetV3Backbone, SSD)):  # Resnet, SeparableCNN
         raise ValueError(f"{type(module).__name__} is not a detector of the zoo")
 

@@ -1,5 +1,6 @@
 """Detector, SSD and train configs: the same fields and defaults as
-``fdtpu/utils/config.py``, duplicated so the port never imports fdtpu."""
+``fdtpu/utils/config.py``, duplicated so the port never imports fdtpu; and
+:class:`RetinaFaceConfig`, a family the port serves beyond fdtpu's zoo."""
 
 from __future__ import annotations
 
@@ -60,6 +61,46 @@ class SSDConfig:
     @property
     def image_size(self) -> Tuple[int, int]:
         return (self.input_shape[1], self.input_shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class RetinaFaceConfig:
+    """RetinaFace-R50 knobs: ``cfg_re50`` of ``data/config.py`` in
+    github.com/biubug6/Pytorch_Retinaface (a torchvision ResNet-50 whose
+    ``layer2``-``layer4`` feed an FPN of ``out_channel``, two anchors a
+    location, 840 px), with ``detect.py``'s serving thresholds: ``vis_thres``
+    0.6, ``nms_threshold`` 0.4 and ``keep_top_k`` 750 rows. ``mean`` is the
+    BGR mean the input transform subtracts. The port serves this model; it
+    does not train it."""
+
+    input_shape: Tuple[int, int] = (840, 840)  # (height, width)
+    in_channels: Tuple[int, ...] = (512, 1024, 2048)  # layer2, layer3, layer4
+    out_channel: int = 256
+    min_sizes: Tuple[Tuple[int, ...], ...] = ((16, 32), (64, 128), (256, 512))
+    steps: Tuple[int, ...] = (8, 16, 32)
+    variance: Tuple[float, float] = (0.1, 0.2)
+    clip: bool = False
+    mean: Tuple[float, float, float] = (104.0, 117.0, 123.0)
+    probability_threshold: float = 0.6
+    iou_threshold: float = 0.4
+    nms_capacity: int = 750
+    dtype: str = "bfloat16"
+
+    @property
+    def image_size(self) -> Tuple[int, int]:
+        return (self.input_shape[1], self.input_shape[0])
+
+
+def serving_config(family: str, size: int, **zoo):
+    """The config a serving entry point (``demo_model``,
+    ``load_checkpoint``) builds ``family`` from at ``size`` px square:
+    :class:`RetinaFaceConfig` for ``"retinaface"`` (``cfg_re50``'s widths,
+    ``detect.py``'s thresholds and capacity), else a :class:`DetectorConfig`
+    with ``zoo``'s fields (``build_model`` takes it for the SSD too)."""
+    shape = (size, size)
+    if family == "retinaface":
+        return RetinaFaceConfig(input_shape=shape)
+    return DetectorConfig(input_shape=shape, **zoo)
 
 
 @dataclasses.dataclass(frozen=True)

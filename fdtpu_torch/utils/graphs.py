@@ -25,7 +25,8 @@ While a profiler is active (``utils/trace.py``) every capture, its warm-up
 included, is the span ``fdtpu/graph/capture`` and adds one to the counter
 ``graph_captures``, and every replay's launch is the span
 ``fdtpu/graph/replay``, a child of its caller's span (a predict, a train
-step).
+step); a replay of a graph that holds K1 on its global-scratch path adds
+those launches to the counter ``nms_scratch``.
 
 On a CPU device nothing is captured: the helpers raise ValueError, and a
 failed capture raises; nothing falls back to the eager body.
@@ -49,9 +50,11 @@ from fdtpu_torch.kernels.rotate import shear_cols, shear_rows
 from fdtpu_torch.utils import trace
 
 # the wrappers whose launches a graph counts: name -> (function, attribute);
-# conv_gemm's are its GEMMs (the narrow convolutions of a no-grad bf16 forward)
+# conv_gemm's are its GEMMs (the narrow convolutions of a no-grad bf16 forward);
+# decode_filter_nms_scratch: those of K1's launches that work in global scratch
 COUNTED = {
     "decode_filter_nms": (decode_filter_nms_batch, "launches"),
+    "decode_filter_nms_scratch": (decode_filter_nms_batch, "scratch_launches"),
     "shear_rows": (shear_rows, "launches"),
     "shear_rows_stacked": (shear_rows, "stacked_launches"),
     "shear_cols": (shear_cols, "launches"),
@@ -110,6 +113,8 @@ class Graph:
         self.replays += 1
         for k, n in self.per_replay.items():
             REPLAYED[k] += n
+        if self.per_replay.get("decode_filter_nms_scratch"):
+            trace.count("nms_scratch", self.per_replay["decode_filter_nms_scratch"])
         return self.outputs
 
 

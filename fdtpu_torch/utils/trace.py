@@ -26,6 +26,9 @@ The names are a contract: PERF.md and the benchmark's readers use them.
 * ``fdtpu/graph/replay`` and ``fdtpu/graph/capture`` with the counter
   ``graph_captures``, around every replay and every capture with its
   warm-up (``utils/graphs.py``);
+* the counter ``nms_scratch``: K1's launches on its global-scratch path
+  (more than ``max_candidates`` rows an image) that replays made
+  (``utils/graphs.py``, from ``kernels/nms.py``'s ``scratch_launches``);
 * the eager train step's phases ``train/augment``, ``train/targets``,
   ``train/gradients``, ``train/optimizer``, ``train/metrics``
   (``train/step.py``, read by ``profile_train``) and the spatial
