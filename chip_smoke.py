@@ -352,6 +352,20 @@ non-zero; without a CUDA card it fails at once and prints no result):
     landmarks zero past the kept rows, every replay's answer the same.
     One JSON line, ``retinaface``. ``--retinaface`` runs phases 1, 2 and
     24 alone.
+25. the fused BatchNorm epilogue (``kernels/bn_act.py``, a kernel of the
+    port alone) at every chain the bf16 RetinaFace-R50 serves at 840 px
+    (73 calls of ``layers.bn_act`` a forward, recorded from the forward;
+    BatchNorm params and statistics random, off the identity): each
+    distinct chain bit-equal to the eager chain (``F.batch_norm``, ``+
+    skip``, ReLU) and timed against it, ten calls of an arm replayed from
+    one CUDA graph and timed by ``device_ms`` in turns (chain, kernel,
+    kernel, chain; warm: the same buffers each call), beside its bytes
+    bound (y, skip and the output once at 3.35 TB/s); each summed over a
+    frame's calls. Then the 840 px ``predict`` graph with the epilogue (73
+    launches a replay) and with the eager chain, their replays timed by
+    ``device_ms`` in turns, and their answers equal. One JSON line,
+    ``bn_act``. ``--bn-act`` runs phases 1, 2 and 25 alone and ends with
+    a ``kernels`` line that holds the ``bn_act`` entry alone (below).
 
 The line before the last is a JSON object with each kernel's launches (from
 the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment,
@@ -370,7 +384,11 @@ the shears' float32 rows, the same function within float32 rounding of its
 normalised coordinates; null for the bfloat16 rows (its grid would be
 bfloat16 too) and for the other kernels: no single PyTorch call computes a
 batched greedy NMS, the photometric chain or the fused tail.
-The ``decode_filter_nms``, the shears' and ``residual_tail`` entries also
+The ``bn_act`` entry (a kernel of the port alone, ``replaces`` null) is
+phase 25's: its launches a RetinaFace predict replay, error 0 (each chain
+bit-equal), and a frame's kernel time, eager chain (``plain_ms``) and bytes
+bound summed over its 73 calls. The ``decode_filter_nms``, the shears',
+``residual_tail`` and ``bn_act`` entries also
 list every shape they were timed at (``shapes``); K4 has an entry of its
 own, ``shear_rows_stacked`` (``shear_rows`` with ``c = 1``), with the
 launches counted apart on the paths (none: no path stacks channels).
@@ -404,6 +422,7 @@ from fdtpu_torch.compat import torch_import
 from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets
 from fdtpu_torch.data import augment as aug
 from fdtpu_torch.data import make_synthetic_widerface
+from fdtpu_torch.kernels import bn_act as kbn
 from fdtpu_torch.kernels import build
 from fdtpu_torch.kernels import epilogue as kep
 from fdtpu_torch.kernels import nms as knms
@@ -411,6 +430,7 @@ from fdtpu_torch.kernels import photometric as kphoto
 from fdtpu_torch.kernels import rotate as krot
 from fdtpu_torch.losses.ssd import hard_negative_mining
 from fdtpu_torch.kernels.conv_gemm import conv_gemm
+from fdtpu_torch.models import layers
 from fdtpu_torch.models.layers import BatchNorm, DropoutMasks, conv, narrow_conv
 from fdtpu_torch.models import (
     DTYPES,
@@ -474,6 +494,8 @@ PHOTOMETRIC = {"name": "photometric", "route": "cuda",
 RESIDUAL_TAIL = {"name": "residual_tail", "route": "cuda",
                  "source": "fdtpu_torch/kernels/csrc/residual_tail.cu",
                  "replaces": "fdtpu/kernels/epilogue_pallas.py:49"}
+BN_ACT = {"name": "bn_act", "route": "cuda", "source": "fdtpu_torch/kernels/csrc/bn_act.cu",
+          "replaces": None}  # a kernel of the port alone
 TRAIN_RTOL_LOSS, TRAIN_RTOL_GRAD_NORM = 1e-4, 1e-3
 TRAIN_RTOL_UPDATE, TRAIN_RTOL_UPDATE_TENSOR = 1e-2, 5e-2  # relative L2, phase 8
 TRAIN_STEPS = 5
@@ -4894,6 +4916,145 @@ def phase_retinaface(card) -> dict:
     return out
 
 
+BN_ACT_TURNS = 2  # (chain, kernel, kernel, chain) rounds a chain's timing
+
+
+def served_bn_act_calls(det) -> list[tuple]:
+    """``(shape, act, skip)`` of each ``layers.bn_act`` call of ``det``'s
+    forward at its input size, in call order."""
+    calls, real = [], layers.fused_bn_act
+
+    def record(y, *args):  # weight, bias, mean, var, eps, act, skip
+        calls.append((tuple(y.shape), args[5], args[6] is not None))
+        return real(y, *args)
+
+    layers.fused_bn_act = record
+    try:
+        det.apply(torch.rand((1, *det.module.input_shape, 3), device="cuda"))
+    finally:
+        layers.fused_bn_act = real
+    return calls
+
+
+def bn_act_operands(shape, with_skip: bool, gen) -> tuple:
+    """Random bf16 channels_last operands of one chain: y, skip (or None)
+    and the BatchNorm's four float32 vectors, off the identity."""
+    n, c, h, w = shape
+
+    def act():
+        return (torch.randn((n, h, w, c), generator=gen, device="cuda") * 2).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+
+    params = (torch.randn(c, generator=gen, device="cuda") * 1.5,
+              torch.randn(c, generator=gen, device="cuda"),
+              torch.randn(c, generator=gen, device="cuda"),
+              10.0 ** (torch.rand(c, generator=gen, device="cuda") * 4 - 2))
+    return act(), act() if with_skip else None, params
+
+
+def phase_bn_act(card) -> dict:
+    """Phase 25 (module docstring): the fused BatchNorm epilogue at the
+    served chains, against the eager chain, and the predict graph with
+    and without it."""
+    cfg = RetinaFaceConfig()
+    module = build_model("retinaface", cfg, "cuda", torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 25)
+    with torch.no_grad():  # every BatchNorm off the identity, mildly (finite activations)
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(0.5 + torch.rand(c, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(c, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                m.running_var.copy_(0.5 + 1.5 * torch.rand(c, generator=gen))
+    det = Detector(module, cfg.probability_threshold, cfg.iou_threshold, cfg.nms_capacity,
+                   DTYPES[cfg.dtype])
+    calls = served_bn_act_calls(det)
+    check(len(calls) == 73, f"{len(calls)} bn_act calls a forward, not 73")
+    rows, frame = [], {"kernel_ms": 0.0, "eager_ms": 0.0, "bound_ms": 0.0}
+    cuda_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for key in sorted(set(calls), key=str):
+        shape, act, with_skip = key
+        count = calls.count(key)
+        y, skip, params = bn_act_operands(shape, with_skip, cuda_gen)
+        with torch.inference_mode():
+            got = kbn.fused_bn_act(y, *params, 1e-5, act, skip)
+            want = kbn.reference_bn_act(y, *params, 1e-5, act, skip)
+        torch.cuda.synchronize()
+        check(torch.equal(got.contiguous().view(torch.int16), want.contiguous().view(torch.int16)),
+              f"bn_act {key} differs from the eager chain")
+        arms = {"eager": lambda: kbn.reference_bn_act(y, *params, 1e-5, act, skip),
+                "kernel": lambda: kbn.fused_bn_act(y, *params, 1e-5, act, skip)}
+        times = {arm: [] for arm in arms}
+        with torch.inference_mode():
+            for _ in range(BN_ACT_TURNS):
+                for arm in ("eager", "kernel", "kernel", "eager"):
+                    times[arm].append(graph_ms(arms[arm], 20))
+        moved = y.numel() * 2 * (3 if with_skip else 2)
+        row = {"shape": list(shape), "act": act, "skip": with_skip, "calls_a_frame": count,
+               **{f"{arm}_ms": statistics.median(t) for arm, t in times.items()},
+               "bound_ms": moved / HBM_BYTES_PER_MS}
+        row["roofline_pct"] = 100 * row["bound_ms"] / row["kernel_ms"]
+        for k in frame:
+            frame[k] += count * row[k]
+        rows.append(row)
+        print(f"[25 bn_act] {shape} act={act} skip={with_skip} x{count}: "
+              f"kernel {row['kernel_ms']:.5f} ms ({row['roofline_pct']:.0f}% of "
+              f"{row['bound_ms']:.5f}), eager chain {row['eager_ms']:.5f} ms, bit-equal")
+        del y, skip, params, got, want
+    frame_img = np.random.default_rng(SEED + 25).integers(0, 256, size=(840, 840, 3),
+                                                           dtype=np.uint8)
+    pred_on = det.predict(frame_img)
+    (g_on,) = det._graphs.graphs.values()
+    real = layers.fused_bn_act
+    layers.fused_bn_act = kbn.reference_bn_act  # the eager chain on the card
+    try:
+        off = Detector(module, cfg.probability_threshold, cfg.iou_threshold, cfg.nms_capacity,
+                       DTYPES[cfg.dtype])
+        pred_off = off.predict(frame_img)
+    finally:
+        layers.fused_bn_act = real
+    (g_off,) = off._graphs.graphs.values()
+    check((g_on.per_replay["bn_act"], g_off.per_replay["bn_act"]) == (73, 0),
+          f"bn_act a replay: {g_on.per_replay['bn_act']} on, {g_off.per_replay['bn_act']} off")
+    check(all(torch.equal(a, b) for a, b in zip((*pred_on, pred_on.landmarks),
+                                                (*pred_off, pred_off.landmarks))),
+          "predict differs with the epilogue")
+    graph_times = {"on": [], "off": []}
+    for arm in ("off", "on", "on", "off") * 2:
+        graph_times[arm].append(device_ms((g_on if arm == "on" else g_off).graph.replay, 50))
+    out = {"card": card, "chains": rows, "frame": frame, "calls_a_frame": len(calls),
+           "per_replay": g_on.per_replay["bn_act"],
+           "predict_graph_ms": {arm: statistics.median(t) for arm, t in graph_times.items()},
+           "predict_graph_ms_all": graph_times}
+    print(f"[25 bn_act] a frame's 73 chains: kernel {frame['kernel_ms']:.4f} ms against "
+          f"{frame['bound_ms']:.4f} bound, eager chain {frame['eager_ms']:.4f} ms; predict "
+          f"graph {out['predict_graph_ms']['on']:.4f} ms with the epilogue, "
+          f"{out['predict_graph_ms']['off']:.4f} without, same answers [{card}]")
+    print(json.dumps({"bn_act": out}))
+    return out
+
+
+def bn_act_entry(out: dict) -> dict:
+    """The ``kernels`` line's ``bn_act`` entry from phase 25's result: the
+    launches a predict replay, error 0 (phase 25 checks each chain bit for
+    bit), a frame's kernel time, eager chain and bytes bound, the chains
+    under ``shapes``."""
+    frame = out["frame"]
+    return {**BN_ACT, "launches": out["per_replay"], "max_abs_err": 0.0,
+            "ms": frame["kernel_ms"], "plain_ms": frame["eager_ms"],
+            "bound_ms": frame["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "shapes": out["chains"]}
+
+
+def bn_act_only() -> None:
+    """``--bn-act``: the card, the build and phase 25 alone, then a
+    ``kernels`` line with the ``bn_act`` entry."""
+    card, _ = phase_card()
+    phase_build()
+    print(json.dumps({"kernels": [bn_act_entry(phase_bn_act(card))]}))
+
+
 def retinaface_only() -> None:
     """``--retinaface``: the card, the build and phase 24 alone."""
     card, _ = phase_card()
@@ -4992,6 +5153,7 @@ def main() -> None:
         serve_launches = phase_serve(card, tmp)
     phase_narrow_convs(card)
     rf_launches = phase_retinaface(card)["launches"]
+    bn_act = phase_bn_act(card)
     k1_recorded_map_bounds()
 
     def entry(meta, launches, err, times, library_ms=None):
@@ -5026,6 +5188,7 @@ def main() -> None:
                          fused_times["photometric"]))
     kernels.append({**entry(RESIDUAL_TAIL, tail_launches, 0.0, fused_times["residual_tail"]),
                     "shapes": fused_times["residual_tail_shapes"]})
+    kernels.append(bn_act_entry(bn_act))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
@@ -5049,5 +5212,7 @@ if __name__ == "__main__":
         stem_only()
     elif sys.argv[1:] == ["--retinaface"]:
         retinaface_only()
+    elif sys.argv[1:] == ["--bn-act"]:
+        bn_act_only()
     else:
         main()

@@ -3,6 +3,7 @@ module (``kernels/build.py``) is imported only when a kernel launches.
 ``conv_gemm.py`` holds no hand-written kernel: a convolution as one library
 GEMM, counted as the kernels' wrappers are."""
 
+from fdtpu_torch.kernels.bn_act import fused_bn_act, reference_bn_act  # noqa: F401
 from fdtpu_torch.kernels.epilogue import fused_residual_tail, reference_tail  # noqa: F401
 from fdtpu_torch.kernels.nms import (  # noqa: F401
     decode_filter_nms_batch,

@@ -121,6 +121,8 @@ def load_library() -> ctypes.CDLL:
     lib.fdtpu_photometric.restype = _I
     lib.fdtpu_residual_tail.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.fdtpu_residual_tail.restype = _I
+    lib.fdtpu_bn_act.argtypes = [_P, _P, _P, _P, _P, _P, _P, _F, _I, _F, _I, _I, _I, _P]
+    lib.fdtpu_bn_act.restype = _I
     lib.fdtpu_cuda_error_string.argtypes = [_I]
     lib.fdtpu_cuda_error_string.restype = ctypes.c_char_p
     return lib

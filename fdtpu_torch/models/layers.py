@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fdtpu_torch.kernels.bn_act import fused_bn_act, reference_bn_act
 from fdtpu_torch.kernels.conv_gemm import conv_gemm
 from fdtpu_torch.kernels.epilogue import fused_residual_tail
 
@@ -352,3 +353,22 @@ class BatchNorm(nn.Module):
         scale = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+def bn_act(bn: BatchNorm, y: torch.Tensor, act: float | None = None,
+           skip: torch.Tensor | None = None) -> torch.Tensor:
+    """``bn`` on ``y`` by its running statistics, ``+ skip`` (with ``skip``), then
+    ``act``: ``None`` none, ``0.0`` ReLU, else LeakyReLU with that slope.
+    Where autograd would need a backward (``y``, ``skip`` or the BatchNorm's
+    params require grad), the eager ops: the kernel has none. Everywhere
+    else :func:`~fdtpu_torch.kernels.bn_act.fused_bn_act`, which runs the
+    eager ops as its reference on the CPU and one launch of the fused
+    epilogue on a card, and raises on what the kernel does not take: ``y``
+    and ``skip`` float32 or bfloat16 in channels_last memory, as a
+    convolution of a channels_last input writes them. Nothing on a card
+    falls back to the eager ops."""
+    params = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (y, skip, *params)):
+        return reference_bn_act(y, *params, bn.eps, act, skip)
+    return fused_bn_act(y, *params, bn.eps, act, skip)

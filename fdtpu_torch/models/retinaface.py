@@ -31,7 +31,11 @@ float32 before the softmax and the decode. It returns ``(B, N, 15)``
 float32 rows ``[face score, x0, y0, w, h, l1x, l1y, ..., l5x, l5y]``, box
 and points normalised to the image, one row a prior in
 ``prior_box.py``'s order (``core/priors.py``: level, row, column, anchor).
-The stem and the heads go through ``layers.narrow_conv``.
+The stem and the heads go through ``layers.narrow_conv``. Each convolution's
+BatchNorm, with the residual add and the activation after it, goes through
+``layers.bn_act``: served on a card, one fused launch a BatchNorm (73 at
+the published widths). SSH's ReLU after its ``cat`` runs as each branch's
+activation (ReLU after ``cat`` is ReLU on each branch).
 """
 
 from __future__ import annotations
@@ -41,19 +45,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from fdtpu_torch.core.priors import anchors_on, decode_boxes, decode_landmarks, feature_maps
-from fdtpu_torch.models.layers import BatchNorm, conv, narrow_conv, torch_uniform_
+from fdtpu_torch.models.layers import BatchNorm, bn_act, conv, narrow_conv, torch_uniform_
 
 BLOCKS = (3, 4, 6, 3)  # ResNet-50's bottlenecks a stage
 BN_EPS = 1e-5  # nn.BatchNorm2d's
 ROW = 15  # [score, x0, y0, w, h, five points]
+RELU = 0.0  # layers.bn_act's activation for ReLU
 
 
 def _bn(channels: int) -> BatchNorm:
     return BatchNorm(channels, eps=BN_EPS)
-
-
-def _act(x: torch.Tensor, leaky: float) -> torch.Tensor:
-    return F.leaky_relu(x, leaky) if leaky else F.relu(x)
 
 
 class Bottleneck(nn.Module):
@@ -75,11 +76,11 @@ class Bottleneck(nn.Module):
                                             _bn(4 * planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(conv(self.conv1, x)))
-        y = F.relu(self.bn2(conv(self.conv2, y)))
-        y = self.bn3(conv(self.conv3, y))
-        skip = x if self.downsample is None else self.downsample[1](conv(self.downsample[0], x))
-        return F.relu(y + skip)
+        y = bn_act(self.bn1, conv(self.conv1, x), RELU)
+        y = bn_act(self.bn2, conv(self.conv2, y), RELU)
+        skip = x if self.downsample is None else bn_act(self.downsample[1],
+                                                        conv(self.downsample[0], x))
+        return bn_act(self.bn3, conv(self.conv3, y), RELU, skip)
 
 
 class ResNetBody(nn.Module):
@@ -102,7 +103,10 @@ class ResNetBody(nn.Module):
             cin = 4 * p
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        x = F.relu(self.bn1(narrow_conv(self.conv1, x)))
+        # a stem narrower than a multiple of 8 comes from conv_gemm as a channel
+        # slice of a padded output; the epilogue takes dense rows (a no-op at 64)
+        x = narrow_conv(self.conv1, x).contiguous(memory_format=torch.channels_last)
+        x = bn_act(self.bn1, x, RELU)
         x = F.max_pool2d(x, 3, 2, 1)
         outs = []
         for i in range(1, 5):
@@ -115,13 +119,13 @@ class ResNetBody(nn.Module):
 
 class ConvBN(nn.Sequential):
     """``net.py``'s ``conv_bn`` family: a bias-free convolution (``.0``)
-    and BatchNorm (``.1``)."""
+    and BatchNorm (``.1``), then ``act`` (``layers.bn_act``'s)."""
 
     def __init__(self, cin: int, cout: int, k: int):
         super().__init__(nn.Conv2d(cin, cout, k, 1, k // 2, bias=False), _bn(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self[1](conv(self[0], x))
+    def forward(self, x: torch.Tensor, act: float | None = None) -> torch.Tensor:
+        return bn_act(self[1], conv(self[0], x), act)
 
 
 class FPN(nn.Module):
@@ -137,12 +141,10 @@ class FPN(nn.Module):
         self.merge2 = ConvBN(out, out, 3)
 
     def forward(self, feats: list[torch.Tensor]) -> list[torch.Tensor]:
-        o1, o2, o3 = (_act(getattr(self, f"output{i + 1}")(f), self.leaky)
+        o1, o2, o3 = (getattr(self, f"output{i + 1}")(f, self.leaky)
                       for i, f in enumerate(feats))
-        o2 = _act(self.merge2(o2 + F.interpolate(o3, size=o2.shape[2:], mode="nearest")),
-                  self.leaky)
-        o1 = _act(self.merge1(o1 + F.interpolate(o2, size=o1.shape[2:], mode="nearest")),
-                  self.leaky)
+        o2 = self.merge2(o2 + F.interpolate(o3, size=o2.shape[2:], mode="nearest"), self.leaky)
+        o1 = self.merge1(o1 + F.interpolate(o2, size=o1.shape[2:], mode="nearest"), self.leaky)
         return [o1, o2, o3]
 
 
@@ -161,10 +163,11 @@ class SSH(nn.Module):
         self.conv7x7_3 = ConvBN(out // 4, out // 4, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c5_1 = _act(self.conv5X5_1(x), self.leaky)
-        c7_2 = _act(self.conv7X7_2(c5_1), self.leaky)
-        return F.relu(torch.cat([self.conv3X3(x), self.conv5X5_2(c5_1), self.conv7x7_3(c7_2)],
-                                dim=1))
+        c5_1 = self.conv5X5_1(x, self.leaky)
+        c7_2 = self.conv7X7_2(c5_1, self.leaky)
+        # ReLU after the cat, as each branch's activation
+        return torch.cat([self.conv3X3(x, RELU), self.conv5X5_2(c5_1, RELU),
+                          self.conv7x7_3(c7_2, RELU)], dim=1)
 
 
 class Head(nn.Module):

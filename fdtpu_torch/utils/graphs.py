@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
+from fdtpu_torch.kernels.bn_act import fused_bn_act
 from fdtpu_torch.kernels.conv_gemm import conv_gemm
 from fdtpu_torch.kernels.nms import decode_filter_nms_batch
 from fdtpu_torch.kernels.photometric import photometric_batch
@@ -51,7 +52,9 @@ from fdtpu_torch.utils import trace
 
 # the wrappers whose launches a graph counts: name -> (function, attribute);
 # conv_gemm's are its GEMMs (the narrow convolutions of a no-grad bf16 forward);
-# decode_filter_nms_scratch: those of K1's launches that work in global scratch
+# decode_filter_nms_scratch: those of K1's launches that work in global scratch;
+# bn_act: the fused BatchNorm epilogues of a forward without autograd on a card
+# (models/layers.bn_act)
 COUNTED = {
     "decode_filter_nms": (decode_filter_nms_batch, "launches"),
     "decode_filter_nms_scratch": (decode_filter_nms_batch, "scratch_launches"),
@@ -60,6 +63,7 @@ COUNTED = {
     "shear_cols": (shear_cols, "launches"),
     "photometric": (photometric_batch, "launches"),
     "conv_gemm": (conv_gemm, "launches"),
+    "bn_act": (fused_bn_act, "launches"),
 }
 
 # the kernel launches of every replay of every graph, by wrapper
