@@ -4,10 +4,6 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --kernel-times`` runs phases 1 and 2 and the K1-K4
-timings alone, without plain versions, and prints them as one JSON line;
-``python -m fdtpu_torch.compare_parent`` runs it in turns on two trees.)
-
 Phases, one printed line each (any failure raises, and the script exits
 non-zero; without a CUDA card it fails at once and prints no result):
 
@@ -295,8 +291,8 @@ non-zero; without a CUDA card it fails at once and prints no result):
     launch calls a step,
     and one more train epoch of each 21b fit by the host clock. Phases 14
     and 16 replay the Trainer's captured step too, and phases 14-16 and 21
-    count the replays' shear and K5 launches (``train/graphs.py``:
-    ``REPLAYED``);
+    count the replays' shear and K5 launches (a replay adds its graph's
+    ``per_replay`` to ``LAUNCHES``);
 22. serving and eval replayed from CUDA graphs (``utils/graphs.py``), each
     replay held to its eager body bit for bit: (a) a bf16 Detector of each
     family at 480 px at phase 16's widths (PoolResnet-128x10 grid 10,
@@ -324,7 +320,8 @@ non-zero; without a CUDA card it fails at once and prints no result):
     one under the profiler; each with its graph's pool MiB and capture s.
     ``--serve`` runs phases 1, 2 and 22 alone. Phases 5, 6, 14-18 and 20
     go through the same replays (K1 counted once a call, eager or
-    replayed; the warm-ups before a capture apart, ``utils.graphs.WARMED``).
+    replayed; the warm-ups before a capture apart, as each graph measured
+    them: :func:`warm_ups`).
 23. PoolResnet-128's narrow convolutions in the no-grad bf16 forward
     (``layers.narrow_conv``): the 3-channel stem and the 5-channel head,
     channels_last, at b1, b2, b4, b8, b16 and b32 at 480 px and b1, b4, b8
@@ -367,15 +364,14 @@ non-zero; without a CUDA card it fails at once and prints no result):
     ``bn_act``. ``--bn-act`` runs phases 1, 2 and 25 alone and ends with
     a ``kernels`` line that holds the ``bn_act`` entry alone (below).
 
-The line before the last is a JSON object with each kernel's launches (from
-the serving, training, fused, Trainer, SSD, zoo, data-parallel, deployment,
-spatial, camera, graph and serve paths; a CUDA graph's replays, which launch
-K1, the shears and K5 without their wrappers, are counted by each graph: the
-launches its capture recorded times its replays, summed in ``REPLAYED``,
-17a's and 19a's in their ranks too; the warm-ups before each capture are
-real launches and counted by the wrappers),
-error, times, and
-its bound: the
+The line before the last is a JSON object with each kernel's launches on
+the paths (:data:`PATH_LAUNCHES`: the delta of ``kernels/launches.py``'s
+``LAUNCHES`` over each path's own run, the serving, training, fused,
+Trainer, SSD, zoo, data-parallel, deployment, spatial, camera, graph,
+serve and RetinaFace paths, with the warm-ups before their captures and
+their CUDA graphs' replays; 17a's, 17c's and 19a's handed back by their
+ranks; the checks against the plain versions and the timing phases are no
+path), error, times, and its bound: the
 larger of the bytes it must move over the card's 3.35 TB/s and the
 operations it does on this run's inputs over the 67 TFLOP/s of float32
 outside the tensor cores (H100 SXM data sheet). ``library_ms`` is the time
@@ -386,12 +382,13 @@ bfloat16 too) and for the other kernels: no single PyTorch call computes a
 batched greedy NMS, the photometric chain or the fused tail.
 The ``bn_act`` entry (a kernel of the port alone, ``replaces`` null) is
 phase 25's: its launches a RetinaFace predict replay, error 0 (each chain
-bit-equal), and a frame's kernel time, eager chain (``plain_ms``) and bytes
-bound summed over its 73 calls. The ``decode_filter_nms``, the shears',
-``residual_tail`` and ``bn_act`` entries also
-list every shape they were timed at (``shapes``); K4 has an entry of its
-own, ``shear_rows_stacked`` (``shear_rows`` with ``c = 1``), with the
-launches counted apart on the paths (none: no path stacks channels).
+bit-equal), and a frame's kernel time,
+eager chain (``plain_ms``) and bytes bound summed over its 73 calls. The
+``decode_filter_nms``, the shears', ``residual_tail`` and ``bn_act``
+entries also list every shape they were timed at (``shapes``); K4 has an
+entry of its own, ``shear_rows_stacked`` (``shear_rows`` with ``c = 1``),
+whose launches on the paths are counted apart (none: no path stacks
+channels), and the ``shear_rows`` entry's launches are K3a's alone.
 The last line is ``{"ok": true, "device": {...}}``. Weights are random,
 drawn from a fixed seed.
 """
@@ -409,6 +406,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -422,6 +420,7 @@ from fdtpu_torch.compat import torch_import
 from fdtpu_torch.data import BatchLoader, WIDERFaceDataSource, load_targets
 from fdtpu_torch.data import augment as aug
 from fdtpu_torch.data import make_synthetic_widerface
+from fdtpu_torch.kernels import LAUNCHES
 from fdtpu_torch.kernels import bn_act as kbn
 from fdtpu_torch.kernels import build
 from fdtpu_torch.kernels import epilogue as kep
@@ -496,6 +495,7 @@ RESIDUAL_TAIL = {"name": "residual_tail", "route": "cuda",
                  "replaces": "fdtpu/kernels/epilogue_pallas.py:49"}
 BN_ACT = {"name": "bn_act", "route": "cuda", "source": "fdtpu_torch/kernels/csrc/bn_act.cu",
           "replaces": None}  # a kernel of the port alone
+PATH_KERNELS = ("decode_filter_nms", *SHEARS)  # what phases 17a and 19a count on a path
 TRAIN_RTOL_LOSS, TRAIN_RTOL_GRAD_NORM = 1e-4, 1e-3
 TRAIN_RTOL_UPDATE, TRAIN_RTOL_UPDATE_TENSOR = 1e-2, 5e-2  # relative L2, phase 8
 TRAIN_STEPS = 5
@@ -931,12 +931,13 @@ def phase_main_path():
     batch = torch.from_numpy(
         rng.integers(0, 256, size=(128, 320, 320, 3), dtype=np.uint8)).cuda()
 
-    zero_k1()
+    start = LAUNCHES.copy()
     preds = [det480.predict(f) for f in frames]
     out = det320.apply(batch.float() / 255.0)
     boxes, mask = det320.non_max_suppression(out)
     torch.cuda.synchronize()
-    launches, calls = k1_count(), k1_calls()  # both replayed: K1 in the graphs
+    launches = on_path(start)["decode_filter_nms"]  # both replayed: K1 in the graphs
+    calls = launches - warm_ups(det480, det320)["decode_filter_nms"]
     check(calls == len(frames) + 1, f"kernel launched {calls} times, want {len(frames) + 1}")
 
     counts = []
@@ -954,7 +955,7 @@ def phase_main_path():
           f"max {int(kept.max())} per image); kernel launches {launches} ({calls} calls, "
           f"replayed from CUDA graphs, and the warm-ups before their captures); batch decode "
           f"equals plain")
-    return launches, det480, det320, batch
+    return det480, det320, batch
 
 
 def mean_of_two(fn, iters: int) -> tuple[float, str]:
@@ -981,7 +982,7 @@ def nms_kernel_alone(vals, tables, cap):
     return launch
 
 
-def nms_times(card, with_plain: bool = True) -> list[dict]:
+def nms_times(card) -> list[dict]:
     """K1/K2 on random maps at the three timed shapes, the card's time alone
     (``device_ms``): through the wrapper as the paths call it (``ms``), the
     kernel alone (``kernel_ms``), and the wrapper's host time a call
@@ -994,18 +995,14 @@ def nms_times(card, with_plain: bool = True) -> list[dict]:
         kern = lambda: knms.decode_filter_nms_batch(vals, tables, 0.5, 0.5, cap)  # noqa: E731
         plain = lambda: knms.decode_filter_nms_reference(vals, tables, 0.5, 0.5, cap)  # noqa: E731
         row = {"shape": [b, n, cap]}
-        if with_plain:
-            row["ms"], row["plain_ms"], runs = turns(kern, plain, 50, 3)
-        else:
-            row["ms"], runs = mean_of_two(kern, 50)
+        row["ms"], row["plain_ms"], runs = turns(kern, plain, 50, 3)
         row["kernel_ms"], alone_runs = mean_of_two(nms_kernel_alone(vals, tables, cap), 50)
         row["host_us"] = host_us(kern, 200)
         bnd, rounds, eligible = nms_bound(vals, tables, *kern())
         row.update(bnd)
         rows.append(row)
-        plain_txt = f", plain {row['plain_ms']:.4f} ms" if with_plain else ""
         print(f"[6 time] decode_filter_nms B={b} N={n} cap={cap} random maps: wrapper "
-              f"{row['ms']:.4f} ms{plain_txt} ({runs}); kernel alone {row['kernel_ms']:.4f} ms "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms ({runs}); kernel alone {row['kernel_ms']:.4f} ms "
               f"({alone_runs}); host {row['host_us']:.1f} us a call; bound "
               f"{row['bound_ms']:.5f} ms by {row['bound_by']} ({rounds} rounds, {eligible} "
               f"eligible) [{card}]")
@@ -1114,7 +1111,7 @@ def phase_rotate_vs_plain() -> dict:
         runs += 1
         check(got.dtype == want.dtype and torch.equal(got, want), f"{what} differs (max {err})")
 
-    krot.shear_rows.stacked_launches = 0
+    start = LAUNCHES["shear_rows_stacked"]
     for s in (200, 320, 480):
         for dtype in (torch.float32, torch.bfloat16):
             for b in (1, 8, 26):
@@ -1159,7 +1156,7 @@ def phase_rotate_vs_plain() -> dict:
              krot.shear_rows_reference(planes, ks, c, row_mod, center),
              "shear_rows_stacked" if c == 1 else "shear_rows", f"shear_rows edges {where}")
     torch.cuda.synchronize()
-    stacked = krot.shear_rows.stacked_launches
+    stacked = LAUNCHES["shear_rows_stacked"] - start
     # the edges give the aligned instances every residue of the shift, for
     # c = 1 and 3, and |s| >= lanes
     for c in (1, 3):
@@ -1288,15 +1285,14 @@ def phase_train_path():
     before = {k: [p.detach().clone() for p in st.module.parameters()]
               for k, (st, _, _) in runs.items()}
 
-    zero_shear_counts()
-    zero_k1()
+    start = LAUNCHES.copy()
     scalars = {}
     for key, (state, (step, metrics_step), batch) in runs.items():
         for i in range(TRAIN_STEPS):
             state, sc = (metrics_step if i == TRAIN_STEPS - 1 else step)(state, *batch)
             scalars.setdefault(key, []).append(sc)
     torch.cuda.synchronize()
-    launches = kernel_counts()
+    launches = on_path(start)
 
     calls = TRAIN_STEPS * len(runs)  # one rotate_batch per step
     check(launches["shear_rows"] == 2 * calls and launches["shear_cols"] == calls,
@@ -1320,7 +1316,7 @@ def phase_train_path():
     print(f"[9 train path] launches: shear_rows {launches['shear_rows']}, shear_cols "
           f"{launches['shear_cols']} ({calls} rotate_batch calls), decode_filter_nms "
           f"{launches['decode_filter_nms']} ({len(runs)} metrics steps)")
-    return launches, runs
+    return runs
 
 
 def step_ms(state, step, batch, iters: int) -> float:
@@ -1381,13 +1377,13 @@ def grid_sample(img, grid):
                                            align_corners=True)
 
 
-def shear_times(card, with_plain: bool = True) -> list[dict]:
+def shear_times(card) -> list[dict]:
     """K3a, K3b and K4 on the planes the training path gives them: the
     26-image exact-k subset at b128/320 in bf16, all 8 images at b8/480 in
     float32; K4 (``shear_rows_stacked``) on the same images stacked by
     channel, its horizontal pass and its vertical pass (on the transpose,
-    ``c = 1``, ``row_mod = 0``); the card's time alone (``device_ms``). With
-    ``with_plain``, also the library call: one ``F.grid_sample`` (bilinear,
+    ``c = 1``, ``row_mod = 0``); the card's time alone (``device_ms``); and
+    the library call: one ``F.grid_sample`` (bilinear,
     zero padding, align_corners) of the same planes seen as ``(K, 3, Hp,
     Hp)`` images (K4's vertical pass: its planes seen as one ``(K, 1, Hp,
     3 Hp)`` image, since its taps run on across the channels' blocks of a
@@ -1439,30 +1435,25 @@ def shear_times(card, with_plain: bool = True) -> list[dict]:
             # each pass reads its planes once and writes them once
             row = {"name": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
                    **bound(2 * nbytes(inp), SHEAR_OPS * inp.numel())}
-            if with_plain:
-                row["ms"], row["plain_ms"], runs = turns(kern, plain, 50, 5)
-                copy = torch.empty_like(inp)
-                row["copy_ms"], _ = mean_of_two(lambda: copy.copy_(inp), 50)
-                row["library_ms"], lib_txt = None, "; no library call computes it"
-                if library is not None:
-                    grid = grid.to(dtype)
-                    err = (layout(library(grid)).float() - plain().float()).abs().max().item()
-                    row["library_max_abs_err"] = err
-                    if dtype == torch.float32:
-                        row["library_ms"], lib_runs = mean_of_two(lambda: library(grid), 50)
-                        lib_txt = (f"; library F.grid_sample {row['library_ms']:.4f} ms "
-                                   f"({lib_runs}), max abs err {err:.3g} against plain on 0-255 "
-                                   f"planes")
-                    else:
-                        lib_txt = (f"; F.grid_sample takes a bf16 grid with bf16 planes: max abs "
-                                   f"err {err:.3g}, not the same function")
-            else:
-                row["ms"], runs = mean_of_two(kern, 50)
-                lib_txt = ""
+            row["ms"], row["plain_ms"], runs = turns(kern, plain, 50, 5)
+            copy = torch.empty_like(inp)
+            row["copy_ms"], _ = mean_of_two(lambda: copy.copy_(inp), 50)
+            row["library_ms"], lib_txt = None, "; no library call computes it"
+            if library is not None:
+                grid = grid.to(dtype)
+                err = (layout(library(grid)).float() - plain().float()).abs().max().item()
+                row["library_max_abs_err"] = err
+                if dtype == torch.float32:
+                    row["library_ms"], lib_runs = mean_of_two(lambda: library(grid), 50)
+                    lib_txt = (f"; library F.grid_sample {row['library_ms']:.4f} ms "
+                               f"({lib_runs}), max abs err {err:.3g} against plain on 0-255 "
+                               f"planes")
+                else:
+                    lib_txt = (f"; F.grid_sample takes a bf16 grid with bf16 planes: max abs "
+                               f"err {err:.3g}, not the same function")
             rows.append(row)
-            plain_txt = (f", plain {row['plain_ms']:.4f} ms, a copy of the planes "
-                         f"{row['copy_ms']:.4f} ms" if with_plain else "")
-            print(f"[10 time] {name} {shape} {dtype}: kernel {row['ms']:.4f} ms{plain_txt} "
+            print(f"[10 time] {name} {shape} {dtype}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, a copy of the planes {row['copy_ms']:.4f} ms "
                   f"({runs}); bound {row['bound_ms']:.4f} ms by {row['bound_by']}{lib_txt} "
                   f"[{card}]")
     return rows
@@ -1657,12 +1648,12 @@ def phase_tail_path():
     images = {key: bpf.frames(b, cfg.input_shape[0], SEED + 10) for key, (b, cfg) in shapes.items()}
     eager = {key: dets[key].apply(images[key]) for key in shapes}
 
-    kep.fused_residual_tail.launches = 0
+    start = LAUNCHES.copy()
     for det in dets.values():
         bpf.set_fused_tail(det.net, True)
     fused = {key: dets[key].apply(images[key]) for key in shapes}
     torch.cuda.synchronize()
-    launches = kep.fused_residual_tail.launches
+    launches = on_path(start)["residual_tail"]
     for det in dets.values():
         bpf.set_fused_tail(det.net, False)
 
@@ -1673,7 +1664,6 @@ def phase_tail_path():
         check(torch.equal(fused[key], eager[key]), f"{key} fused forward differs from eager")
     print(f"[12 tail path] Detector.apply with fused_tail at b128/320 and b1/480 bit-equal to "
           f"the eager forward; tail kernel launches {launches} ({blocks} blocks)")
-    return launches
 
 
 def phase_photometric_path():
@@ -1687,15 +1677,14 @@ def phase_photometric_path():
     step = make_train_step(module, tcfg)
     batch = bench_like_batch(128, 320, "cuda")
 
-    kphoto.photometric_batch.launches = 0
-    zero_shear_counts()
+    start = LAUNCHES.copy()
     losses, counts = [], []
     for _ in range(FUSED_STEPS):
         state, sc = step(state, *batch)
         losses.append(sc["loss"].item())
-        counts.append(kphoto.photometric_batch.launches)
+        counts.append(LAUNCHES["photometric"] - start["photometric"])
     torch.cuda.synchronize()
-    launches = {**kernel_counts(), "photometric": kphoto.photometric_batch.launches}
+    launches = on_path(start)
 
     check(counts == list(range(1, FUSED_STEPS + 1)), f"photometric launches by step {counts}")
     check(launches["shear_rows"] == 2 * FUSED_STEPS and launches["shear_cols"] == FUSED_STEPS,
@@ -1705,7 +1694,7 @@ def phase_photometric_path():
           f"fused_photometric: losses {[round(v, 3) for v in losses]}; photometric launches by "
           f"step {counts}, shear_rows {launches['shear_rows']}, shear_cols "
           f"{launches['shear_cols']}")
-    return launches, (state, step, batch)
+    return state, step, batch
 
 
 def photometric_bound(imgs, sc, seeds) -> dict:
@@ -1851,54 +1840,46 @@ def phase_fused_timings(card, train):
 # -- the Trainer path --------------------------------------------------------------
 
 
-def k1_count() -> int:
-    """K1's launches: its wrapper's count (eager calls and the warm-ups
-    before a capture) plus every CUDA graph replay's (``REPLAYED``: the
-    Detector's, ``GraphPredict``'s, the train, metrics and eval steps')."""
-    return knms.decode_filter_nms_batch.launches + ugraphs.REPLAYED["decode_filter_nms"]
+# every kernel's launches on the program's paths, which the kernels line
+# prints: each path phase adds what its own run launched (on_path), and the
+# ranks' processes hand theirs back; the checks against the plain versions
+# and the timing loops are no path
+PATH_LAUNCHES = Counter()
 
 
-def k1_calls() -> int:
-    """K1's launches less the warm-ups' (``utils.graphs.WARMED``): one a
-    call, eager or replayed."""
-    return k1_count() - ugraphs.WARMED["decode_filter_nms"]
+def on_path(start: Counter) -> Counter:
+    """The launches since ``start`` (a copy of ``LAUNCHES`` taken just
+    before a path's run), added to :data:`PATH_LAUNCHES`."""
+    launches = LAUNCHES - start
+    PATH_LAUNCHES.update(launches)
+    return launches
 
 
-def zero_k1() -> None:
-    """Set :func:`k1_count` and :func:`k1_calls` to 0."""
-    knms.decode_filter_nms_batch.launches = 0
-    ugraphs.REPLAYED["decode_filter_nms"] = ugraphs.WARMED["decode_filter_nms"] = 0
+def held_graphs(*owners) -> list:
+    """The graphs that ``owners`` hold: a Detector's, a Trainer's captured
+    steps'."""
+    graphs = []
+    for owner in owners:
+        if isinstance(owner, Detector):
+            graphs += owner._graphs.graphs.values()
+        else:
+            graphs += [g for c in owner.captured.values() for g in c.graphs.values()]
+    return graphs
 
 
-def kernel_counts() -> dict:
-    """Every launch count of K1 and the shears (``shear_rows_stacked``: the
-    ``shear_rows`` launches with ``c = 1``, K4's layout, among them): the
-    wrappers' counts plus the launches of the CUDA graphs' replays, which
-    pass no wrapper (``utils/graphs.py``: ``REPLAYED``)."""
-    replayed = ugraphs.REPLAYED
-    return {"decode_filter_nms": k1_count(),
-            "shear_rows": krot.shear_rows.launches + replayed["shear_rows"],
-            "shear_rows_stacked": krot.shear_rows.stacked_launches
-            + replayed["shear_rows_stacked"],
-            "shear_cols": krot.shear_cols.launches + replayed["shear_cols"]}
-
-
-def zero_shear_counts() -> None:
-    """Set the shears' counts in :func:`kernel_counts` to 0, the replays'
-    too."""
-    krot.shear_rows.launches = krot.shear_rows.stacked_launches = krot.shear_cols.launches = 0
-    for k in ("shear_rows", "shear_rows_stacked", "shear_cols"):
-        ugraphs.REPLAYED[k] = 0
-
-
-def counts_since(start: dict) -> dict:
-    return {k: v - start[k] for k, v in kernel_counts().items()}
-
-
-def trainer_warmed(trainer) -> int:
-    """The train bodies a Trainer's captured train and metrics steps ran in
-    their warm-ups (they rotate too)."""
-    return sum(c.warmed for slot, c in trainer.captured.items() if slot in ("train", "metrics"))
+def warm_ups(*owners) -> Counter:
+    """The launches of the warm-ups before the captures of the graphs that
+    ``owners`` hold, as each capture measured them (``Graph.warm_launches``).
+    Each caller's owners are new, so that all their graphs were captured
+    inside its window: the window's delta of ``LAUNCHES`` less these is the
+    calls' own launches, eager or replayed. A graph dropped inside the
+    window (a Detector's beyond its eight, a train step's at a new SGD rate)
+    takes its warm-ups with it, so a check of that difference fails rather
+    than passes."""
+    launches = Counter()
+    for g in held_graphs(*owners):
+        launches.update(g.warm_launches)
+    return launches
 
 
 def slot_replays(trainer, slot: str) -> int:
@@ -1935,18 +1916,16 @@ def bench_py_keys() -> set[str]:
     return keys
 
 
-def phase_trainer(tmp) -> dict:
+def phase_trainer(tmp) -> None:
     """14: the Trainer path at full width (``DetectorConfig()``,
     ``TrainConfig()`` defaults but rotation on the card and no first-batch
-    drawings), b8, on ``make_synthetic_widerface`` data. Returns the kernel
-    launches of the whole phase."""
+    drawings), b8, on ``make_synthetic_widerface`` data."""
     from pathlib import Path
 
     tmp = Path(tmp)
     n_train, n_val = TRAINER_IMAGES
     root = make_synthetic_widerface(tmp / "data", n_train, split="train", seed=SEED)
     make_synthetic_widerface(root, n_val, split="val", seed=SEED + 1)
-    phase_start = kernel_counts()
     tcfg = TrainConfig(rotate_device=True, max_epochs=TRAINER_EPOCHS, seed=SEED,
                        visualize_first_batch=False, checkpoint_dir=str(tmp / "ckpt"),
                        log_path=str(tmp / "logs" / "out.log"))
@@ -1955,10 +1934,11 @@ def phase_trainer(tmp) -> dict:
     train, val = trainer_loaders(root, shuffle=True)
     trainer = Trainer(trainer_module(SEED), tcfg, train, val, run_name="smoke", device="cuda")
     before = [p.detach().clone() for p in trainer.state.module.parameters()]
-    start, calls = kernel_counts(), k1_calls()
+    start = LAUNCHES.copy()  # the phase's path, to its end: on_path
     out = trainer.fit()
     torch.cuda.synchronize()
-    fit, calls = counts_since(start), k1_calls() - calls
+    fit = LAUNCHES - start
+    calls = fit - warm_ups(trainer)  # the steps' own launches, eager or replayed
     steps, val_batches = TRAINER_EPOCHS * len(train), len(val)
     check(trainer.state.step == steps, f"Trainer took {trainer.state.step} steps, want {steps}")
     check(all(np.isfinite(v) for split in out.values() for v in split.values()),
@@ -1968,16 +1948,15 @@ def phase_trainer(tmp) -> dict:
     check(moved > 0, "Trainer params did not move")
     # the metrics step, then each val batch; once a call, eager or replayed
     want_k1 = TRAINER_EPOCHS * (1 + val_batches)
-    check(calls == want_k1, f"K1 launched {calls} times in fit (the warm-ups apart), want "
-          f"{want_k1}")
-    # the captured steps' warm-up bodies rotate too; the replays are counted
-    rotating = steps + trainer_warmed(trainer)
+    check(calls["decode_filter_nms"] == want_k1, f"K1 launched {calls['decode_filter_nms']} "
+          f"times in fit (the warm-ups apart), want {want_k1}")
     replays = {slot: slot_replays(trainer, slot) for slot in ("train", "metrics", "eval")}
     check(replays == {"train": steps - TRAINER_EPOCHS, "metrics": TRAINER_EPOCHS,
                       "eval": TRAINER_EPOCHS * val_batches},
           f"replays {replays} of {steps} steps and {TRAINER_EPOCHS * val_batches} val batches")
-    check(fit["shear_rows"] == 2 * rotating and fit["shear_cols"] == rotating,
-          f"shear launches {fit} over {rotating} rotating steps and warm-up bodies")
+    # one rotation a step, eager or replayed, the warm-ups apart
+    check(calls["shear_rows"] == 2 * steps and calls["shear_cols"] == steps,
+          f"shear launches {dict(calls)} in {steps} steps, the warm-ups apart")
     logs = tmp / "logs"
     lines = (logs / "out.log").read_text().splitlines()
     records = (logs / "out.jsonl").read_text().splitlines()
@@ -1990,7 +1969,7 @@ def phase_trainer(tmp) -> dict:
     print(f"[14 trainer] fit {TRAINER_EPOCHS} epochs, PoolResnet-128x10 480px grid 10 b8 bf16 "
           f"SAM+Adam, rotation on the card, {n_train} train / {n_val} val synthetic images: "
           f"train {out['train']}, val {out['val']}; params moved up to {moved:.3g}; launches "
-          f"{fit} ({steps} steps, all CUDA-graph replays, {TRAINER_EPOCHS} of them metrics "
+          f"{dict(fit)} ({steps} steps, all CUDA-graph replays, {TRAINER_EPOCHS} of them metrics "
           f"steps, {TRAINER_EPOCHS * val_batches} val batches replayed); "
           f"{len(lines)} log lines, checkpoints {ckpts}")
 
@@ -2063,7 +2042,7 @@ def phase_trainer(tmp) -> dict:
     numbers += [x for v in line.values() if isinstance(v, list) for x in v]
     check(all(np.isfinite(numbers)) and line["train_mfu"] > 0, f"bench line {line}")
     print(f"[14 trainer] fdtpu_torch.bench, loops {BENCH_LOOPS}, reps 1: {json.dumps(line)}")
-    return counts_since(phase_start)
+    on_path(start)
 
 
 # -- the SSD path ------------------------------------------------------------------
@@ -2119,14 +2098,15 @@ def phase_ssd_serving():
     b8 = torch.from_numpy(rng.integers(0, 256, size=(SSD_640_BATCH, 640, 640, 3),
                                        dtype=np.uint8)).cuda()
 
-    zero_k1()
+    start = LAUNCHES.copy()
     preds = [det.predict(f) for f in frames]
     out24 = det.apply(b24.float() / 255.0)
     boxes24, mask24 = det.non_max_suppression(out24)
     out8 = det640.apply(b8.float() / 255.0)
     boxes8, mask8 = det640.non_max_suppression(out8)
     torch.cuda.synchronize()
-    launches, calls = k1_count(), k1_calls()
+    launches = on_path(start)["decode_filter_nms"]
+    calls = launches - warm_ups(det, det640)["decode_filter_nms"]
     check(calls == len(frames) + 2, f"K1 launched {calls} times, want {len(frames) + 2}")
 
     counts = [int(check_boxes(b, m, 128, 0.5, "SSD predict")) for _, b, m in preds]
@@ -2147,7 +2127,7 @@ def phase_ssd_serving():
           f"{int(kept['b24/480'].sum())} boxes; b8 at 640px (N 8500, global scratch) -> "
           f"{int(kept['b8/640'].sum())} boxes; K1 launches {launches} ({calls} calls, replayed); "
           f"both batch decodes equal plain")
-    return launches, {"det": det, "det640": det640, "b24": b24, "out24": out24, "out8": out8}
+    return {"det": det, "det640": det640, "b24": b24, "out24": out24, "out8": out8}
 
 
 def phase_ssd_train_f32() -> None:
@@ -2185,13 +2165,13 @@ def phase_ssd_train_path():
     batch = ssd_batch(SSD_BATCH, 480, "cuda")
     before = [p.detach().clone() for p in module.parameters()]
 
-    zero_k1()
+    start = LAUNCHES.copy()
     scalars = []
     for i in range(TRAIN_STEPS):
         state, sc = (metrics_step if i == TRAIN_STEPS - 1 else step)(state, *batch)
         scalars.append(sc)
     torch.cuda.synchronize()
-    launches = k1_count()
+    launches = on_path(start)["decode_filter_nms"]
     check(launches == 1, f"K1 launched {launches} times in {TRAIN_STEPS} SSD steps, want 1")
     check(all(np.isfinite(v.item()) for sc in scalars for v in sc.values()),
           "non-finite SSD train scalars")
@@ -2204,14 +2184,14 @@ def phase_ssd_train_path():
           f"{last['grad_norm'].item():.4f}, metrics iou {last['iou'].item():.4f} recall "
           f"{last['recall'].item():.4f} precision {last['precision'].item():.4f}; params moved "
           f"up to {moved:.3g}; K1 launches {launches}")
-    return launches, (state, step, batch)
+    return state, step, batch
 
 
-def phase_ssd_trainer(tmp) -> int:
+def phase_ssd_trainer(tmp) -> None:
     """``train_model_ssd``'s Trainer (its defaults: SSD-16, 480 px, b24,
     SAM + Adam, quarter-epochs) for two quarter-epochs on synthetic data,
     a resume in a new Trainer, and ``run_validation_epoch --model ssd
-    --with-ap`` on the checkpoint. Returns K1's launches."""
+    --with-ap`` on the checkpoint."""
     from pathlib import Path
 
     tmp = Path(tmp) / "ssd"
@@ -2222,11 +2202,12 @@ def phase_ssd_trainer(tmp) -> int:
     cwd = os.getcwd()
     os.chdir(tmp)  # checkpoints/, logs/ and imgs/ go here
     try:
-        zero_k1()
+        start = LAUNCHES.copy()  # the fit, the resume and the validation: on_path
         trainer = train_model_ssd.build_trainer(train_model_ssd.parse_args(flags))
         out = trainer.fit()
         torch.cuda.synchronize()
-        fit_launches = k1_calls()  # eager or replayed, the warm-ups apart
+        # eager or replayed, the warm-ups apart
+        fit_launches = (LAUNCHES - start - warm_ups(trainer))["decode_filter_nms"]
         steps = TRAINER_EPOCHS * len(trainer.train_loader)
         check(trainer.state.step == steps, f"SSD Trainer took {trainer.state.step} steps, want {steps}")
         check(all(np.isfinite(v) for split in out.values() for v in split.values()),
@@ -2251,8 +2232,7 @@ def phase_ssd_trainer(tmp) -> int:
             "--batch-size", str(SSD_BATCH), "--with-ap", "--device", "cuda"])
     finally:
         os.chdir(cwd)
-    torch.cuda.synchronize()
-    launches = k1_count()
+    on_path(start)
     check(all(np.isfinite(v) for v in val_out.values()) and 0.0 <= val_out["AP@0.5"] <= 1.0,
           f"run_validation_epoch --model ssd {val_out}")
     print(f"[15 ssd trainer] train_model_ssd's Trainer, {TRAINER_EPOCHS} quarter-epochs of "
@@ -2260,7 +2240,6 @@ def phase_ssd_trainer(tmp) -> int:
           f"{n_val} val synthetic images): train {out['train']}, val {out['val']}; K1 launches "
           f"{fit_launches}; resume: params, Adam moments and step bit-equal; "
           f"run_validation_epoch --model ssd --with-ap on {ckpt.name}: {val_out}")
-    return launches
 
 
 def phase_ssd_timings(card, serving, train) -> list[dict]:
@@ -2307,14 +2286,13 @@ def phase_ssd_timings(card, serving, train) -> list[dict]:
 
 
 def phase_ssd(card, tmp):
-    """15: the SSD path. Returns K1's launches on it and its timed rows."""
+    """15: the SSD path. Returns its timed rows."""
     phase_ssd_forward_f32()
-    serving_launches, serving = phase_ssd_serving()
+    serving = phase_ssd_serving()
     phase_ssd_train_f32()
-    train_launches, train = phase_ssd_train_path()
-    trainer_launches = phase_ssd_trainer(tmp)
-    rows = phase_ssd_timings(card, serving, train)
-    return serving_launches + train_launches + trainer_launches, rows
+    train = phase_ssd_train_path()
+    phase_ssd_trainer(tmp)
+    return phase_ssd_timings(card, serving, train)
 
 
 # -- the rest of the zoo -------------------------------------------------------------
@@ -2422,15 +2400,15 @@ def phase_zoo_serving():
     batch = torch.from_numpy(rng.integers(0, 256, size=(ZOO_SERVE_BATCH, ZOO_SIZE, ZOO_SIZE, 3),
                                           dtype=np.uint8)).cuda()
     dets = {name: Detector(zoo_module(name, "cuda")) for name in ZOO}
-    zero_k1()
     outs = {}
     for name, det in dets.items():
-        start = k1_calls()
+        start = LAUNCHES.copy()
         preds = [det.predict(f) for f in frames]
         out = det.apply(batch.float() / 255.0)
         boxes, mask = det.non_max_suppression(out)
         torch.cuda.synchronize()
-        calls = k1_calls() - start  # replayed, the warm-ups apart
+        # replayed, the warm-ups apart
+        calls = (on_path(start) - warm_ups(det))["decode_filter_nms"]
         check(calls == len(frames) + 1, f"{name}: K1 launched {calls} times a frame and a batch")
         counts = [int(check_boxes(b, m, 128, 0.5, f"{name} predict")) for _, b, m in preds]
         s = det.module.grid_size()
@@ -2445,13 +2423,13 @@ def phase_zoo_serving():
         print(f"[16 zoo serving] bf16 {name} Detector on the card: predict x3 -> {counts} boxes; "
               f"b{ZOO_SERVE_BATCH} at {ZOO_SIZE}px grid {s} (N {s * s}) -> {int(kept.sum())} "
               f"boxes; K1 launches {calls}; batch decode equals plain")
-    return k1_count(), dets, batch, outs
+    return dets, batch, outs
 
 
 def phase_zoo_train():
     """bf16 SAM + Adam steps at b8/480 with rotation on the card: five of
     MobileNetV3, two each of Resnet and SeparableCNN, the last of each with
-    train metrics. Returns the kernels' launches and the runs."""
+    train metrics. Returns the runs."""
     runs = {}
     for name in ZOO:
         module = zoo_module(name, "cuda", compute_dtype=torch.bfloat16)
@@ -2462,8 +2440,7 @@ def phase_zoo_train():
     before = {name: {k: v.detach().clone() for k, v in st.module.state_dict().items()}
               for name, (st, _, _) in runs.items()}
 
-    zero_shear_counts()
-    zero_k1()
+    start = LAUNCHES.copy()
     scalars = {}
     for name, (state, (step, metrics_step), batch) in runs.items():
         n = ZOO_TRAIN_STEPS[name]
@@ -2471,7 +2448,7 @@ def phase_zoo_train():
             state, sc = (metrics_step if i == n - 1 else step)(state, *batch)
             scalars.setdefault(name, []).append(sc)
     torch.cuda.synchronize()
-    launches = kernel_counts()
+    launches = on_path(start)
     calls = sum(ZOO_TRAIN_STEPS.values())  # one rotate_batch a step
     check(launches["shear_rows"] == 2 * calls and launches["shear_cols"] == calls,
           f"zoo shear launches {launches}, want {2 * calls} and {calls}")
@@ -2498,16 +2475,15 @@ def phase_zoo_train():
     print(f"[16 zoo train] launches: shear_rows {launches['shear_rows']}, shear_cols "
           f"{launches['shear_cols']} ({calls} rotate_batch calls), decode_filter_nms "
           f"{launches['decode_filter_nms']} ({len(runs)} metrics steps)")
-    return launches, runs
+    return runs
 
 
-def phase_zoo_trainer(tmp) -> dict:
+def phase_zoo_trainer(tmp) -> None:
     """``train_model --model mobilenetv3 --rotate-device`` for one epoch on
     synthetic data (its defaults otherwise: 480 px, b8, bf16, SAM + Adam),
     a resume in a new Trainer from another seed (params, BatchNorm
     statistics, Adam's state and the step bit-equal), and
-    ``run_validation_epoch`` (MobileNetV3, its default) on the checkpoint.
-    Returns the kernels' launches."""
+    ``run_validation_epoch`` (MobileNetV3, its default) on the checkpoint."""
     from pathlib import Path
 
     tmp = Path(tmp) / "zoo"
@@ -2520,11 +2496,12 @@ def phase_zoo_trainer(tmp) -> dict:
     cwd = os.getcwd()
     os.chdir(tmp)  # checkpoints/, logs/ and imgs/ go here
     try:
-        start, calls = kernel_counts(), k1_calls()
+        start = LAUNCHES.copy()  # the fit, the resume and the validation: on_path
         trainer = train_model.build_trainer(train_model.parse_args(flags))
         out = trainer.fit()
         torch.cuda.synchronize()
-        fit, calls = counts_since(start), k1_calls() - calls
+        fit = LAUNCHES - start
+        calls = fit - warm_ups(trainer)  # eager or replayed
         steps = len(trainer.train_loader)
         check(trainer.state.step == steps, f"MobileNetV3 Trainer took {trainer.state.step} steps")
         check(all(np.isfinite(v) for split in out.values() for v in split.values()),
@@ -2532,10 +2509,9 @@ def phase_zoo_trainer(tmp) -> dict:
         # the first batch's drawing, the metrics step, each val batch (K1 once
         # a call, eager or replayed, the warm-ups apart)
         want = 2 + len(trainer.val_loader)
-        rotating = steps + trainer_warmed(trainer)  # replays and warm-up bodies
-        check(calls == want and fit["shear_rows"] == 2 * rotating
-              and fit["shear_cols"] == rotating and slot_replays(trainer, "train") == steps - 1,
-              f"MobileNetV3 Trainer launches {fit}, K1 calls {calls}")
+        check(calls["decode_filter_nms"] == want and calls["shear_rows"] == 2 * steps
+              and calls["shear_cols"] == steps and slot_replays(trainer, "train") == steps - 1,
+              f"MobileNetV3 Trainer launches {dict(fit)}, the warm-ups apart {dict(calls)}")
         ckpt = latest_checkpoint(tmp / "checkpoints" / trainer.run_name)
         check(ckpt is not None and ckpt.name == f"step_{steps:08d}.pt", f"checkpoint {ckpt}")
 
@@ -2553,14 +2529,14 @@ def phase_zoo_trainer(tmp) -> dict:
             "--patches", str(ZOO_SIZE // 32), "--with-ap", "--device", "cuda"])
     finally:
         os.chdir(cwd)
+    on_path(start)
     check(set(val_out) == {"loss", "iou", "recall", "precision", "f1", "AP@0.5"}
           and all(np.isfinite(v) for v in val_out.values()), f"run_validation_epoch {val_out}")
     print(f"[16 zoo trainer] train_model --model mobilenetv3 --rotate-device, one epoch of "
           f"{steps} steps ({ZOO_SIZE}px b8 bf16 SAM+Adam, {n_train} train / {n_val} val synthetic "
-          f"images): train {out['train']}, val {out['val']}; launches {fit}; resume: params, "
+          f"images): train {out['train']}, val {out['val']}; launches {dict(fit)}; resume: params, "
           f"BatchNorm statistics, Adam moments and step bit-equal; run_validation_epoch "
           f"(--model mobilenetv3 by default) --with-ap on {ckpt.name}: {val_out}")
-    return counts_since(start)
 
 
 def phase_zoo_timings(card, serving, train) -> None:
@@ -2592,20 +2568,17 @@ def phase_zoo_timings(card, serving, train) -> None:
               f"img/s) [{card}]")
 
 
-def phase_zoo(card, tmp) -> dict:
-    """16: the rest of the zoo. Returns the kernels' launches on its paths."""
-    t0 = time.perf_counter()
+def phase_zoo(card, tmp) -> None:
+    """16: the rest of the zoo."""
+    t0, start = time.perf_counter(), PATH_LAUNCHES.copy()
     phase_zoo_forward_f32(tmp)
     phase_zoo_train_f32()
-    serve_k1, *serving = phase_zoo_serving()
-    train_launches, train = phase_zoo_train()
-    trainer_launches = phase_zoo_trainer(tmp)
+    serving = phase_zoo_serving()
+    train = phase_zoo_train()
+    phase_zoo_trainer(tmp)
     phase_zoo_timings(card, serving, train)
-    launches = {k: train_launches[k] + trainer_launches[k] for k in train_launches}
-    launches["decode_filter_nms"] += serve_k1
-    print(f"[16 zoo] launches on the zoo's paths {launches}; phase 16 took "
+    print(f"[16 zoo] launches on the zoo's paths {dict(PATH_LAUNCHES - start)}; phase 16 took "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches
 
 
 # -- data parallelism ------------------------------------------------------------------
@@ -2694,11 +2667,11 @@ def dp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         state = create_train_state(module, tcfg, 100)
         metrics_step = make_dp_train_step(module, tcfg, compute_metrics=True)
         start = [p.detach().clone() for p in module.parameters()]
-        zero_shear_counts()
-        zero_k1()
+        path_start = LAUNCHES.copy()
         scalars = [metrics_step(state, *batch)[1] for _ in range(DP_STEPS)]
         torch.cuda.synchronize()
-        launches = kernel_counts()
+        launches = on_path(path_start)
+        launches = {k: launches[k] for k in PATH_KERNELS}
         check(launches == {"decode_filter_nms": DP_STEPS, "shear_rows": 2 * DP_STEPS,
                            "shear_rows_stacked": 0, "shear_cols": DP_STEPS},
               f"17a launches {launches}")
@@ -2725,8 +2698,7 @@ def dp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         # replayed: the DP step captured with its collectives, five replays
         # against five eager DP steps; the b128 step's arms in turns; the
         # Trainer over this group
-        start = kernel_counts()
-        graph, rows = {}, None
+        graph, rows, path_start = {}, None, LAUNCHES.copy()
         for label, spec in DP_GRAPH_MODELS.items():
             run = graph_vs_eager(spec, make_dp_train_step)
             failures = graph_failures(f"17a replayed {label}", run)
@@ -2741,6 +2713,7 @@ def dp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
             del run
             torch.cuda.empty_cache()
         fits = dp_trainer_fits(out_dir)
+        on_path(path_start)
         with open(os.path.join(out_dir, "dp_nccl.json"), "w") as f:
             json.dump({"loss": [l_p, l_d], "loss_err": loss_err, "update_err": upd_err,
                        "worst_tensor": worst, "launches": launches,
@@ -2748,7 +2721,7 @@ def dp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
                        "times": times, "reduce_ms": reduce_ms,
                        "grad_floats": grad_floats,
                        "graph": graph, "graph_rows": rows, "trainer": fits,
-                       "graph_launches": counts_since(start)}, f)
+                       "path_launches": PATH_LAUNCHES}, f)
     finally:
         shutdown()
 
@@ -2936,10 +2909,10 @@ def dp_trainer(rank: int, world: int, device, root: str, tmp: str) -> dict:
                               log_path=str(Path(tmp) / f"dp_logs_{resident}" / "out.log"))
             t = Trainer(trainer_module(SEED + rank, dtype=None), cfg, train, val, augment=False,
                         run_name="dp", device=device)
-            zero_k1()
+            start = LAUNCHES.copy()
             fit = t.fit()
             torch.cuda.synchronize()
-            k1 = k1_count()  # over gloo the eager steps: no warm-up, no replay
+            k1 = on_path(start)["decode_filter_nms"]  # over gloo the eager steps: no capture
             check(k1 == 1 + len(val), f"17c K1 launched {k1} times, want {1 + len(val)}")
             check(all(np.isfinite(v) for split in fit.values() for v in split.values()),
                   f"17c non-finite metrics {fit}")
@@ -3009,14 +2982,17 @@ def dp_gloo_rank(rank: int, world: int, init_method: str, out_dir: str, root: st
         result["mobilenetv3"] = dp_mobilenetv3_statistics(rank, world, device)
         result["mobilenetv3_gspmd"] = dp_mobilenetv3_gspmd(rank, world, device)
         result["trainer"] = dp_trainer(rank, world, device, root, out_dir)
+        result["path_launches"] = PATH_LAUNCHES
         with open(os.path.join(out_dir, f"dp_gloo_rank{rank}.json"), "w") as f:
             json.dump(result, f)
     finally:
         shutdown()
 
 
-def phase_dp(card, tmp) -> dict:
-    """17: data parallelism on the card. Returns the kernels' launches."""
+def phase_dp(card, tmp) -> None:
+    """17: data parallelism on the card. The ranks' launches on their paths,
+    made on the card in their own processes, are added to
+    :data:`PATH_LAUNCHES`."""
     from pathlib import Path
 
     t0 = time.perf_counter()
@@ -3099,12 +3075,10 @@ def phase_dp(card, tmp) -> dict:
           f"(train {c['streamed']['metrics']['train']}, val {c['streamed']['metrics']['val']}); "
           f"K1 {c['streamed']['k1']} + {c['resident']['k1']} launches on each rank; resume from "
           f"rank 0's {c['ckpts']} bit-equal")
-    launches = {k: v + a["graph_launches"][k] for k, v in a["launches"].items()}
-    launches["decode_filter_nms"] += sum(r["trainer"]["streamed"]["k1"]
-                                         + r["trainer"]["resident"]["k1"] for r in ranks)
-    print(f"[17 dp] launches on the DP paths {launches}; phase 17 took "
+    launches = sum((Counter(r["path_launches"]) for r in (a, *ranks)), Counter())
+    PATH_LAUNCHES.update(launches)
+    print(f"[17 dp] launches on the DP paths {dict(launches)}; phase 17 took "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches
 
 
 # -- the spatial axis ------------------------------------------------------------------
@@ -3181,11 +3155,11 @@ def sp_nccl_family(family: str, mesh, device) -> dict:
     state = create_train_state(module, tcfg, 100)
     metrics_step = spatial_step(module, tcfg, augment=augment, compute_metrics=True)
     start = [p.detach().clone() for p in module.parameters()]
-    zero_shear_counts()
-    zero_k1()
+    path_start = LAUNCHES.copy()
     scalars = [metrics_step(state, *batch)[1] for _ in range(SP_STEPS)]
     torch.cuda.synchronize()
-    launches = kernel_counts()
+    launches = on_path(path_start)
+    launches = {k: launches[k] for k in PATH_KERNELS}
     shears = SP_STEPS if augment else 0
     check(launches == {"decode_filter_nms": SP_STEPS, "shear_rows": 2 * shears,
                        "shear_rows_stacked": 0, "shear_cols": shears},
@@ -3208,8 +3182,7 @@ def sp_nccl_family(family: str, mesh, device) -> dict:
     # replayed: five replays of the captured spatial step against five eager
     # spatial steps; the spatial step eager and replayed against the
     # replayed plain step, in turns
-    spec = SP_GRAPH_MODELS[family]
-    start = kernel_counts()
+    spec, path_start = SP_GRAPH_MODELS[family], LAUNCHES.copy()
     run = graph_vs_eager(spec, spatial_step)
     failures = graph_failures(f"19a replayed {family}", run)
     check(not failures, "; ".join(failures))
@@ -3218,7 +3191,8 @@ def sp_nccl_family(family: str, mesh, device) -> dict:
                      "spatial graph": lambda: captured(gs, *gb),
                      "plain graph": plain_replay(spec, gb)}, SP_BATCH, profiled=False,
                     steps={"spatial eager": SP_EAGER_TIMED_STEPS})
-    graph = dict(graph_summary(run), rows=rows, launches=counts_since(start))
+    graph = dict(graph_summary(run), rows=rows)
+    on_path(path_start)
     del run, es, step, gs, captured, gb
     torch.cuda.empty_cache()
     return {"loss": [l_p, l_s], "loss_err": loss_err, "update_err": upd_err,
@@ -3240,7 +3214,7 @@ def sp_nccl_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
               f"19a wants NCCL on a 1 x 1 mesh, got {dist.get_backend()} {mesh.shape}")
         result = {family: sp_nccl_family(family, mesh, device) for family in SP_FAMILIES}
         with open(os.path.join(out_dir, "sp_nccl.json"), "w") as f:
-            json.dump(result, f)
+            json.dump({"families": result, "path_launches": PATH_LAUNCHES}, f)
     finally:
         shutdown()
 
@@ -3427,14 +3401,15 @@ def ms_range(values) -> str:
     return f"{min(values):.1f}-{max(values):.1f}"
 
 
-def phase_spatial(card, tmp) -> dict:
-    """19: the spatial axis on the card, every family. Returns the
-    kernels' launches."""
+def phase_spatial(card, tmp) -> None:
+    """19: the spatial axis on the card, every family. 19a's launches on its
+    paths, made on the card in its own process, are added to
+    :data:`PATH_LAUNCHES`."""
     t0 = time.perf_counter()
     launch_local_ranks(sp_nccl_rank, 1, args=(tmp,), timeout=SP_RANK_TIMEOUT_S)
     with open(os.path.join(tmp, "sp_nccl.json")) as f:
         nccl = json.load(f)
-    for family, a in nccl.items():
+    for family, a in nccl["families"].items():
         (p_lo, p_hi), (s_lo, s_hi) = ((min(v), max(v)) for v in (a["times"]["plain"],
                                                                 a["times"]["spatial"]))
         print(f"[19a spatial nccl] 1 x 1 mesh, {SP_NAMES[family]} 480px b{SP_BATCH} bf16 SAM + "
@@ -3499,12 +3474,11 @@ def phase_spatial(card, tmp) -> dict:
                   f"{ms_range([t for x in on for t in x['step_ms']])} ms a step; collectives "
                   f"{spent}; the one-process step on the global batch "
                   f"{ms_range(b['reference_step_ms'])} ms [{card}]")
-    launches = {k: sum(a["launches"][k] + a["graph"]["launches"][k] for a in nccl.values())
-                for k in kernel_counts()}
-    print(f"[19 spatial] launches on the spatial paths {launches}; 19a took {t1 - t0:.1f} s, "
-          f"19b and 19c {time.perf_counter() - t1:.1f} s, phase 19 "
+    launches = Counter(nccl["path_launches"])
+    PATH_LAUNCHES.update(launches)
+    print(f"[19 spatial] launches on the spatial paths {dict(launches)}; 19a took "
+          f"{t1 - t0:.1f} s, 19b and 19c {time.perf_counter() - t1:.1f} s, phase 19 "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches
 
 
 # -- deployment ------------------------------------------------------------------------
@@ -3575,10 +3549,10 @@ def phase_deploy_export(models, programs, tmp) -> None:
                         for n in loaded.graph.nodes)
             check(nodes == 1, f"{name} b{b}: {nodes} K1 nodes in the exported graph")
             frames = deploy_frames(rng, b)
-            start = knms.decode_filter_nms_batch.launches
+            start = LAUNCHES["decode_filter_nms"]
             got = loaded(frames)
             torch.cuda.synchronize()
-            calls = knms.decode_filter_nms_batch.launches - start
+            calls = LAUNCHES["decode_filter_nms"] - start
             check(calls == 1, f"{name} b{b}: the loaded program launched K1 {calls} times")
             with torch.no_grad():
                 want = programs[name](frames)
@@ -3595,9 +3569,8 @@ def phase_deploy_graph(card, models, programs) -> int:
     CUDA graph) against the eager program, then the b1 latency by CUDA
     events, median of three loops: ``Detector.predict`` (a u8 host frame),
     the eager program and the graph replay (a float frame on the card).
-    Returns K1's launches by the ``GraphPredict`` replays, which pass no
-    wrapper: each graph counts its replays and the K1 launches captured in
-    it (and adds them to ``REPLAYED``)."""
+    Returns K1's launches by the ``GraphPredict`` replays: each graph's
+    replays times the K1 launches captured in it (``per_replay``)."""
     from fdtpu_torch.export import aot_compile_predict
 
     rng = np.random.default_rng(SEED + 43)
@@ -3605,7 +3578,8 @@ def phase_deploy_graph(card, models, programs) -> int:
     replays = 0
     for name, model in models.items():
         graph = aot_compile_predict(model, 1, prob, iou, cap)
-        check(graph.k1_per_replay == 1, f"{name}: {graph.k1_per_replay} K1 launches captured")
+        per = graph.graph.per_replay["decode_filter_nms"]
+        check(per == 1, f"{name}: {per} K1 launches captured")
         frame = deploy_frames(rng, 1)
         got = graph(frame)
         program = programs[name]
@@ -3623,7 +3597,7 @@ def phase_deploy_graph(card, models, programs) -> int:
                 "graph replay": lambda: graph(frame)}
         ms = {k: statistics.median(event_ms(fn, LATENCY_ITERS) for _ in range(LATENCY_LOOPS))
               for k, fn in arms.items()}
-        replays += graph.replays * graph.k1_per_replay
+        replays += graph.replays * per
         print(f"[18b graph] {name} b1 {DEPLOY_SIZE}px bf16: CUDA-graph predict against eager: "
               f"masks equal, {int(got[1].sum())} boxes, largest difference {err:.3g} px; b1 "
               f"latency (median of {LATENCY_LOOPS} loops of {LATENCY_ITERS}): "
@@ -3739,28 +3713,23 @@ def phase_deploy_prune(card, model) -> None:
           + ", ".join(line) + f" [{card}]")
 
 
-def phase_deploy(card, tmp) -> int:
-    """18: deployment. Returns K1's launches on its paths: the wrapper's
-    count and the CUDA graphs' replays (:func:`k1_count`). The deployment modules are imported
-    in phase 18's functions, so that ``--kernel-times`` also runs on a tree
-    that predates them (``fdtpu_torch.compare_parent``)."""
+def phase_deploy(card, tmp) -> None:
+    """18: deployment."""
     from fdtpu_torch.export import PredictProgram
 
     t0 = time.perf_counter()
     models = deploy_models()
     prob, iou, cap = DEPLOY_THRESHOLDS
     programs = {name: PredictProgram(m, prob, iou, cap) for name, m in models.items()}
-    zero_k1()
+    start = LAUNCHES.copy()
     phase_deploy_export(models, programs, tmp)
     replays = phase_deploy_graph(card, models, programs)
     phase_deploy_native(models, tmp)
     phase_deploy_prune(card, models["poolresnet"])
-    launches = k1_count()
-    print(f"[18 deploy] K1 launches on the deployment paths {launches} "
-          f"({ugraphs.REPLAYED['decode_filter_nms']} of them CUDA graph replays: {replays} "
-          f"GraphPredict's, the rest the Detectors'); phase 18 took "
-          f"{time.perf_counter() - t0:.1f} s")
-    return launches
+    launches = on_path(start)["decode_filter_nms"]
+    print(f"[18 deploy] K1 launches on the deployment paths {launches} ({replays} of them "
+          f"GraphPredict replays, the rest eager calls, the Detectors' replays and the "
+          f"warm-ups before the captures); phase 18 took {time.perf_counter() - t0:.1f} s")
 
 
 # -- phase 20: the last entry points ------------------------------------------------------------
@@ -3852,9 +3821,9 @@ class StubCv2:
         self.destroyed += 1
 
 
-def phase_camera(card, tmp) -> int:
+def phase_camera(card, tmp) -> None:
     """20a: ``demo_model.run_camera`` on the card over a stub ``cv2``'s
-    frames. Returns K1's launches in the loop."""
+    frames."""
     from fdtpu_torch import demo_model
     from fdtpu_torch.core import compact_boxes
 
@@ -3876,9 +3845,10 @@ def phase_camera(card, tmp) -> int:
     saved = sys.modules.get("cv2")
     sys.modules["cv2"] = cv2
     try:
-        zero_k1()
+        start = LAUNCHES.copy()
         demo_model.run_camera(det)
-        launches, calls = k1_count(), k1_calls()
+        launches = on_path(start)["decode_filter_nms"]
+        calls = launches - warm_ups(det)["decode_filter_nms"]
     finally:
         if saved is None:
             sys.modules.pop("cv2")
@@ -3899,8 +3869,8 @@ def phase_camera(card, tmp) -> int:
         check(len(rects) == int(mask.sum()), f"frame {i}: {len(rects)} drawn, mask {mask.sum()}")
         drawn.append(len(rects))
     check(max(drawn) > 0, "no frame had a box")
-    check(k1_calls() == 2 * CAMERA_FRAMES,
-          f"K1 launches {k1_calls()}, want {2 * CAMERA_FRAMES}")
+    calls = (LAUNCHES - start - warm_ups(det))["decode_filter_nms"]
+    check(calls == 2 * CAMERA_FRAMES, f"K1 launches {calls}, want {2 * CAMERA_FRAMES}")
     replays = sum(g.replays for g in det._graphs.graphs.values())
     check(replays == 2 * CAMERA_FRAMES, f"predict replayed {replays} times, want "
           f"{2 * CAMERA_FRAMES}")
@@ -3914,7 +3884,6 @@ def phase_camera(card, tmp) -> int:
           f"predict by CUDA events median {statistics.median(device):.3f} ms "
           f"({min(device):.3f}-{max(device):.3f}), the whole frame by the host clock median "
           f"{statistics.median(host):.3f} ms ({min(host):.3f}-{max(host):.3f}) [{card}]")
-    return launches
 
 
 def feed_dataset(tmp):
@@ -3994,13 +3963,12 @@ def phase_feed(card, tmp) -> None:
           + ", ".join(feed) + f" (dataset written in {made_s:.1f} s) [{card}]")
 
 
-def phase_entry(card, tmp) -> int:
-    """20: the last entry points. Returns K1's launches in the camera loop."""
+def phase_entry(card, tmp) -> None:
+    """20: the last entry points."""
     t0 = time.perf_counter()
-    launches = phase_camera(card, tmp)
+    phase_camera(card, tmp)
     phase_feed(card, tmp)
     print(f"[20 entry] phase 20 took {time.perf_counter() - t0:.1f} s")
-    return launches
 
 
 # -- phase 21: the train step in a CUDA graph -------------------------------------
@@ -4019,14 +3987,6 @@ def graph_batch(b: int, size: int, seed: int):
     masks = np.arange(4)[None] < rng.integers(1, 4, (b, 1))
     boxes[~masks] = 0.0
     return tuple(torch.from_numpy(a).to("cuda") for a in (images, boxes, masks))
-
-
-def graph_counts() -> dict:
-    """The launch counts of the kernels a train step can run, replays
-    included (:func:`kernel_counts`)."""
-    return {**kernel_counts(),
-            "photometric": kphoto.photometric_batch.launches + ugraphs.REPLAYED["photometric"],
-            "conv_gemm": conv_gemm.launches + ugraphs.REPLAYED["conv_gemm"]}
 
 
 def graph_state(spec: tuple):
@@ -4062,18 +4022,18 @@ def graph_vs_eager(spec: tuple, make=make_train_step) -> dict:
     (eager, tcfg), (replayed, _) = graph_state(spec), graph_state(spec)
     step = make(eager.module, tcfg, augment=augment)
     captured = CapturedTrainStep(make(replayed.module, tcfg, augment=augment))
-    start = graph_counts()
+    start = LAUNCHES.copy()
     want = [dict(step(eager, *batch)[1]) for batch in batches]
     torch.cuda.synchronize()
-    eager_launches = {k: v - start[k] for k, v in graph_counts().items()}
-    start = ugraphs.wrapper_counts()
+    eager_launches = dict(LAUNCHES - start)
+    start = LAUNCHES.copy()
     got = [dict(captured(replayed, *batch)[1]) for batch in batches]
     torch.cuda.synchronize()
     (g,) = captured.graphs.values()
-    warm = {k: start[k] + captured.warmup * g.per_replay[k] for k in start}
-    eager_launches = {k: eager_launches[k] for k in g.per_replay}
-    check(ugraphs.wrapper_counts() == warm, "a replay ticked a wrapper's count")
-    graph_launches = captured.launches()
+    graph_launches = {k: n * g.replays for k, n in g.per_replay.items() if n}
+    check(LAUNCHES - start == g.warm_launches + Counter(graph_launches),
+          f"the captured step launched {dict(LAUNCHES - start)}: not its warm-up's "
+          f"{dict(g.warm_launches)} and its replays' {graph_launches}")
     differ = [f"step {i} {k}" for i, (w, g) in enumerate(zip(want, got)) for k in w
               if not torch.equal(w[k], g[k])]
     worst = 0.0
@@ -4082,7 +4042,7 @@ def graph_vs_eager(spec: tuple, make=make_train_step) -> dict:
             differ.append(name)
             worst = max(worst, (a.float() - c.float()).abs().max().item())
     return {"differ": differ, "worst": worst, "eager_launches": eager_launches,
-            "graph_launches": graph_launches, "per_replay": g.per_replay,
+            "graph_launches": graph_launches, "per_replay": dict(g.per_replay),
             "pool_bytes": g.pool_bytes, "capture_s": g.capture_s,
             "losses": [round(s["loss"].item(), 4) for s in got],
             "eager": (eager, step), "graph": (replayed, captured), "batch": batches[0]}
@@ -4287,13 +4247,11 @@ def graph_trainer_fits(tmp, timings: bool) -> None:
         f"{name} {1e3 * v:.1f} ms ({n_train / v:.1f} img/s)" for name, v in secs.items()))
 
 
-def phase_graph(card: str, tmp, timings: bool = False) -> dict:
+def phase_graph(card: str, tmp, timings: bool = False) -> None:
     """21: the train step captured in a CUDA graph; ``timings`` (``--graph``)
-    adds 21c. Returns the kernel launches of the phase, the graphs' replays
-    included, and 21c's rows."""
-    t0 = time.perf_counter()
-    phase_start = graph_counts()
-    failures, rows = [], {}
+    adds 21c."""
+    t0, start = time.perf_counter(), LAUNCHES.copy()
+    failures = []
     for label, spec in GRAPH_MODELS.items():
         run = graph_vs_eager(spec)
         failures += graph_failures(label, run)
@@ -4304,7 +4262,7 @@ def phase_graph(card: str, tmp, timings: bool = False) -> dict:
               f"graph pool {run['pool_bytes'] / 2**20:.1f} MiB, warm-up + capture "
               f"{run['capture_s']:.2f} s")
         if timings:
-            rows[label] = graph_times(card, label, run)
+            graph_times(card, label, run)
         del run
         torch.cuda.empty_cache()
     check(not failures, "; ".join(failures))
@@ -4318,11 +4276,10 @@ def phase_graph(card: str, tmp, timings: bool = False) -> dict:
     infer = [graph(w["data"][0]) for _ in range(infer_iters)]
     check(all(torch.equal(m, infer[0][1]) for _, m in infer), "GraphPredict b128 masks vary")
     print(f"[21 graph] bench's graph rows, loops {train_iters} / {infer_iters}: train "
-          f"{rates[0]:.1f} img/s, b128 predict through GraphPredict ({graph.k1_per_replay} K1 "
-          f"a replay)")
-    launches = {k: v - phase_start[k] for k, v in graph_counts().items()}  # replays included
-    print(f"[21 graph] phase 21 took {time.perf_counter() - t0:.1f} s; launches {launches}")
-    return {"launches": launches, "rows": rows}
+          f"{rates[0]:.1f} img/s, b128 predict through GraphPredict "
+          f"({graph.graph.per_replay['decode_filter_nms']} K1 a replay)")
+    print(f"[21 graph] phase 21 took {time.perf_counter() - t0:.1f} s; launches "
+          f"{dict(on_path(start))}")
 
 
 # -- phase 22: serving and eval replayed from CUDA graphs ---------------------------
@@ -4523,9 +4480,21 @@ def serve_trainer_evals(tmp) -> None:
             ckpt = trainers["streamed"].save()
         args = ["--data-dir", str(root), "--model", "poolresnet", "--checkpoint", str(ckpt),
                 "--patches", "10", "--with-ap", "--device", "cuda"]
-        calls = k1_calls()
-        replayed = run_validation_epoch.main(args)
-        calls = k1_calls() - calls
+        made = []
+
+        class Kept(Trainer):  # the Trainer run_validation_epoch makes, kept for its graphs
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        start = LAUNCHES.copy()
+        run_validation_epoch.Trainer = Kept
+        try:
+            replayed = run_validation_epoch.main(args)
+        finally:
+            run_validation_epoch.Trainer = Trainer
+        # the batches are padded to one shape: one eval graph, after its warm-up
+        calls = (LAUNCHES - start - warm_ups(*made))["decode_filter_nms"]
         rule = Trainer.__dict__["replays"]  # the staticmethod itself
         Trainer.replays = staticmethod(lambda *a: False)
         try:
@@ -4697,11 +4666,10 @@ def ms_line(values) -> str:
     return f"{statistics.median(values):.3f} ({min(values):.3f}-{max(values):.3f}) ms"
 
 
-def phase_serve(card, tmp) -> int:
-    """22: serving and eval replayed from CUDA graphs. Returns K1's launches
-    of the phase."""
+def phase_serve(card, tmp) -> None:
+    """22: serving and eval replayed from CUDA graphs."""
     t0 = time.perf_counter()
-    start = k1_count()
+    start = LAUNCHES.copy()
     models = {family: serve_model(family, cfg, SEED + 75)
               for family, cfg in SERVE_MODELS.items()}
     dets = serve_predict_vs_eager(models)
@@ -4709,10 +4677,9 @@ def phase_serve(card, tmp) -> int:
         serve_eval_vs_eager(family, cfg)
     serve_trainer_evals(tmp)
     serve_timings(card, dets, tmp)
-    launches = k1_count() - start
+    launches = on_path(start)["decode_filter_nms"]
     print(f"[22 serve] K1 launches {launches} (replayed, eager and warm-ups); phase 22 took "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches
 
 
 # phase 23: the narrow convolutions, (batch, size, grid)
@@ -4733,19 +4700,13 @@ def stem_padded_to_8(layer, x):
 
 def graph_ms(fn, iters: int) -> float:
     """The card's time for one call of ``fn``: :data:`NARROW_CALLS` calls
-    captured in one CUDA graph, its replays timed by :func:`device_ms`, so
-    that no call waits for the host's launches (a b1 call of ``conv_gemm``
+    captured in one CUDA graph (``utils/graphs.py``, which counts the
+    replays' launches), its replays timed by :func:`device_ms`, so that no
+    call waits for the host's launches (a b1 call of ``conv_gemm``
     launches for longer than the card runs it)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(NARROW_CALLS):
-            fn()
+    device = torch.device("cuda")
+    graph = ugraphs.capture(lambda: [fn() for _ in range(NARROW_CALLS)], device,
+                            warm=lambda: ugraphs.warm_up(fn, device, 3))
     ms = device_ms(graph.replay, iters) / NARROW_CALLS
     del graph
     torch.cuda.empty_cache()
@@ -4797,9 +4758,9 @@ def phase_narrow_convs(card) -> dict:
                 for arm in arms:
                     row[f"{arm}_ms"] = statistics.median(times[arm])
                     row[f"{arm}_ms_all"] = [round(t, 5) for t in times[arm]]
-                start = conv_gemm.launches
+                start = LAUNCHES["conv_gemm"]
                 narrow_conv(layer, inp)
-                row["rule"] = "conv_gemm" if conv_gemm.launches > start else "cudnn"
+                row["rule"] = "conv_gemm" if LAUNCHES["conv_gemm"] > start else "cudnn"
                 if name == "stem":
                     row["padded_to_8_ms"] = graph_ms(lambda: stem_padded_to_8(layer, inp), iters)
                     row["padded_to_8_err"] = (stem_padded_to_8(layer, inp).float()
@@ -4845,7 +4806,7 @@ def phase_retinaface(card) -> dict:
     kept = {}
     for case, vals in cases.items():
         where = f"B=1 N={n} cap={cap} {case} {RF_PROB}/{RF_IOU}"
-        scratch = knms.decode_filter_nms_batch.scratch_launches
+        scratch = LAUNCHES["decode_filter_nms_scratch"]
         poison(((1, cap, 5), torch.float32), ((1, cap), torch.bool), ((1, cap), torch.int32))
         gb, gm, gi = knms.decode_filter_nms_batch(vals, tables, RF_PROB, RF_IOU, cap, indexed=True)
         poison(((1, cap, 5), torch.float32), ((1, cap), torch.bool))
@@ -4853,7 +4814,7 @@ def phase_retinaface(card) -> dict:
         wb, wm, wi = knms.decode_filter_nms_reference(vals, tables, RF_PROB, RF_IOU, cap,
                                                       indexed=True)
         torch.cuda.synchronize()
-        check(knms.decode_filter_nms_batch.scratch_launches == scratch + 2,
+        check(LAUNCHES["decode_filter_nms_scratch"] == scratch + 2,
               f"not two scratch launches at {where}")
         check(torch.equal(gm, wm) and torch.equal(gb, wb), f"indexed op differs at {where}")
         check(torch.equal(gi, wi), f"index differs at {where}")
@@ -4876,21 +4837,23 @@ def phase_retinaface(card) -> dict:
             head.conv1x1.bias[1::2] += shift
     det = Detector(module, cfg.probability_threshold, cfg.iou_threshold, cfg.nms_capacity,
                    DTYPES[cfg.dtype])
-    start = knms.decode_filter_nms_batch.launches
-    det.predict(frame)  # the capture, after its warm-up (a real launch)
-    warm = knms.decode_filter_nms_batch.launches - start
+    path_start = LAUNCHES.copy()  # the path: the predicts, the capture's warm-up included
+    det.predict(frame)  # the capture, after its warm-up (real launches)
     (g,) = det._graphs.graphs.values()
-    for key in ("decode_filter_nms", "decode_filter_nms_scratch"):
-        ugraphs.REPLAYED[key] = ugraphs.WARMED[key] = 0
-    knms.decode_filter_nms_batch.launches = knms.decode_filter_nms_batch.scratch_launches = 0
+    keys = ("decode_filter_nms", "decode_filter_nms_scratch")
+    start, replays = LAUNCHES.copy(), g.replays
     preds = [det.predict(frame) for _ in range(3)]
     torch.cuda.synchronize()
-    per = {key: ugraphs.REPLAYED[key] / len(preds)
-           for key in ("decode_filter_nms", "decode_filter_nms_scratch")}
-    eager = (knms.decode_filter_nms_batch.launches, knms.decode_filter_nms_batch.scratch_launches)
-    check(per == {"decode_filter_nms": 1.0, "decode_filter_nms_scratch": 1.0},
+    replays = g.replays - replays
+    per = {key: g.per_replay[key] for key in keys}
+    # what the replays do not account for ran eagerly
+    launched = LAUNCHES - start
+    eager = tuple(launched[key] - replays * per[key] for key in keys)
+    check(replays == len(preds), f"{replays} replays of {len(preds)} predicts")
+    check(per == {"decode_filter_nms": 1, "decode_filter_nms_scratch": 1},
           f"predict's launches a replay {per}")
     check(eager == (0, 0), f"eager K1 launches during the replays {eager}")
+    path = on_path(path_start)
     norm, boxes, mask = preds[0]
     points = preds[0].landmarks
     k = int(check_boxes(boxes, mask, cap, cfg.probability_threshold, "retinaface predict"))
@@ -4902,10 +4865,8 @@ def phase_retinaface(card) -> dict:
           "replays answer differently")
     check(0 < k < cap, f"predict kept {k} of {cap}")
     out = {"shape": [1, n, cap], "thresholds": [RF_PROB, RF_IOU], "kept": kept,
-           "predict_kept": k, "per_replay": per, "graph_per_replay": {
-               key: g.per_replay[key] for key in ("decode_filter_nms",
-                                                  "decode_filter_nms_scratch")},
-           "launches": 2 * len(cases) + warm + ugraphs.REPLAYED["decode_filter_nms"]}
+           "predict_kept": k, "per_replay": per,
+           "launches": path["decode_filter_nms"]}
     print(f"[24 retinaface] K1 at B=1 N={n} cap={cap} {RF_PROB}/{RF_IOU} on global scratch "
           f"(limit {knms.max_candidates(0)}): plain and indexed op bit-equal to the plain "
           f"version, index too, on {', '.join(f'{c} ({v} kept)' for c, v in kept.items())}; "
@@ -5022,7 +4983,7 @@ def phase_bn_act(card) -> dict:
           "predict differs with the epilogue")
     graph_times = {"on": [], "off": []}
     for arm in ("off", "on", "on", "off") * 2:
-        graph_times[arm].append(device_ms((g_on if arm == "on" else g_off).graph.replay, 50))
+        graph_times[arm].append(device_ms((g_on if arm == "on" else g_off).replay, 50))
     out = {"card": card, "chains": rows, "frame": frame, "calls_a_frame": len(calls),
            "per_replay": g_on.per_replay["bn_act"],
            "predict_graph_ms": {arm: statistics.median(t) for arm, t in graph_times.items()},
@@ -5109,50 +5070,36 @@ def serve_only() -> None:
         phase_serve(card, tmp)
 
 
-def kernel_times_only() -> None:
-    """``--kernel-times``: the card, the build, K1-K4's device times (no
-    plain versions, K1's wrapper host time a call) and the b1 480 px
-    ``Detector.predict`` of phase 6 as one JSON line; ``python -m
-    fdtpu_torch.compare_parent`` runs this in turns on two trees."""
-    card, _ = phase_card()
-    phase_build()
-    det480 = Detector(build_model("poolresnet", DetectorConfig(), "cuda",
-                                  torch.Generator().manual_seed(SEED)))
-    print(json.dumps({"kernel_times": {"card": card, "decode_filter_nms": nms_times(card, False),
-                                       "shears": shear_times(card, False),
-                                       "predict_b1": predict_b1_ms(det480)}}))
-
-
 def main() -> None:
     card, name = phase_card()
     phase_build()
     worst = phase_kernel_vs_plain()
     phase_forward_f32()
-    launches, det480, det320, batch = phase_main_path()
+    det480, det320, batch = phase_main_path()
     nms_rows = phase_timings(card, det480, det320, batch)
     rot_worst = phase_rotate_vs_plain()
     phase_train_f32()
-    train_launches, runs = phase_train_path()
+    runs = phase_train_path()
     shear_rows = phase_train_timings(card, runs)
     del runs
     photo_worst = phase_photometric_vs_plain()
     phase_tail_vs_plain()
-    tail_launches = phase_tail_path()
-    photo_launches, train = phase_photometric_path()
+    phase_tail_path()
+    train = phase_photometric_path()
     fused_times = phase_fused_timings(card, train)
     del train
     with tempfile.TemporaryDirectory() as tmp:
-        trainer_launches = phase_trainer(tmp)
-        ssd_launches, ssd_rows = phase_ssd(card, tmp)
-        zoo_launches = phase_zoo(card, tmp)
-        dp_launches = phase_dp(card, tmp)
-        deploy_launches = phase_deploy(card, tmp)
-        sp_launches = phase_spatial(card, tmp)
-        entry_launches = phase_entry(card, tmp)
-        graph_launches = phase_graph(card, tmp)["launches"]
-        serve_launches = phase_serve(card, tmp)
+        phase_trainer(tmp)
+        ssd_rows = phase_ssd(card, tmp)
+        phase_zoo(card, tmp)
+        phase_dp(card, tmp)
+        phase_deploy(card, tmp)
+        phase_spatial(card, tmp)
+        phase_entry(card, tmp)
+        phase_graph(card, tmp)
+        phase_serve(card, tmp)
     phase_narrow_convs(card)
-    rf_launches = phase_retinaface(card)["launches"]
+    phase_retinaface(card)
     bn_act = phase_bn_act(card)
     k1_recorded_map_bounds()
 
@@ -5166,27 +5113,20 @@ def main() -> None:
 
     # K1 at b128/225 and the shears on the b128 exact-k planes head their
     # entries; every shape timed follows under "shapes"
-    # (library_ms: F.grid_sample on the float32 rows only, see shear_times)
-    kernels = [{**entry(KERNEL, launches + train_launches["decode_filter_nms"]
-                        + trainer_launches["decode_filter_nms"] + ssd_launches
-                        + zoo_launches["decode_filter_nms"] + dp_launches["decode_filter_nms"]
-                        + deploy_launches + sp_launches["decode_filter_nms"]
-                        + entry_launches + graph_launches["decode_filter_nms"]
-                        + serve_launches + rf_launches,
-                        worst,
+    # (library_ms: F.grid_sample on the float32 rows only, see shear_times);
+    # the launches are the paths'
+    kernels = [{**entry(KERNEL, PATH_LAUNCHES["decode_filter_nms"], worst,
                         row_times(nms_rows[0])), "shapes": nms_rows + ssd_rows}]
-    path = (train_launches, photo_launches, trainer_launches, zoo_launches, dp_launches,
-            sp_launches, graph_launches)
-    shear_launches = {k: sum(p[k] for p in path) for k in SHEARS}
+    shear_launches = {k: PATH_LAUNCHES[k] for k in SHEARS}
     shear_launches["shear_rows"] -= shear_launches["shear_rows_stacked"]  # K3a's alone
     for kname, meta in SHEARS.items():
         rows = [r for r in shear_rows if r["name"].split(",")[0] == kname]
         kernels.append({**entry({"name": kname, **meta}, shear_launches[kname], rot_worst[kname],
                                 row_times(rows[0]), rows[0]["library_ms"]), "shapes": rows})
-    kernels.append(entry(PHOTOMETRIC, photo_launches["photometric"]
-                         + graph_launches["photometric"], photo_worst,
+    kernels.append(entry(PHOTOMETRIC, PATH_LAUNCHES["photometric"], photo_worst,
                          fused_times["photometric"]))
-    kernels.append({**entry(RESIDUAL_TAIL, tail_launches, 0.0, fused_times["residual_tail"]),
+    kernels.append({**entry(RESIDUAL_TAIL, PATH_LAUNCHES["residual_tail"], 0.0,
+                            fused_times["residual_tail"]),
                     "shapes": fused_times["residual_tail_shapes"]})
     kernels.append(bn_act_entry(bn_act))
     print(json.dumps({"kernels": kernels}))
@@ -5196,9 +5136,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--kernel-times"]:
-        kernel_times_only()
-    elif sys.argv[1:] == ["--deployment"]:
+    if sys.argv[1:] == ["--deployment"]:
         deployment_only()
     elif sys.argv[1:] == ["--spatial"]:
         spatial_only()

@@ -131,26 +131,23 @@ class GraphPredict:
     buffer (``utils/graphs.py``). A call copies the frames into the buffer,
     replays the graph and returns copies of the outputs. The frames must
     have the shape it was captured at. K1's launch is captured with the
-    rest. The capture runs nothing and a replay passes no wrapper, so the
-    graph counts K1 itself: :attr:`k1_per_replay`, the launches captured
-    (taken back out of ``decode_filter_nms_batch.launches``; every replay
-    adds them to ``utils.graphs.REPLAYED``), and :attr:`replays`."""
+    rest: :attr:`graph`'s ``per_replay`` holds the launches a replay makes,
+    and :attr:`replays` counts the replays."""
 
     def __init__(self, fn: nn.Module, example: torch.Tensor, warmup: int = 3):
         with torch.no_grad():
-            self._graph = capture_body(fn, (example.clone(),), warmup=warmup)
-        self.input = self._graph.inputs[0]
-        self.k1_per_replay = self._graph.per_replay["decode_filter_nms"]
+            self.graph = capture_body(fn, (example.clone(),), warmup=warmup)
+        self.input = self.graph.inputs[0]
 
     @property
     def replays(self) -> int:
-        return self._graph.replays
+        return self.graph.replays
 
     def __call__(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if images.shape != self.input.shape:
             raise ValueError(f"captured at {tuple(self.input.shape)}, got {tuple(images.shape)}")
         self.input.copy_(images)
-        return clone_outputs(self._graph.replay())
+        return clone_outputs(self.graph.replay())
 
 
 def aot_compile_predict(

@@ -1,10 +1,12 @@
 """Hand-written Hopper kernels with their plain PyTorch versions. The build
 module (``kernels/build.py``) is imported only when a kernel launches.
 ``conv_gemm.py`` holds no hand-written kernel: a convolution as one library
-GEMM, counted as the kernels' wrappers are."""
+GEMM, counted as the kernels' wrappers are. ``launches.py`` holds the one
+count of every launch, :data:`LAUNCHES`."""
 
 from fdtpu_torch.kernels.bn_act import fused_bn_act, reference_bn_act  # noqa: F401
 from fdtpu_torch.kernels.epilogue import fused_residual_tail, reference_tail  # noqa: F401
+from fdtpu_torch.kernels.launches import LAUNCHES  # noqa: F401
 from fdtpu_torch.kernels.nms import (  # noqa: F401
     decode_filter_nms_batch,
     decode_filter_nms_reference,

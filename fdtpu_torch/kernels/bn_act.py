@@ -15,9 +15,8 @@ format.
 
 :func:`fused_bn_act` dispatches on where the tensors lie: a CPU tensor runs
 :func:`reference_bn_act`, a CUDA tensor launches the kernel or the call
-raises; ``.launches`` counts kernel launches, and a CUDA graph that
-captured a launch counts it in ``Graph.per_replay["bn_act"]``
-(``utils/graphs.py``). The kernel computes ATen's own BatchNorm formula
+raises; ``LAUNCHES["bn_act"]`` counts kernel launches
+(``kernels/launches.py``). The kernel computes ATen's own BatchNorm formula
 (``batch_norm_transform_input_channels_last_kernel``): each eager op
 computes in float32 and rounds its result to the tensors' dtype, and the
 kernel rounds at the same points. So it is bit-equal to
@@ -32,6 +31,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from fdtpu_torch.kernels.launches import LAUNCHES
 
 
 def reference_bn_act(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -103,8 +104,6 @@ def fused_bn_act(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             err = lib.fdtpu_bn_act(*args)
     if err != 0:
         raise RuntimeError(f"bn_act kernel launch failed: {build.cuda_error_string(err)}")
-    fused_bn_act.launches += 1
+    LAUNCHES["bn_act"] += 1
     return out
 
-
-fused_bn_act.launches = 0

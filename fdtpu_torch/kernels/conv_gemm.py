@@ -10,9 +10,8 @@ own (0.052 ms; this form 0.019 ms), and its 5-channel k6 head off the tensor
 cores as ``precomputed_convolve_sgemm`` (0.42 ms; this form 0.02-0.04 ms).
 The rule that picks this form is ``models/layers.narrow_conv``.
 
-``conv_gemm.launches`` counts calls (one GEMM each), as the hand-written
-kernels' wrappers count theirs; a CUDA graph that captured a call counts
-it in ``Graph.per_replay`` (``utils/graphs.py``).
+``LAUNCHES["conv_gemm"]`` counts calls (one GEMM each), as the
+hand-written kernels' wrappers count theirs (``kernels/launches.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from fdtpu_torch.kernels.launches import LAUNCHES
 
 
 def conv_gemm(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -53,8 +54,6 @@ def conv_gemm(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         weight = F.pad(weight, (0, 0, 0, cols_out - cout))
         bias = None if bias is None else F.pad(bias, (0, cols_out - cout))
     out = cols @ weight.t() if bias is None else torch.addmm(bias, cols, weight.t())
-    conv_gemm.launches += 1
+    LAUNCHES["conv_gemm"] += 1
     return out.view(b, ho, wo, cols_out).permute(0, 3, 1, 2)[:, :cout]
 
-
-conv_gemm.launches = 0

@@ -51,8 +51,8 @@
 // view at an odd offset), take the same kernel with one element a vector
 // and plain copies into the slot; with c > 1 there the second tap is staged
 // as its own vectors.
-// The designs it was chosen over are kept in designs/shear_rows_designs.cu;
-// python -m fdtpu_torch.bench_shear_designs times them against it. On an
+// The designs it was chosen over were timed against it by a study whose
+// code has since gone; its figures stay here. On an
 // H100 80GB HBM3 at 700 W, K4's bf16 planes (26, 1536, 512): this kernel
 // 0.0332 ms (73% of the bound, 92% of a Tensor.copy_ of the planes); the
 // window built by warp shuffles, two steps in flight a warp, 0.0476 (51%);

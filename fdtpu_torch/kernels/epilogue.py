@@ -12,8 +12,8 @@ VJP: the wrapper raises when autograd would need a backward.
 
 :func:`fused_residual_tail` dispatches on where the tensors lie: a CPU
 tensor runs :func:`reference_tail`, a CUDA tensor launches the hand-written
-kernel (``csrc/residual_tail.cu``) or the call raises; ``.launches`` counts
-kernel launches. The kernel is bit-equal to :func:`reference_tail`, the op
+kernel (``csrc/residual_tail.cu``) or the call raises;
+``LAUNCHES["residual_tail"]`` counts kernel launches (``kernels/launches.py``). The kernel is bit-equal to :func:`reference_tail`, the op
 set the port's ``ResidualBlock`` runs at eval. In bfloat16 that may
 differ from fdtpu by one bfloat16 step on negative inputs: PyTorch's leaky
 ReLU multiplies by a float32 0.2, fdtpu by 0.2 rounded to bfloat16.
@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from fdtpu_torch.kernels.launches import LAUNCHES
 
 
 def reference_tail(c2: torch.Tensor, skip: torch.Tensor, pool: bool,
@@ -109,8 +111,6 @@ def fused_residual_tail(c2: torch.Tensor, skip: torch.Tensor, *, pool: bool,
             err = lib.fdtpu_residual_tail(*args)
     if err != 0:
         raise RuntimeError(f"residual tail kernel launch failed: {build.cuda_error_string(err)}")
-    fused_residual_tail.launches += 1
+    LAUNCHES["residual_tail"] += 1
     return out
 
-
-fused_residual_tail.launches = 0

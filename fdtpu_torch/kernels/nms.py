@@ -41,6 +41,7 @@ import functools
 import numpy as np
 import torch
 
+from fdtpu_torch.kernels.launches import LAUNCHES
 from fdtpu_torch.utils.device_cache import device_cache
 
 # -- decode tables --------------------------------------------------------------
@@ -245,7 +246,7 @@ def _fake_indexed(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity)
 def _launch(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity, indexed=False):
     """The kernel on the card: shared memory up to :func:`max_candidates`
     rows an image, global scratch above (counted apart,
-    :attr:`decode_filter_nms_batch.scratch_launches`); with ``indexed`` the
+    ``LAUNCHES["decode_filter_nms_scratch"]``); with ``indexed`` the
     kept rows' candidate indices too. Everything goes onto the current
     stream and is allocated by ``torch.empty``, so a CUDA graph captures the
     launch (warm :func:`max_candidates` before capturing)."""
@@ -284,9 +285,9 @@ def _launch(values, sx, ox, sy, oy, w_scale, h_scale, prob, iou, capacity, index
         raise RuntimeError(
             f"decode_filter_nms kernel launch failed: {build.cuda_error_string(err)}"
         )
-    decode_filter_nms_batch.launches += 1
+    LAUNCHES["decode_filter_nms"] += 1
     if scratch is not None:
-        decode_filter_nms_batch.scratch_launches += 1
+        LAUNCHES["decode_filter_nms_scratch"] += 1
     return (boxes, mask, index) if indexed else (boxes, mask)
 
 
@@ -332,16 +333,13 @@ def decode_filter_nms_batch(
     (:func:`_traced`); in plain eager code it calls the op's implementation
     for the device itself, which spares each call the dispatcher's round
     trip through Python. A CPU tensor runs the plain version. A
-    CUDA tensor launches the kernel, and :attr:`decode_filter_nms_batch.launches`
-    counts each launch (a CUDA graph's capture, which runs nothing, and its
-    replays, which pass no wrapper, are the graph's to count:
-    :class:`fdtpu_torch.export.GraphPredict`); anything the kernel does not
-    take raises.
+    CUDA tensor launches the kernel, and ``LAUNCHES["decode_filter_nms"]``
+    counts each launch (``kernels/launches.py``); anything the kernel does
+    not take raises.
     Up to :func:`max_candidates` rows an image the kernel keeps its working
     set in shared memory; above that the same kernel works in a scratch
     tensor, ``B`` times the planes and the sort list of the padded ``N``,
-    and :attr:`decode_filter_nms_batch.scratch_launches` counts the launch
-    too (``utils/graphs.py`` counts a graph's as ``decode_filter_nms_scratch``).
+    and ``LAUNCHES["decode_filter_nms_scratch"]`` counts the launch too.
     """
     if values.dim() != 3 or values.shape[-1] != 5:
         raise ValueError(f"values must be (B, N, 5), got {tuple(values.shape)}")
@@ -373,10 +371,6 @@ def _traced(values: torch.Tensor) -> bool:
     return (type(values) is not torch.Tensor or torch.compiler.is_compiling()
             or torch._C._len_torch_dispatch_stack() > 0
             or torch._C._is_torch_function_mode_enabled())
-
-
-decode_filter_nms_batch.launches = 0
-decode_filter_nms_batch.scratch_launches = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -19,14 +19,16 @@ batch on the 0-255 scale, in this order:
 direction bin rides in column :data:`MDX`. :func:`photometric_batch`
 dispatches on where the images lie: a CPU tensor runs
 :func:`photometric_reference`, a CUDA tensor launches the hand-written
-kernel (``csrc/photometric.cu``) or the call raises; ``.launches`` counts
-kernel launches.
+kernel (``csrc/photometric.cu``) or the call raises;
+``LAUNCHES["photometric"]`` counts kernel launches (``kernels/launches.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fdtpu_torch.kernels.launches import LAUNCHES
 
 # scalar table columns (augment_pallas.py:58)
 FLIP, ALPHA, BETA, NOISE_SIGMA, GLASS, MOTION, MDX, MDY = range(8)
@@ -218,8 +220,6 @@ def photometric_batch(imgs: torch.Tensor, scalars: torch.Tensor, seeds: torch.Te
         )
     if err != 0:
         raise RuntimeError(f"photometric kernel launch failed: {build.cuda_error_string(err)}")
-    photometric_batch.launches += 1
+    LAUNCHES["photometric"] += 1
     return out
 
-
-photometric_batch.launches = 0

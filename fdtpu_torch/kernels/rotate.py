@@ -20,9 +20,10 @@ Two entry points carry every pass, each a hand-written CUDA kernel
 Taps outside the plane read 0 (fdtpu's rolls wrap instead; both land only
 in the margin the final crop discards). Each wrapper dispatches on where
 the planes lie: a CPU tensor runs the plain version, a CUDA tensor launches
-the kernel or the call raises; ``.launches`` counts kernel launches, and
-``shear_rows.stacked_launches`` those of :func:`shear_rows` with ``c = 1``
-(K4's channel-stacked layout) among them.
+the kernel or the call raises; ``LAUNCHES["shear_rows"]`` and
+``LAUNCHES["shear_cols"]`` count kernel launches, and
+``LAUNCHES["shear_rows_stacked"]`` those of :func:`shear_rows` with
+``c = 1`` (K4's channel-stacked layout) among them (``kernels/launches.py``).
 :func:`rotate_batch` (K3's NHWC-interleaved layout) and
 :func:`rotate_batch_transposed` (K4's channel-stacked layout) compute
 ``k1 = -tan(a/2)`` and ``k2 = sin a`` once, in float32, and hand the same
@@ -36,6 +37,8 @@ import math
 
 import numpy as np
 import torch
+
+from fdtpu_torch.kernels.launches import LAUNCHES
 
 ROTATE_LIMIT_RAD = math.radians(20.0) + 1e-3  # datamodule.py:115 limit=20
 
@@ -143,9 +146,9 @@ def shear_rows(planes: torch.Tensor, k: torch.Tensor, c: int, row_mod: int, cent
     if planes.device.type == "cpu":
         return shear_rows_reference(planes, k, c, row_mod, center)
     out = _launch("fdtpu_shear_rows", planes, k, c, row_mod, center)
-    shear_rows.launches += 1
+    LAUNCHES["shear_rows"] += 1
     if c == 1:
-        shear_rows.stacked_launches += 1
+        LAUNCHES["shear_rows_stacked"] += 1
     return out
 
 
@@ -157,13 +160,8 @@ def shear_cols(planes: torch.Tensor, k: torch.Tensor, c: int, center: float):
     if planes.device.type == "cpu":
         return shear_cols_reference(planes, k, c, center)
     out = _launch("fdtpu_shear_cols", planes, k, c, center)
-    shear_cols.launches += 1
+    LAUNCHES["shear_cols"] += 1
     return out
-
-
-shear_rows.launches = 0
-shear_rows.stacked_launches = 0
-shear_cols.launches = 0
 
 
 # -- rotation ---------------------------------------------------------------------

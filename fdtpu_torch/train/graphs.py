@@ -42,13 +42,12 @@ Before a capture the body runs twice (``warmup``) on a side stream
 (``utils/graphs.py``: the kernel libraries load, cuDNN and cuBLAS settle,
 Adam's state exists); a train step's warm-up runs from a copy of the state,
 which is put back afterwards, so the warm-up steps leave no trace (the
-wrappers count their launches, which are real; ``warmed`` counts the
-bodies). The capture runs nothing. The kernels' wrappers count a launch
-when they run, which a replay does not: each graph keeps the launches its
-capture recorded (:attr:`Graph.per_replay`, taken back out of the wrappers'
-counts) and its :attr:`Graph.replays`, and every replay adds its launches
-to ``utils.graphs.REPLAYED``, the count of all graphs' replays by
-wrapper, K1's among them.
+wrappers count their launches, which are real, and the graph keeps them:
+:attr:`Graph.warm_launches`). The capture runs nothing: each graph keeps the launches its
+capture recorded (:attr:`Graph.per_replay`, taken back out of
+``kernels/launches.py``'s ``LAUNCHES``) and its :attr:`Graph.replays`, and
+every replay adds its launches to ``LAUNCHES``, where the kernels' wrappers
+count a launch when they run.
 
 While a profiler is active (``utils/trace.py``) the call of a train or
 metrics step is the span ``fdtpu/train/step`` (its unit the state's step
@@ -88,7 +87,6 @@ from fdtpu_torch.parallel import halo
 from fdtpu_torch.train.state import TrainState, init_optimizer_state, is_capturable
 from fdtpu_torch.utils import trace
 from fdtpu_torch.utils.graphs import (
-    COUNTED,
     Graph,
     capture,
     capture_body,
@@ -150,9 +148,7 @@ class _CapturedStep:
         self.pool = pool  # a graph_pool_handle the owner's graphs share, or None: one a graph
         self.rank = dist.get_rank(step.group) if step.group is not None else None
         self.graphs: dict[tuple, Graph] = {}
-        self._retired = {k: 0 for k in COUNTED}  # launches of graphs an SGD rate replaced
-        self._retired_replays = 0
-        self.warmed = 0  # bodies run in warm-ups
+        self._retired_replays = 0  # replays of graphs an SGD rate replaced
 
     # -- calls ---------------------------------------------------------------------------
 
@@ -176,12 +172,6 @@ class _CapturedStep:
             g.inputs[0].copy_(rows)
             return self._replay(g, state)
 
-    def launches(self) -> dict:
-        """The kernel launches of every replay so far, by wrapper."""
-        return {k: self._retired[k] + sum(g.per_replay[k] * g.replays
-                                          for g in self.graphs.values())
-                for k in COUNTED}
-
     @property
     def replays(self) -> int:
         return self._retired_replays + sum(g.replays for g in self.graphs.values())
@@ -201,8 +191,6 @@ class _CapturedStep:
         lr = self._rate(state)
         g = self.graphs.get(key)
         if g is not None and g.lr != lr:  # SGD at a new rate: the old graph goes
-            for k in COUNTED:
-                self._retired[k] += g.per_replay[k] * g.replays
             self._retired_replays += g.replays
             del self.graphs[key]
             g = None
@@ -259,7 +247,6 @@ class CapturedTrainStep(_CapturedStep):
         def body():
             self.step.prologue(state)
             self.step.body(state, *feed(inputs))
-            self.warmed += 1
 
         def warm():  # from a copy of the state, which is put back afterwards
             init_optimizer_state(state.optimizer)
@@ -311,9 +298,7 @@ class CapturedEvalStep(_CapturedStep):
         def body(*x):
             return self.step.body(state, *feed(x))
 
-        g = capture_body(body, inputs, self.pool, self.warmup, step_groups(self.step))
-        self.warmed += self.warmup
-        return g
+        return capture_body(body, inputs, self.pool, self.warmup, step_groups(self.step))
 
     def _replay(self, g: Graph, state: TrainState):
         return clone_outputs(g.replay())

@@ -14,12 +14,13 @@ pool, which an owner (a Detector, a Trainer) may share between its graphs
 and each replay's outputs are cloned before the next replay, so no graph
 reads what another wrote.
 
-Kernel launches are counted by the wrappers (``.launches``) where they run.
-The warm-up's launches are real and stay counted; they are also summed in
-:data:`WARMED`. The capture runs nothing, so its launches are taken back
-out of the wrappers' counts into the graph's :attr:`Graph.per_replay`, and a
-replay, which passes no wrapper, adds them to :data:`REPLAYED`: the
-wrappers' counts plus :data:`REPLAYED` are every launch on the card.
+Kernel launches are counted in ``kernels/launches.py``'s ``LAUNCHES`` by
+the wrappers where they run. The warm-up's launches are real and stay
+counted; the graph keeps them as :attr:`Graph.warm_launches`. The capture
+runs nothing, so its launches are taken back out of
+``LAUNCHES`` into the graph's :attr:`Graph.per_replay`, and a replay, which
+passes no wrapper, adds them to ``LAUNCHES`` again: ``LAUNCHES`` is every
+launch on the card.
 
 While a profiler is active (``utils/trace.py``) every capture, its warm-up
 included, is the span ``fdtpu/graph/capture`` and adds one to the counter
@@ -43,44 +44,8 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
-from fdtpu_torch.kernels.bn_act import fused_bn_act
-from fdtpu_torch.kernels.conv_gemm import conv_gemm
-from fdtpu_torch.kernels.nms import decode_filter_nms_batch
-from fdtpu_torch.kernels.photometric import photometric_batch
-from fdtpu_torch.kernels.rotate import shear_cols, shear_rows
+from fdtpu_torch.kernels import LAUNCHES
 from fdtpu_torch.utils import trace
-
-# the wrappers whose launches a graph counts: name -> (function, attribute);
-# conv_gemm's are its GEMMs (the narrow convolutions of a no-grad bf16 forward);
-# decode_filter_nms_scratch: those of K1's launches that work in global scratch;
-# bn_act: the fused BatchNorm epilogues of a forward without autograd on a card
-# (models/layers.bn_act)
-COUNTED = {
-    "decode_filter_nms": (decode_filter_nms_batch, "launches"),
-    "decode_filter_nms_scratch": (decode_filter_nms_batch, "scratch_launches"),
-    "shear_rows": (shear_rows, "launches"),
-    "shear_rows_stacked": (shear_rows, "stacked_launches"),
-    "shear_cols": (shear_cols, "launches"),
-    "photometric": (photometric_batch, "launches"),
-    "conv_gemm": (conv_gemm, "launches"),
-    "bn_act": (fused_bn_act, "launches"),
-}
-
-# the kernel launches of every replay of every graph, by wrapper
-REPLAYED = {k: 0 for k in COUNTED}
-# the kernel launches of every warm-up before a capture, by wrapper (also in
-# the wrappers' own counts)
-WARMED = {k: 0 for k in COUNTED}
-
-
-def wrapper_counts() -> dict:
-    """The wrappers' own launch counts (a replay does not tick them)."""
-    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTED.items()}
-
-
-def set_counts(counts: dict) -> None:
-    for k, (fn, attr) in COUNTED.items():
-        setattr(fn, attr, counts[k])
 
 
 def require_card(device: torch.device) -> None:
@@ -97,15 +62,17 @@ def clone_outputs(outputs):
 @dataclasses.dataclass
 class Graph:
     """One captured program: the graph, its static inputs, its outputs,
-    the kernel launches one replay makes, the bytes the capture added to
-    the reserved memory and the seconds the warm-up and capture took."""
+    the kernel launches one replay makes by name (a kernel it lacks reads
+    0), the bytes the capture added to the reserved memory, the seconds
+    the warm-up and capture took and the kernel launches of the warm-up."""
 
     graph: torch.cuda.CUDAGraph
     inputs: Any
     outputs: Any
-    per_replay: dict
+    per_replay: collections.Counter
     pool_bytes: int
     capture_s: float
+    warm_launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     lr: float | None = None  # the rate an SGD step was captured at
     replays: int = 0
 
@@ -115,9 +82,8 @@ class Graph:
         with trace.span("fdtpu/graph/replay"):
             self.graph.replay()
         self.replays += 1
-        for k, n in self.per_replay.items():
-            REPLAYED[k] += n
-        if self.per_replay.get("decode_filter_nms_scratch"):
+        LAUNCHES.update(self.per_replay)
+        if self.per_replay["decode_filter_nms_scratch"]:
             trace.count("nms_scratch", self.per_replay["decode_filter_nms_scratch"])
         return self.outputs
 
@@ -149,7 +115,6 @@ def warm_up(run: Callable[[], Any], device: torch.device, n: int, groups=()) -> 
     each of ``groups``, which makes its NCCL communicator (none can be made
     inside a capture); the current stream then waits for it."""
     require_card(device)
-    start = wrapper_counts()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -158,8 +123,6 @@ def warm_up(run: Callable[[], Any], device: torch.device, n: int, groups=()) -> 
         for _ in range(n):
             run()
     torch.cuda.current_stream(device).wait_stream(side)
-    for k, v in wrapper_counts().items():
-        WARMED[k] += v - start[k]
 
 
 def capture(run: Callable[[], Any], device: torch.device, inputs=None, pool=None,
@@ -176,11 +139,12 @@ def capture(run: Callable[[], Any], device: torch.device, inputs=None, pool=None
     require_card(device)
     with trace.span("fdtpu/graph/capture"):
         trace.count("graph_captures")
-        t0 = time.perf_counter()
+        t0, before = time.perf_counter(), LAUNCHES.copy()
         if warm is not None:
             warm()
         torch.cuda.synchronize(device)
-        counts = wrapper_counts()
+        warm_launches = LAUNCHES - before
+        before = LAUNCHES.copy()
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
@@ -190,10 +154,11 @@ def capture(run: Callable[[], Any], device: torch.device, inputs=None, pool=None
                 torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
             outputs = run()
         torch.cuda.synchronize(device)
-        after = wrapper_counts()
-        set_counts(counts)
-        return Graph(graph, inputs, outputs, {k: after[k] - counts[k] for k in COUNTED},
-                     torch.cuda.memory_reserved(device) - reserved, time.perf_counter() - t0)
+        per_replay = LAUNCHES - before
+        LAUNCHES.subtract(per_replay)  # the capture ran nothing
+        return Graph(graph, inputs, outputs, per_replay,
+                     torch.cuda.memory_reserved(device) - reserved, time.perf_counter() - t0,
+                     warm_launches)
 
 
 def capture_body(body: Callable[..., Any], inputs: tuple, pool=None, warmup: int = 2,

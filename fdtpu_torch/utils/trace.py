@@ -28,7 +28,7 @@ The names are a contract: PERF.md and the benchmark's readers use them.
   warm-up (``utils/graphs.py``);
 * the counter ``nms_scratch``: K1's launches on its global-scratch path
   (more than ``max_candidates`` rows an image) that replays made
-  (``utils/graphs.py``, from ``kernels/nms.py``'s ``scratch_launches``);
+  (``utils/graphs.py``, from the graph's ``per_replay``);
 * the eager train step's phases ``train/augment``, ``train/targets``,
   ``train/gradients``, ``train/optimizer``, ``train/metrics``
   (``train/step.py``, read by ``profile_train``) and the spatial

@@ -8,12 +8,16 @@ to ReLU after ``torch.cat``; each of RetinaFace's BatchNorms through the
 wrapper once a forward. No jax. The kernel itself is held to the eager
 chain on a card (``tests/test_torch_bn_act_card.py``)."""
 
+import collections
+import types
+
 import pytest
 import torch_threads  # noqa: F401  (torch's threads under xdist)
 import torch
 import torch.nn.functional as F
 
 from fdtpu_torch.kernels import bn_act as kbn
+from fdtpu_torch.kernels import LAUNCHES
 from fdtpu_torch.models import layers
 from fdtpu_torch.models import build_model
 from fdtpu_torch.models.retinaface import SSH
@@ -76,12 +80,12 @@ def test_wrapper_on_the_cpu_runs_the_reference(act, with_skip):
     y = channels_last(SHAPE, torch.bfloat16, 1)
     skip = channels_last(SHAPE, torch.bfloat16, 2) if with_skip else None
     params = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
-    start = kbn.fused_bn_act.launches
+    start = LAUNCHES.copy()
     with torch.no_grad():
         got = kbn.fused_bn_act(y, *params, bn.eps, act, skip)
         assert torch.equal(got, eager(bn, y, act, skip))
         assert torch.equal(got, kbn.reference_bn_act(y, *params, bn.eps, act, skip))
-    assert kbn.fused_bn_act.launches == start  # no kernel on the CPU
+    assert LAUNCHES == start  # no kernel on the CPU
 
 
 def bad_operands():
@@ -189,7 +193,14 @@ def test_ssh_equals_relu_after_cat(dtype, leaky):
 
 
 def test_graphs_count_the_epilogue():
-    assert graphs.COUNTED["bn_act"] == (kbn.fused_bn_act, "launches")
+    """A replay of a graph that captured the epilogue adds its launches to
+    ``LAUNCHES`` by name, as the wrapper does where it runs."""
+    g = graphs.Graph(types.SimpleNamespace(replay=lambda: None), (), (),
+                     collections.Counter(bn_act=73), 0, 0.0)
+    start = LAUNCHES.copy()
+    g.replay()
+    g.replay()
+    assert LAUNCHES - start == collections.Counter(bn_act=146)
 
 
 def test_each_batchnorm_through_the_wrapper_once(monkeypatch):

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from fdtpu_torch.kernels import bn_act as kbn
+from fdtpu_torch.kernels import LAUNCHES
 from fdtpu_torch.models import Detector, build_model, layers
 from fdtpu_torch.utils.config import DetectorConfig, RetinaFaceConfig, SSDConfig
 
@@ -93,9 +94,9 @@ def run_both(shape, dtype, act, with_skip, device, seed, offset=0):
     y = activation(shape, dtype, device, seed + 1, offset)
     skip = activation(shape, dtype, device, seed + 2, offset) if with_skip else None
     with torch.inference_mode():
-        start = kbn.fused_bn_act.launches
+        start = LAUNCHES["bn_act"]
         got = kbn.fused_bn_act(y, *params, 1e-5, act, skip)
-        assert kbn.fused_bn_act.launches == start + 1
+        assert LAUNCHES["bn_act"] == start + 1
         with torch.backends.cudnn.flags(enabled=False):
             want = kbn.reference_bn_act(y, *params, 1e-5, act, skip)
         if dtype == torch.bfloat16:  # PyTorch's own choice: ATen's kernel too
@@ -148,9 +149,9 @@ def test_route_launches_the_kernel(card, dtype):
             p.copy_(v)
     y = activation((1, 64, 27, 27), dtype, card, 12)
     skip = activation((1, 64, 27, 27), dtype, card, 13)
-    start = kbn.fused_bn_act.launches
+    start = LAUNCHES["bn_act"]
     got = layers.bn_act(bn, y, 0.0, skip)
-    assert kbn.fused_bn_act.launches == start + 1
+    assert LAUNCHES["bn_act"] == start + 1
     with torch.backends.cudnn.flags(enabled=False):
         want = kbn.reference_bn_act(y, bn.weight, bn.bias, bn.running_mean, bn.running_var,
                                     bn.eps, 0.0, skip)
@@ -167,19 +168,19 @@ def test_route_raises_on_the_card_where_the_kernel_would(card, case):
     skip = y.contiguous() if case == "skip NCHW" else None
     y = {"NCHW": y.contiguous(), "channel slice": torch.cat([y, y], 1)[:, :64],
          "float16": y.half()}.get(case, y)
-    start = kbn.fused_bn_act.launches
+    start = LAUNCHES["bn_act"]
     with torch.no_grad(), pytest.raises(TypeError if case == "float16" else ValueError):
         layers.bn_act(bn, y, 0.0, skip)
-    assert kbn.fused_bn_act.launches == start
+    assert LAUNCHES["bn_act"] == start
 
 
 @pytest.mark.gpu
 def test_route_under_autograd_runs_the_eager_ops(card):
     bn = layers.BatchNorm(64, eps=1e-5).to(card)
     y = activation((2, 64, 9, 9), torch.float32, card, 15)
-    start = kbn.fused_bn_act.launches
+    start = LAUNCHES["bn_act"]
     got = layers.bn_act(bn, y, 0.1)
-    assert kbn.fused_bn_act.launches == start and got.requires_grad
+    assert LAUNCHES["bn_act"] == start and got.requires_grad
     assert torch.equal(got, kbn.reference_bn_act(y, bn.weight, bn.bias, bn.running_mean,
                                                  bn.running_var, bn.eps, 0.1))
     got.sum().backward()

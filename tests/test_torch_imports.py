@@ -50,8 +50,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "fdtpu"}
 
 @pytest.mark.parametrize("module", ["fdtpu_torch.kernels.photometric",
                                     "fdtpu_torch.kernels.epilogue",
+                                    "fdtpu_torch.kernels.launches",
                                     "fdtpu_torch.bench_pool_fusion",
-                                    "fdtpu_torch.bench_shear_designs",
                                     "fdtpu_torch.bench",
                                     "fdtpu_torch.train_model",
                                     "fdtpu_torch.run_validation_epoch",

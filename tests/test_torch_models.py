@@ -22,7 +22,7 @@ import torch
 from fdtpu.models import PoolResnet as JaxPoolResnet
 from fdtpu.utils.config import DetectorConfig as JaxDetectorConfig
 from fdtpu_torch.compat import poolresnet_state_dict
-from fdtpu_torch.kernels.conv_gemm import conv_gemm
+from fdtpu_torch.kernels import LAUNCHES
 from fdtpu_torch.models import SSD, Detector, PoolResnet, build_model
 from fdtpu_torch.utils.config import DetectorConfig
 
@@ -99,10 +99,10 @@ def test_forward_bf16_no_grad_matches_fdtpu():
     for b, gemms in ((1, 2), (5, 1)):
         x = images(b=b, seed=b)
         want = np.asarray(jm.apply(variables, jnp.asarray(x), train=False))
-        start = conv_gemm.launches
+        start = LAUNCHES["conv_gemm"]
         with torch.no_grad():
             got = det.net(torch.from_numpy(x))
-        assert conv_gemm.launches - start == gemms
+        assert LAUNCHES["conv_gemm"] - start == gemms
         np.testing.assert_allclose(got.numpy(), want, atol=BF16_ATOL, rtol=0)
 
 

@@ -21,6 +21,7 @@ from fdtpu.kernels import grid_decode_tables as jax_grid_tables
 from fdtpu.kernels import ssd_output_decode_tables as jax_ssd_output_tables
 from fdtpu_torch.core.nms import compact_boxes, decode_filter_nms
 from fdtpu_torch.kernels import nms as knms
+from fdtpu_torch.kernels import LAUNCHES
 
 SSD_PRIORS = 4774  # SSDConfig's (60, 30, 15, 7) patch sizes
 SSD_PRIORS_632 = 8204  # 79^2 + 39^2 + 19^2 + 9^2: past the kernel's shared-memory path
@@ -174,9 +175,9 @@ def test_core_wrapper_unbatched_and_batched():
 
 def test_wrapper_validates_and_cpu_never_counts():
     tables = knms.grid_decode_tables(10, (480, 480))
-    before = knms.decode_filter_nms_batch.launches
+    before = LAUNCHES.copy()
     knms.decode_filter_nms_batch(torch.zeros(2, 100, 5), tables, 0.5, 0.5, 8)
-    assert knms.decode_filter_nms_batch.launches == before
+    assert LAUNCHES == before
     with pytest.raises(TypeError):
         knms.decode_filter_nms_batch(torch.zeros(2, 100, 5, dtype=torch.float64), tables, 0.5, 0.5)
     with pytest.raises(ValueError):

@@ -4,6 +4,7 @@ against the plain float32 reference of the benchmark
 (``perfbench/reference/retinaface.py``) on the CPU: full depth at the
 reference's ``TINY`` widths and input, seeded weights."""
 
+import collections
 import itertools
 import json
 import math
@@ -20,6 +21,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from fdtpu_torch.core.priors import anchor_priors, feature_maps
 from fdtpu_torch.kernels import nms as knms
+from fdtpu_torch.kernels import LAUNCHES
 from fdtpu_torch.models import Detector, build_model
 from fdtpu_torch.utils import graphs, trace
 from fdtpu_torch.utils.config import RetinaFaceConfig
@@ -250,10 +252,10 @@ def test_landmarks_need_a_landmark_family():
 def test_replay_counts_scratch_launches_while_traced():
     """A graph that holds K1 on its scratch path adds its launches to the
     counter ``nms_scratch`` when replayed under a profiler, and only
-    then."""
-    per = {k: 0 for k in graphs.COUNTED}
-    per.update(decode_filter_nms=1, decode_filter_nms_scratch=1)
+    then; each replay adds them to ``LAUNCHES`` too."""
+    per = collections.Counter(decode_filter_nms=1, decode_filter_nms_scratch=1)
     g = graphs.Graph(types.SimpleNamespace(replay=lambda: None), (), (), per, 0, 0.0)
+    start = LAUNCHES.copy()
     trace.clear()
     g.replay()
     assert trace.counters() == {}
@@ -261,6 +263,8 @@ def test_replay_counts_scratch_launches_while_traced():
         g.replay()
         g.replay()
     assert trace.counters() == {"nms_scratch": 2}
+    assert LAUNCHES - start == collections.Counter(decode_filter_nms=3,
+                                                   decode_filter_nms_scratch=3)
     trace.clear()
 
 

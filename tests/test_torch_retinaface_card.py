@@ -15,8 +15,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from fdtpu_torch.kernels import nms as knms
+from fdtpu_torch.kernels import LAUNCHES
 from fdtpu_torch.models import Detector
-from fdtpu_torch.utils import graphs, trace
+from fdtpu_torch.utils import trace
 from perfbench import data, program, reference, weights
 from perfbench.reference.serve import frame_rows
 
@@ -54,9 +55,9 @@ def test_indexed_k1_on_scratch_equals_plain(card, b):
     rows = random_rows(b, N, card, seed=b)
     tables = knms.ssd_output_tables_on(N, (840, 840), card)
     assert N > knms.max_candidates(card.index or 0)
-    scratch = knms.decode_filter_nms_batch.scratch_launches
+    scratch = LAUNCHES["decode_filter_nms_scratch"]
     got = knms.decode_filter_nms_batch(rows, tables, 0.6, 0.4, 750, indexed=True)
-    assert knms.decode_filter_nms_batch.scratch_launches == scratch + 1
+    assert LAUNCHES["decode_filter_nms_scratch"] == scratch + 1
     cpu_tables = tuple(t.cpu() if isinstance(t, torch.Tensor) else t for t in tables)
     want = knms.decode_filter_nms_reference(rows.cpu(), cpu_tables, 0.6, 0.4, 750, indexed=True)
     for g, w in zip(got, want):
@@ -120,7 +121,7 @@ def test_nms_scratch_counter_one_a_replay(card):
             det.predict(frames[0])
     assert trace.counters().get("nms_scratch") == 3
     trace.clear()
-    start = graphs.REPLAYED["decode_filter_nms_scratch"]
+    start = LAUNCHES["decode_filter_nms_scratch"]
     det.predict(frames[0])  # tracing off: counted by the replay, not the tracer
-    assert graphs.REPLAYED["decode_filter_nms_scratch"] == start + 1
+    assert LAUNCHES["decode_filter_nms_scratch"] == start + 1
     assert trace.counters() == {}

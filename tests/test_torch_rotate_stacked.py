@@ -33,6 +33,7 @@ import torch
 
 from fdtpu.kernels import rotate_pallas as jrot
 from fdtpu_torch.kernels import rotate as rot
+from fdtpu_torch.kernels import LAUNCHES
 
 S = 64
 PAD = rot._pad_for(S)  # 24
@@ -92,17 +93,15 @@ def test_stacked_shear_matches_fdtpu(geometry, dtype):
 
 
 def test_stacked_launches_stay_zero_on_cpu():
-    """K4's layout on CPU tensors runs the plain version: neither
-    ``shear_rows.launches`` nor ``shear_rows.stacked_launches`` (its ``c = 1``
-    calls) moves, for ``shear_rows`` alone or through
-    ``rotate_batch_transposed``."""
+    """K4's layout on CPU tensors runs the plain version: no launch count
+    moves, ``LAUNCHES["shear_rows_stacked"]`` (its ``c = 1`` calls) among
+    them, for ``shear_rows`` alone or through ``rotate_batch_transposed``."""
     x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 64, 64, 3)).astype(np.float32))
     a = torch.tensor([0.1, -0.3])
-    before = (rot.shear_rows.launches, rot.shear_rows.stacked_launches, rot.shear_cols.launches)
+    before = LAUNCHES.copy()
     planes = x.permute(0, 3, 1, 2).reshape(2, 3 * 64, 64).contiguous()
     torch.testing.assert_close(rot.shear_rows(planes, a, 1, 64, 31.5),
                                rot.shear_rows_reference(planes, a, 1, 64, 31.5), rtol=0, atol=0)
     torch.testing.assert_close(rot.rotate_batch_transposed(x, a),
                                rot.rotate_batch_transposed_reference(x, a), rtol=0, atol=0)
-    assert (rot.shear_rows.launches, rot.shear_rows.stacked_launches,
-            rot.shear_cols.launches) == before
+    assert LAUNCHES == before

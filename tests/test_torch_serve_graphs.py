@@ -259,13 +259,6 @@ def test_capture_helper_raises_on_the_cpu():
         graphs.capture(lambda: x + 1, x.device)
     with pytest.raises(ValueError, match="needs a card"):
         graphs.warm_up(lambda: x + 1, x.device, 1)
-    # K1 is counted by replay (its global-scratch launches apart too) with
-    # the kernels a train step launches, and the narrow convolutions' GEMMs
-    # of a no-grad bf16 forward, and the fused BatchNorm epilogues of a forward
-    # without autograd
-    assert set(graphs.REPLAYED) == set(graphs.WARMED) == set(graphs.COUNTED) == {
-        "decode_filter_nms", "decode_filter_nms_scratch", "shear_rows", "shear_rows_stacked",
-        "shear_cols", "photometric", "conv_gemm", "bn_act"}
 
 
 @pytest.mark.parametrize("form", ["batch", "gather"])

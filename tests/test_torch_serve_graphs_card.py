@@ -7,6 +7,8 @@ the file runs on a machine without it: ``python -m pytest --noconftest
 tests/test_torch_serve_graphs_card.py``. ``chip_smoke.py`` phase 22 runs
 the full sweep at full width, phase 23 times the narrow convolutions."""
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,7 @@ import torch
 from fdtpu_torch.models import Detector, PoolResnet, build_model
 from fdtpu_torch.train import (CapturedEvalStep, CapturedTrainStep, create_train_state,
                                make_eval_step, make_train_step)
-from fdtpu_torch.utils import graphs
+from fdtpu_torch.kernels import LAUNCHES
 from fdtpu_torch.utils.config import DetectorConfig, SSDConfig, TrainConfig
 
 SIZE = (160, 160)
@@ -56,6 +58,21 @@ def test_predict_and_nms_replay_equal_eager(card):
         got = det.non_max_suppression(out)
         want = det._decode(out, det.probability_threshold, det.iou_threshold, det.nms_capacity)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_graph_keeps_the_launches_of_its_warm_up(card):
+    """A capture's warm-up runs the body twice (``capture_body``'s
+    default) and the graph keeps those launches (``Graph.warm_launches``);
+    the first ``predict`` adds them and one replay's to ``LAUNCHES``."""
+    torch.manual_seed(0)
+    det = Detector(PoolResnet(16, SIZE, 5, 2).to(card), nms_capacity=32)
+    start = LAUNCHES.copy()
+    det.predict(frames()[0])
+    (g,) = det._graphs.graphs.values()
+    assert g.per_replay["decode_filter_nms"] == 1
+    assert g.warm_launches == Counter({k: 2 * n for k, n in g.per_replay.items()})
+    assert LAUNCHES - start == g.warm_launches + g.per_replay
 
 
 @pytest.mark.gpu
@@ -131,7 +148,7 @@ def replay_kernel_names(det, frame, prob) -> set:
 def test_poolresnet_predict_graph_runs_its_narrow_convs_as_gemms(card):
     """The config of record's bf16 Detector (PoolResnet-128, 480 px, grid
     10): the predict graph captured the stem's and the head's GEMMs
-    (``conv_gemm``, 2 a replay, ``REPLAYED`` up by 2 a frame), its replay
+    (``conv_gemm``, 2 a replay, ``LAUNCHES`` up by 2 a frame), its replay
     runs no cuDNN ``precomputed_convolve`` kernel, equals the eager body
     bit for bit, and reads the serving copy's params as they are at the
     replay."""
@@ -147,9 +164,9 @@ def test_poolresnet_predict_graph_runs_its_narrow_convs_as_gemms(card):
     first = det.predict(frame, prob)
     (g,) = det._graphs.graphs.values()
     assert g.per_replay["conv_gemm"] == 2
-    start = graphs.REPLAYED["conv_gemm"]
+    start = LAUNCHES["conv_gemm"]
     names = replay_kernel_names(det, frame, prob)
-    assert graphs.REPLAYED["conv_gemm"] - start == 2
+    assert LAUNCHES["conv_gemm"] - start == 2
     assert names and not [n for n in names if "precomputed_convolve" in n]
     assert all(torch.equal(a, w[0]) for a, w in zip(first, eager()))
     with torch.no_grad():
@@ -182,7 +199,8 @@ def test_ssd_predict_and_train_step_graphs_run_no_gemm_form(card):
         images = torch.from_numpy(rng.integers(0, 256, (b, 480, 480, 3), dtype=np.uint8))
         boxes = torch.tensor([[[1.0, 100, 120, 80, 90]] * 4] * b)
         mask = torch.tensor([[True, False, False, False]] * b)
+        start = LAUNCHES["conv_gemm"]
         captured(state, images.to(card), boxes.to(card), mask.to(card))
         (g,) = captured.graphs.values()
         assert g.per_replay["conv_gemm"] == 0, family
-        assert captured.launches()["conv_gemm"] == 0, family
+        assert LAUNCHES["conv_gemm"] == start, family

@@ -7,6 +7,7 @@ step keep, and the benchmark's six readers of them
 machine without it: ``python -m pytest --noconftest
 tests/test_torch_trace.py``."""
 
+import collections
 import time
 import types
 
@@ -19,7 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 from fdtpu_torch.models import Detector, PoolResnet
 from fdtpu_torch.train.graphs import CapturedTrainStep
 from fdtpu_torch.utils import trace
-from fdtpu_torch.utils.graphs import COUNTED, Graph
+from fdtpu_torch.utils.graphs import Graph
 from perfbench.cell import reader
 
 SIZE = (160, 160)
@@ -71,7 +72,7 @@ def cpu_captured_step(monkeypatch):
 
     def graph(state, key, make_inputs, feed):
         return Graph(types.SimpleNamespace(replay=lambda: None), make_inputs(),
-                     {"loss": torch.ones(())}, {k: 0 for k in COUNTED}, 0, 0.0)
+                     {"loss": torch.ones(())}, collections.Counter(), 0, 0.0)
 
     monkeypatch.setattr(captured, "_graph", graph)
     batch = (torch.zeros(2, 4, 4, 3, dtype=torch.uint8), torch.zeros(2, 1, 5),
